@@ -1,0 +1,11 @@
+"""Model cores (functional: explicit parameter trees + apply functions)."""
+
+from .seq2seq import (  # noqa: F401
+    AuxHead,
+    Seq2SeqConfig,
+    decode_from_encoder,
+    decoder_teacher_forcing,
+    encode,
+    greedy_decode,
+    init_seq2seq,
+)

@@ -1,0 +1,451 @@
+"""Encoder-decoder seq2seq core, LSTM family, inference half.
+
+The twin of ``ecog2txt_tpu/models/seq2seq.py`` with the same parameter
+tree (nested dicts and lists, the same keys and shapes, weights stored
+(in, out)) and the same functions at the same layouts:
+
+* per-subject ``subnet``: a temporal conv of width == stride computed as
+  a reshape-GEMM, with the reference's input reversal fused in (weight
+  rows flipped inside each stride group, output reversed at the
+  decimated rate);
+* a bidirectional LSTM encoder stack (``ops.lstm``; with
+  ``use_pallas_lstm`` the recurrences run the Hopper kernel);
+* an attention-free (or Luong cross-attention) LSTM decoder started from
+  the encoder's final state, teacher-forced or greedy / temperature
+  sampled.
+
+Sequences are time-major ``(T, B, F)``.  Products round their operands
+to ``compute_dtype`` and accumulate in f32 (``ops.lstm.dot_f32``).
+Training (dropout, losses) and the conformer encoder family are later
+slices of the port: they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, NamedTuple
+
+import torch
+
+from .. import resolve_device
+from ..convert import tree_map
+from ..ops.lstm import (
+    bidirectional_lstm,
+    dot_f32,
+    init_lstm_params,
+    lstm_scan,
+    lstm_step,
+    reverse_padded,
+)
+
+_NOT_PORTED = "is not ported yet (see ROADMAP.md, Queue 1)"
+
+
+class AuxHead(NamedTuple):
+    """One auxiliary encoder target head (e.g. 'encoder_1_targets')."""
+
+    name: str
+    distribution: str  # 'categorical' | 'CTC' | 'Gaussian' | 'Rayleigh'
+    out_dim: int  # num classes or num features
+
+
+@dataclass(frozen=True)
+class Seq2SeqConfig:
+    vocab_size: int
+    num_subjects: int = 1
+    in_channels: int = 256  # common (padded) channel count
+    conv_sizes: tuple = (100,)
+    decimation_factor: int = 12
+    rnn_sizes: tuple = (400, 400, 400)
+    aux_proj_sizes: tuple = (225,)
+    aux_heads: tuple = ()  # tuple[AuxHead]
+    dec_embedding_size: int = 150
+    dec_rnn_sizes: tuple = (800,)
+    max_dec_len: int = 20
+    FF_dropout: float = 0.1
+    RNN_dropout: float = 0.5
+    temperature: float = 0.0  # 0 → greedy argmax
+    BIDIRECTIONAL: bool = True
+    # encoder recurrences as one Hopper kernel launch per direction
+    # (ops/lstm_kernels.py); the field keeps the JAX package's name so
+    # one manifest drives both packages
+    use_pallas_lstm: bool = False
+    encoder_type: str = "lstm"  # only 'lstm' in the port so far
+    conformer: Any = None
+    use_attention: bool = False
+    compute_dtype: torch.dtype = torch.float32
+    pad_id: int = 0
+    eos_id: int = 1
+
+    def __post_init__(self):
+        if self.encoder_type != "lstm":
+            raise NotImplementedError(
+                f"encoder_type={self.encoder_type!r} {_NOT_PORTED}"
+            )
+        if not isinstance(self.compute_dtype, torch.dtype):
+            raise TypeError(
+                f"compute_dtype must be a torch dtype; got {self.compute_dtype!r}"
+            )
+
+    @property
+    def conv_strides(self) -> tuple:
+        """Factor ``decimation_factor`` into one stride per conv layer
+        (near-equal factors)."""
+        if not self.conv_sizes:
+            return ()
+        remaining = self.decimation_factor
+        n = len(self.conv_sizes)
+        strides = []
+        for i in range(n, 0, -1):
+            s = max(int(round(remaining ** (1.0 / i))), 1)
+            while remaining % s and s > 1:
+                s -= 1
+            strides.append(s)
+            remaining //= s
+        strides[-1] *= remaining  # absorb any leftover
+        return tuple(strides)
+
+    @property
+    def enc_out_dim(self) -> int:
+        return self.rnn_sizes[-1] * (2 if self.BIDIRECTIONAL else 1)
+
+
+def _no_training(train: bool) -> None:
+    if train:
+        raise NotImplementedError(f"train=True (dropout, losses) {_NOT_PORTED}")
+
+
+def _dense_init(generator, in_dim, out_dim):
+    scale = (6.0 / (in_dim + out_dim)) ** 0.5
+    w = (torch.rand((in_dim, out_dim), generator=generator) * 2 - 1) * scale
+    return {"w": w, "b": torch.zeros(out_dim)}
+
+
+def _dense(params, x, compute_dtype=torch.float32):
+    return dot_f32(x, params["w"], compute_dtype) + params["b"]
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+
+def init_seq2seq(
+    config: Seq2SeqConfig,
+    generator: torch.Generator | None = None,
+    device="cuda",
+) -> dict:
+    """Parameter tree (subnet parameters carry a leading subject axis),
+    drawn from the CPU ``generator`` (seed 0 when None) and placed on
+    ``device``."""
+    dev = resolve_device(device)
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    params: dict[str, Any] = {}
+
+    # per-subject conv stack, stacked on axis 0
+    subnet_layers = []
+    in_dim = config.in_channels
+    for size, stride in zip(config.conv_sizes, config.conv_strides):
+        per_subject = [
+            _dense_init(g, in_dim * stride, size)
+            for _ in range(config.num_subjects)
+        ]
+        subnet_layers.append(
+            {k: torch.stack([p[k] for p in per_subject]) for k in ("w", "b")}
+        )
+        in_dim = size
+    params["subnet"] = {"conv": subnet_layers}
+
+    enc_layers = []
+    for size in config.rnn_sizes:
+        if config.BIDIRECTIONAL:
+            enc_layers.append(
+                {
+                    "fwd": init_lstm_params(g, in_dim, size, device="cpu"),
+                    "bwd": init_lstm_params(g, in_dim, size, device="cpu"),
+                }
+            )
+            in_dim = 2 * size
+        else:
+            enc_layers.append(
+                {"fwd": init_lstm_params(g, in_dim, size, device="cpu")}
+            )
+            in_dim = size
+    params["encoder"] = {"rnn": enc_layers}
+
+    # aux heads: MLP (aux_proj_sizes) → linear to target dim
+    aux = {}
+    for head in config.aux_heads:
+        hidden = []
+        dim = config.enc_out_dim
+        for size in config.aux_proj_sizes:
+            hidden.append(_dense_init(g, dim, size))
+            dim = size
+        aux[head.name] = {"mlp": hidden, "out": _dense_init(g, dim, head.out_dim)}
+    params["aux"] = aux
+
+    decoder: dict[str, Any] = {
+        "embedding": torch.randn(
+            (config.vocab_size, config.dec_embedding_size), generator=g
+        ) / config.dec_embedding_size ** 0.5,
+    }
+    dec_layers = []
+    in_dim = config.dec_embedding_size
+    for size in config.dec_rnn_sizes:
+        dec_layers.append(init_lstm_params(g, in_dim, size, device="cpu"))
+        in_dim = size
+    decoder["rnn"] = dec_layers
+    # bridge from encoder final state to decoder layer-0 state when the
+    # sizes differ (they match in the reference config: 2×400 = 800)
+    if config.enc_out_dim != config.dec_rnn_sizes[0]:
+        decoder["bridge_h"] = _dense_init(g, config.enc_out_dim, config.dec_rnn_sizes[0])
+        decoder["bridge_c"] = _dense_init(g, config.enc_out_dim, config.dec_rnn_sizes[0])
+    if config.use_attention:
+        decoder["attn"] = {
+            "wa": _dense_init(g, in_dim, config.enc_out_dim),
+            "wc": _dense_init(g, in_dim + config.enc_out_dim, in_dim),
+        }
+    decoder["out"] = _dense_init(g, in_dim, config.vocab_size)
+    params["decoder"] = decoder
+    return tree_map(lambda a: a.to(dev), params)
+
+
+# --------------------------------------------------------------------------
+# encoder
+# --------------------------------------------------------------------------
+
+
+def _select_subject(stacked, subject_idx):
+    return tree_map(lambda a: a[subject_idx], stacked)
+
+
+def convolve_sequences(
+    params: dict,
+    config: Seq2SeqConfig,
+    xs: torch.Tensor,  # (T, B, C) time-major
+    subject_idx,
+    train: bool = False,
+    reverse_lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-subject temporal conv stack (width == stride, 'VALID') as a
+    reshape-GEMM: (T, B, C) → (B, T/d, d·C) @ W_subject → relu.
+
+    With ``reverse_lengths``, ``xs`` is unreversed and the input
+    reversal is fused into the first layer: convolving the reversed
+    input equals convolving the raw input with the weight rows flipped
+    within each stride group and reversing the output at the decimated
+    rate (exactly, when valid lengths are stride multiples).  The input
+    is cast to ``compute_dtype`` first; no ``conv1d`` (cuDNN would run
+    an f32 conv in TF32)."""
+    _no_training(train)
+    for i, (layer, stride) in enumerate(
+        zip(params["subnet"]["conv"], config.conv_strides)
+    ):
+        w = _select_subject(layer, subject_idx)
+        T, B, C = xs.shape
+        F_out = w["w"].shape[-1]
+        wg = w["w"].reshape(stride, C, F_out)
+        if reverse_lengths is not None and i == 0:
+            wg = wg.flip(0)
+        T_out = T // stride
+        # batch-major (B, T'·stride, C) → (B, T', stride·C) is a view
+        # when the batch-major input is contiguous (encode's inputs are)
+        xb = xs.transpose(0, 1)[:, : T_out * stride].to(config.compute_dtype)
+        out = dot_f32(
+            xb.reshape(B, T_out, stride * C),
+            wg.reshape(stride * C, F_out),
+            config.compute_dtype,
+        )  # (B, T', F) f32
+        xs = torch.relu(out + w["b"]).transpose(0, 1)
+        if reverse_lengths is not None and i == 0:
+            lens0 = torch.clamp(
+                (reverse_lengths + stride - 1) // stride, max=T_out
+            )
+            xs = reverse_padded(xs, lens0)
+    return xs
+
+
+def encode(
+    params: dict,
+    config: Seq2SeqConfig,
+    inputs: torch.Tensor,  # (B, T, C) batch-major raw
+    lengths: torch.Tensor,  # (B,)
+    subject_idx,
+    train: bool = False,
+):
+    """Full encoder: reversal → conv → biLSTM stack.
+
+    Returns (enc_outputs (T', B, 2H), final (h, c) (B, 2H),
+    enc_lengths (B,))."""
+    _no_training(train)
+    xs = inputs.transpose(0, 1)  # (T, B, C)
+    if config.conv_sizes:
+        xs = convolve_sequences(
+            params, config, xs, subject_idx, reverse_lengths=lengths
+        )
+    else:
+        # no-conv experiment variant: plain strided decimation
+        xs = reverse_padded(xs, lengths)
+        d0 = config.decimation_factor
+        xs = xs[: (xs.shape[0] // d0) * d0 : d0]
+    d = config.decimation_factor
+    enc_lengths = torch.clamp((lengths + d - 1) // d, max=xs.shape[0])
+
+    out = xs
+    final_h = final_c = None
+    for layer in params["encoder"]["rnn"]:
+        if config.BIDIRECTIONAL:
+            out, (final_h, final_c) = bidirectional_lstm(
+                layer["fwd"], layer["bwd"], out, enc_lengths, None,
+                config.compute_dtype, use_pallas=config.use_pallas_lstm,
+            )
+        else:
+            out, (final_h, final_c) = lstm_scan(
+                layer["fwd"], out, enc_lengths, None, None,
+                config.compute_dtype, use_pallas=config.use_pallas_lstm,
+            )
+    return out, (final_h, final_c), enc_lengths
+
+
+def _decoder_init_state(params: dict, config: Seq2SeqConfig, enc_final):
+    h, c = enc_final
+    decoder = params["decoder"]
+    if "bridge_h" in decoder:
+        h = torch.tanh(_dense(decoder["bridge_h"], h, config.compute_dtype))
+        c = torch.tanh(_dense(decoder["bridge_c"], c, config.compute_dtype))
+    states = [(h, c)]
+    B = h.shape[0]
+    for size_params in decoder["rnn"][1:]:
+        H = size_params["wh"].shape[0]
+        zeros = torch.zeros((B, H), dtype=torch.float32, device=h.device)
+        states.append((zeros, zeros))
+    return states
+
+
+def _attend(
+    attn_params,
+    h_dec: torch.Tensor,  # (..., B, H_dec) decoder states
+    enc_out: torch.Tensor,  # (T', B, E)
+    enc_lengths: torch.Tensor,  # (B,)
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """Luong general attention + combine: softmax((h Wa) · enc) over
+    valid encoder steps → tanh(Wc [h; context])."""
+    enc = enc_out.float()
+    query = _dense(attn_params["wa"], h_dec, compute_dtype)  # (..., B, E)
+    scores = torch.einsum("...be,tbe->...bt", query, enc)
+    valid = (
+        torch.arange(enc.shape[0], device=enc.device)[None, :]
+        < enc_lengths[:, None]
+    )  # (B, T')
+    scores = torch.where(valid, scores, -1e9)
+    weights = torch.softmax(scores, dim=-1)
+    context = torch.einsum("...bt,tbe->...be", weights, enc)
+    combined = torch.cat([h_dec, context], dim=-1)
+    return torch.tanh(_dense(attn_params["wc"], combined, compute_dtype))
+
+
+# --------------------------------------------------------------------------
+# decoder
+# --------------------------------------------------------------------------
+
+
+def decoder_teacher_forcing(
+    params: dict,
+    config: Seq2SeqConfig,
+    enc_final,
+    targets: torch.Tensor,  # (B, L) EOS-terminated, pad-padded
+    train: bool = False,
+    enc_out: torch.Tensor | None = None,  # (T', B, E) for attention
+    enc_lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Teacher-forced logits (L, B, V).  Decoder inputs are the targets
+    shifted right behind an initial ``<pad>``."""
+    _no_training(train)
+    decoder = params["decoder"]
+    targets = targets.long()
+    shifted = torch.cat(
+        [torch.full_like(targets[:, :1], config.pad_id), targets[:, :-1]],
+        dim=1,
+    )
+    out = decoder["embedding"][shifted].transpose(0, 1)  # (L, B, E)
+    states = _decoder_init_state(params, config, enc_final)
+    for li, layer in enumerate(decoder["rnn"]):
+        # decoder sequences are short and wide: the step loop, not the
+        # kernel (as in the JAX package)
+        out, _ = lstm_scan(layer, out, None, states[li], None, config.compute_dtype)
+    if config.use_attention:
+        out = _attend(
+            decoder["attn"], out, enc_out, enc_lengths, config.compute_dtype
+        )
+    return _dense(decoder["out"], out, config.compute_dtype)
+
+
+def greedy_decode(
+    params: dict,
+    config: Seq2SeqConfig,
+    inputs: torch.Tensor,  # (B, T, C)
+    lengths: torch.Tensor,
+    subject_idx,
+    generator: torch.Generator | None = None,
+    temperature: float | None = None,
+) -> torch.Tensor:
+    """Free-running decode to ``max_dec_len``: argmax when temperature is
+    0/None, else temperature sampling.  Fixed length with a finished
+    mask (EOS reached → emits pad).  Returns (B, max_dec_len) int32."""
+    if temperature is None:
+        temperature = config.temperature
+    enc_out, enc_final, enc_lengths = encode(
+        params, config, inputs, lengths, subject_idx
+    )
+    return decode_from_encoder(
+        params, config, enc_out, enc_final, enc_lengths, generator, temperature
+    )
+
+
+def decode_from_encoder(
+    params: dict,
+    config: Seq2SeqConfig,
+    enc_out: torch.Tensor,  # (T', B, E)
+    enc_final,
+    enc_lengths: torch.Tensor,
+    generator: torch.Generator | None = None,
+    temperature: float = 0.0,
+) -> torch.Tensor:
+    """Free-running decode from already-computed encoder state.
+
+    Sampling draws Gumbel noise from ``generator``, which must live on
+    the device of ``enc_out`` (seed 0 there when None)."""
+    decoder = params["decoder"]
+    states = _decoder_init_state(params, config, enc_final)
+    B = enc_out.shape[1]
+    dev = enc_out.device
+    sample = bool(temperature) and temperature > 0
+    if sample and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    token = torch.full((B,), config.pad_id, dtype=torch.long, device=dev)
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    tokens = []
+    for _ in range(config.max_dec_len):
+        out = decoder["embedding"][token]  # (B, E)
+        new_states = []
+        for layer, st in zip(decoder["rnn"], states):
+            st_new, out = lstm_step(layer, st, out, None, config.compute_dtype)
+            new_states.append(st_new)
+        states = new_states
+        if config.use_attention:
+            out = _attend(
+                decoder["attn"], out, enc_out, enc_lengths, config.compute_dtype
+            )
+        logits = _dense(decoder["out"], out, config.compute_dtype)  # (B, V)
+        if sample:
+            u = torch.rand(logits.shape, generator=generator, device=dev)
+            u = u.clamp_min(torch.finfo(u.dtype).tiny)
+            nxt = torch.argmax(logits / temperature - torch.log(-torch.log(u)), dim=-1)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        emitted = torch.where(finished, config.pad_id, nxt)
+        finished = finished | (nxt == config.eos_id)
+        token = emitted
+        tokens.append(emitted)
+    return torch.stack(tokens, dim=1).to(torch.int32)  # (B, L)

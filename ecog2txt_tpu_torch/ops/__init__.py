@@ -1,0 +1,10 @@
+"""Compute ops: step-loop recurrences and the hand-written CUDA kernels."""
+
+from .lstm import (  # noqa: F401
+    bidirectional_lstm,
+    init_lstm_params,
+    lstm_scan,
+    lstm_step,
+    reverse_padded,
+)
+from .lstm_kernels import lstm_recurrence, lstm_recurrence_reference  # noqa: F401
