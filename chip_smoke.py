@@ -5,14 +5,19 @@
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. environment: the card's name and power limit, CUDA / nvcc / triton
-   versions, and the time to build the kernels from ``csrc/``;
-2. kernels: every kernel against its plain PyTorch version on the card,
-   at the serving shapes (H=400, T'=104, B in {1, 256}), forward and
-   reverse time, f32 and bf16, ragged lengths, a mask that is not all
-   ones and a nonzero initial state; then CUDA-event timings of the
-   kernel, its plain version and a one-call library yardstick, beside
-   the least time the card could take (``bound_ms``);
-3. serving (the main path): the full-width biLSTM model of the JAX
+   versions, and the time to build the kernels from ``csrc/`` (one nvcc
+   per source, all started together);
+2. kernels: every kernel against its plain PyTorch version on the card.
+   The forward recurrence K1f at the serving shapes (H=400, T'=104, B in
+   {1, 256}); the adjoint K1b at the full-width training shapes (B in
+   {16, 256}); both at the demo trainer's own shapes (B=16, H=64, the
+   demo's T').  Forward and reverse time, f32 and bf16, ragged lengths,
+   a mask that is not all ones, a nonzero initial state (and nonzero
+   upstream gradients for K1b); then the autograd Function's gradients
+   against autograd through the plain forward at f32.  CUDA-event timings of
+   each kernel, its plain version and a one-call library yardstick,
+   beside the least time the card could take (``bound_ms``);
+3. serving (a main path): the full-width biLSTM model of the JAX
    package's benchmark configuration (469 channels, conv 100 / stride
    12, 3x400 biLSTM, LSTM-800 decoder, vocab 1809, bf16, random weights
    from seed 0) answers single utterances of 1248, 1000 and 600 samples
@@ -23,7 +28,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    path (bf16 tolerance), and at f32 the kernel path's tokens must equal
    the plain path's.  Last, one B=1 and one B=256 request run under
    ``torch.profiler``: device time by kernel category beside wall time;
-4. the ``kernels`` JSON line, the card's name and power limit, and as
+4. training (a main path): the same model with dropout on, B=256 x 1248
+   samples from a random device-resident corpus of 450 trials (seed 0),
+   a few steps of the port's segment runner (loss, gradients through
+   K1f and K1b, clip, Adam, EMA).  Each step must launch K1f and K1b 6
+   times each, and the loss must stay finite and fall.  Then ms per
+   step and sentences/s, one step under ``torch.profiler``, and at f32
+   the kernel path's loss and gradient leaves against the plain path's
+   on one batch with the same dropout masks;
+5. the trainer (a main path): ``MultiSubjectTrainer`` on the synthetic
+   demo experiment at its own widths, bf16, kernels on, trained through
+   ``parallel_transfer_learn`` for a few assessment intervals: training
+   WER must fall, and K1b must launch 2 x len(encoder_rnn) times per
+   step.  One validation trial is then served through
+   ``OnlinePredictor.from_trainer``;
+6. the ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is
@@ -36,20 +55,30 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from ecog2txt_tpu_torch.convert import tree_leaves, tree_map
+from ecog2txt_tpu_torch.demo import make_demo_experiment
 from ecog2txt_tpu_torch.models.seq2seq import (
     AuxHead,
     Seq2SeqConfig,
     encode,
     init_seq2seq,
+    seq2seq_loss,
 )
 from ecog2txt_tpu_torch.ops import _build, lstm_kernels
 from ecog2txt_tpu_torch.ops.lstm import init_lstm_params
 from ecog2txt_tpu_torch.serve import OnlinePredictor, StreamingSession
+from ecog2txt_tpu_torch.train import (
+    MultiSubjectTrainer,
+    TrainState,
+    make_optimizer,
+    make_segment_runner,
+)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -63,6 +92,8 @@ TOL = {
 }
 LAUNCHES_PER_ENCODE = 6  # 3 layers x 2 directions
 ENCODES_PER_CALL = 2  # greedy decode, then the teacher-forced probabilities
+N_TRIALS, T_RAW, B_TRAIN, TRAIN_STEPS = 450, 1248, 256, 5  # training phase
+PENALTIES = {"encoder_1_targets": 1.0, "decoder_targets": 1.0}
 
 
 class SmokeFailure(RuntimeError):
@@ -97,14 +128,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict):
-    """Max abs / rel error; fails unless |got-want| <= atol + rtol|want|."""
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict,
+            normwise: bool = False):
+    """Max abs / rel error; fails unless |got-want| <= atol + rtol|want|
+    elementwise, or with ``normwise`` <= atol + rtol max|want| (for
+    gradients that are sums over thousands of products taken in another
+    order, whose elementwise error follows the sum's scale, not the
+    element's)."""
     g, w = got.float(), want.float()
     check(g.shape == w.shape, f"{name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
     diff = (g - w).abs()
     max_abs = float(diff.max()) if diff.numel() else 0.0
     max_rel = float((diff / w.abs().clamp_min(1e-6)).max()) if diff.numel() else 0.0
-    ok = bool((diff <= tol["atol"] + tol["rtol"] * w.abs()).all())
+    scale = w.abs().max() if normwise and w.numel() else w.abs()
+    ok = bool((diff <= tol["atol"] + tol["rtol"] * scale).all())
     check(bool(torch.isfinite(g).all()), f"{name}: non-finite values")
     check(ok, f"{name}: max abs err {max_abs:.3e}, max rel err {max_rel:.3e} "
                f"beyond rtol {tol['rtol']} / atol {tol['atol']}")
@@ -136,9 +173,9 @@ def environment() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.load_library("lstm_recurrence")
+    names = _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"kernel build: lstm_recurrence {build_s:.2f} s")
+    print(f"kernel build: {', '.join(names)} {build_s:.2f} s (in parallel)")
     return {"build_s": build_s}
 
 
@@ -147,25 +184,29 @@ def environment() -> dict:
 # --------------------------------------------------------------------------
 
 
-def _recurrence_inputs(B, dtype, variant, reverse_time, seed):
+def _recurrence_inputs(B, dtype, variant, reverse_time, seed, h=H, steps=T_STEPS):
+    """Inputs of one recurrence of width ``h`` over ``steps`` steps; the
+    input width is the full-width model's where ``h`` is its width, else
+    that of a layer above a biLSTM of width ``h``."""
+    in_dim = IN_DIM if h == H else 2 * h
     g = torch.Generator().manual_seed(seed)
-    p = init_lstm_params(g, IN_DIM, H, device="cuda")
-    xs = torch.randn((T_STEPS, B, IN_DIM), generator=g).cuda()
+    p = init_lstm_params(g, in_dim, h, device="cuda")
+    xs = torch.randn((steps, B, in_dim), generator=g).cuda()
     xw = (xs @ p["wx"] + p["b"]).to(dtype).contiguous()
     wh = p["wh"].to(dtype).contiguous()
-    zeros = torch.zeros((B, H), device="cuda")
+    zeros = torch.zeros((B, h), device="cuda")
     if variant == "serving":
-        lengths = torch.full((B,), T_STEPS, dtype=torch.int32)
+        lengths = torch.full((B,), steps, dtype=torch.int32)
         mask, h0, c0 = torch.ones_like(zeros), zeros, zeros
     else:
-        lengths = torch.randint(1, T_STEPS + 1, (B,), generator=g, dtype=torch.int32)
-        lengths[0] = T_STEPS // 2 + 1
-        mask = (torch.rand((B, H), generator=g) < 0.5).float().cuda() * 2.0
+        lengths = torch.randint(1, steps + 1, (B,), generator=g, dtype=torch.int32)
+        lengths[0] = steps // 2 + 1
+        mask = (torch.rand((B, h), generator=g) < 0.5).float().cuda() * 2.0
         if reverse_time:  # the reverse-time recurrence takes a zero state
             h0 = c0 = zeros
         else:
-            h0 = (torch.randn((B, H), generator=g) * 0.5).cuda()
-            c0 = (torch.randn((B, H), generator=g) * 0.5).cuda()
+            h0 = (torch.randn((B, h), generator=g) * 0.5).cuda()
+            c0 = (torch.randn((B, h), generator=g) * 0.5).cuda()
     return xw, wh, lengths.cuda(), h0, c0, mask
 
 
@@ -204,36 +245,51 @@ def _bound(B: int, dtype) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def kernel_phase() -> dict:
-    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    timings = {}
-    seed = 0
-    for B in (1, 256):
+def _cases(shapes):
+    """Every (B, h, steps, dtype, reverse_time, variant) checked at
+    ``shapes``: forward and reverse time, f32 and bf16, full lengths
+    with a unit mask and zero state, and ragged lengths with a 0/2 mask
+    and (forward time) a nonzero state."""
+    for B, h, steps in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             for reverse_time in (False, True):
                 for variant in ("serving", "ragged_mask_state"):
-                    seed += 1
-                    args = _recurrence_inputs(B, dtype, variant, reverse_time, seed)
-                    with_c = variant != "serving"
-                    got = lstm_kernels.lstm_recurrence(
-                        *args, reverse_time=reverse_time, return_c_seq=with_c
-                    )
-                    want = lstm_kernels.lstm_recurrence_reference(
-                        *args, reverse_time=reverse_time, return_c_seq=with_c
-                    )
-                    torch.cuda.synchronize()
-                    case = (f"B={B} {str(dtype)[6:]} "
-                            f"{'reverse' if reverse_time else 'forward'} {variant}")
-                    worst = (0.0, 0.0)
-                    for name, g, w in zip(("h_seq", "c_seq", "hT", "cT"), got, want):
-                        if w is None:
-                            continue
-                        a, r = compare(f"{case} {name}", g, w, TOL[dtype])
-                        worst = (max(worst[0], a), max(worst[1], r))
-                    errs[dtype] = max(errs[dtype], worst[0])
-                    print(f"kernel lstm_recurrence_fwd {case}: max abs err "
-                          f"{worst[0]:.3e}, max rel err {worst[1]:.3e}")
+                    yield B, h, steps, dtype, reverse_time, variant
 
+
+def _case_name(B, h, steps, dtype, reverse_time, variant) -> str:
+    return (f"B={B} H={h} T'={steps} {str(dtype)[6:]} "
+            f"{'reverse' if reverse_time else 'forward'} {variant}")
+
+
+def kernel_phase(extra_shapes) -> dict:
+    """K1f against its plain version at the serving shapes and at
+    ``extra_shapes`` (B, H, T'), then its timings at the serving shapes."""
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    timings = {}
+    shapes = [(1, H, T_STEPS), (256, H, T_STEPS), *extra_shapes]
+    for seed, (B, h, steps, dtype, reverse_time, variant) in enumerate(_cases(shapes), 1):
+        args = _recurrence_inputs(B, dtype, variant, reverse_time, seed, h, steps)
+        with_c = variant != "serving"
+        got = lstm_kernels.lstm_recurrence(
+            *args, reverse_time=reverse_time, return_c_seq=with_c
+        )
+        want = lstm_kernels.lstm_recurrence_reference(
+            *args, reverse_time=reverse_time, return_c_seq=with_c
+        )
+        torch.cuda.synchronize()
+        case = _case_name(B, h, steps, dtype, reverse_time, variant)
+        worst = (0.0, 0.0)
+        for name, g, w in zip(("h_seq", "c_seq", "hT", "cT"), got, want):
+            if w is None:
+                continue
+            a, r = compare(f"{case} {name}", g, w, TOL[dtype])
+            worst = (max(worst[0], a), max(worst[1], r))
+        errs[dtype] = max(errs[dtype], worst[0])
+        print(f"kernel lstm_recurrence_fwd {case}: max abs err "
+              f"{worst[0]:.3e}, max rel err {worst[1]:.3e}")
+
+    for B in (1, 256):
         # timings at the serving shape: bf16, full lengths, unit mask, zero state
         args = _recurrence_inputs(B, torch.bfloat16, "serving", False, 1000 + B)
         kernel_ms = cuda_ms(lambda: lstm_kernels.lstm_recurrence(*args), reps=20)
@@ -269,6 +325,134 @@ def kernel_phase() -> dict:
               f"bound {bound_ms:.4f} ms ({bound_by})"
               + (f", rows/block sweep {t['rows_per_block_ms']}" if B > 1 else ""))
     return {"errs": errs, "timings": timings}
+
+
+def _adjoint_inputs(B, dtype, variant, reverse_time, seed, h=H, steps=T_STEPS):
+    """K1b's inputs from a real forward pass (the plain version), with
+    nonzero upstream gradients dhseq, dhT and dcT."""
+    xw, wh, lengths, h0, c0, mask = _recurrence_inputs(
+        B, dtype, variant, reverse_time, seed, h, steps
+    )
+    h_seq, c_seq, _, _ = lstm_kernels.lstm_recurrence_reference(
+        xw, wh, lengths, h0, c0, mask, reverse_time, return_c_seq=True
+    )
+    hprev = lstm_kernels._shifted(h_seq, h0, reverse_time)
+    cprev = lstm_kernels._shifted(c_seq, c0, reverse_time)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dhseq = torch.randn(h_seq.shape, generator=g, device="cuda").to(dtype)
+    dhT = torch.randn((B, h), generator=g, device="cuda")
+    dcT = torch.randn((B, h), generator=g, device="cuda")
+    return xw, wh, hprev, cprev, c_seq, lengths, mask, dhseq, dhT, dcT
+
+
+def _bwd_bound(B: int, dtype) -> tuple[float, str]:
+    """Least time (ms) for one training-shape K1b launch: both products
+    per step (4 T' B H 4H FLOPs) at the card's peak for the type, or the
+    bytes that must move (xw, hprev, cprev, cseq, dhseq, wh, lengths,
+    mask, dhT, dcT read once; dgates, dh0, dc0 written once) at the HBM
+    rate, whichever is larger."""
+    es = torch.finfo(dtype).bits // 8
+    flops = 4.0 * T_STEPS * B * H * 4 * H
+    nbytes = (
+        2 * T_STEPS * B * 4 * H * es + 4 * T_STEPS * B * H * es
+        + H * 4 * H * es + 4 * B + 5 * B * H * 4
+    )
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _library_lstm_bwd_ms(xw, wh, dhseq) -> float:
+    """cuDNN ``nn.LSTM`` backward on the same xw and upstream gradient:
+    (forward + backward) - forward, CUDA events.  It also computes the
+    weight gradients (input and recurrent), which K1b leaves to a GEMM."""
+    lstm = _library_lstm(wh)
+    x = xw.detach().clone().requires_grad_()
+
+    def fwd():
+        lstm(x)
+
+    def fwd_bwd():
+        out, _ = lstm(x)
+        out.backward(dhseq)
+
+    with torch.enable_grad():
+        both = cuda_ms(fwd_bwd, reps=20)
+        fwd_ms = cuda_ms(fwd, reps=20)
+    return both - fwd_ms
+
+
+def kernel_bwd_phase(extra_shapes) -> dict:
+    """K1b against its plain version at the full-width training shapes
+    and at ``extra_shapes`` (B, H, T'), the autograd Function against
+    autograd through the plain forward, and K1b's timings."""
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    shapes = [(16, H, T_STEPS), (B_TRAIN, H, T_STEPS), *extra_shapes]
+    for seed, (B, h, steps, dtype, reverse_time, variant) in enumerate(_cases(shapes), 101):
+        args = _adjoint_inputs(B, dtype, variant, reverse_time, seed, h, steps)
+        got = lstm_kernels.lstm_recurrence_bwd(*args, reverse_time=reverse_time)
+        want = lstm_kernels.lstm_recurrence_bwd_reference(*args, reverse_time=reverse_time)
+        torch.cuda.synchronize()
+        case = _case_name(B, h, steps, dtype, reverse_time, variant)
+        worst = (0.0, 0.0)
+        for name, g, w in zip(("dgates", "dh0", "dc0"), got, want):
+            a, r = compare(f"{case} {name}", g, w, TOL[dtype])
+            worst = (max(worst[0], a), max(worst[1], r))
+        errs[dtype] = max(errs[dtype], worst[0])
+        print(f"kernel lstm_recurrence_bwd {case}: max abs err "
+              f"{worst[0]:.3e}, max rel err {worst[1]:.3e}")
+
+    # the autograd Function (K1f forward, K1b backward) at f32; dwh sums
+    # T'·B products in another order than autograd's per-step sums, so
+    # gradients are held normwise
+    grad_err = 0.0
+    for reverse_time in (False, True):
+        xw, wh, lengths, h0, c0, mask = _recurrence_inputs(
+            16, torch.float32, "ragged_mask_state", reverse_time, 200 + reverse_time
+        )
+        w_out = torch.randn((H,), generator=torch.Generator().manual_seed(3)).cuda()
+
+        def grads(fn):
+            leaves = [a.detach().clone().requires_grad_() for a in (xw, wh, h0, c0)]
+            out, hT, cT = fn(*leaves)
+            ((out * w_out).sum() + 2.0 * hT.sum() + 0.5 * (cT ** 2).sum()).backward()
+            return [a.grad for a in leaves]
+
+        got = grads(lambda x, w, h, c: lstm_kernels.fused_lstm_recurrence(
+            x, w, lengths, h, c, mask, reverse_time))
+
+        def plain(x, w, h, c):
+            h_seq, _, hT, cT = lstm_kernels.lstm_recurrence_reference(
+                x, w, lengths, h, c, mask, reverse_time)
+            return h_seq, hT, cT
+
+        want = grads(plain)
+        for name, g, w in zip(("xw", "wh", "h0", "c0"), got, want):
+            a, _ = compare(f"Function grad {name} "
+                           f"{'reverse' if reverse_time else 'forward'}", g, w,
+                           TOL[torch.float32], normwise=True)
+            grad_err = max(grad_err, a)
+    print(f"autograd Function (K1f + K1b) vs autograd through the plain forward, "
+          f"f32 B=16: max abs err {grad_err:.3e}")
+
+    timings = {}
+    for B in (16, 256):
+        args = _adjoint_inputs(B, torch.bfloat16, "serving", False, 1000 + B)
+        kernel_ms = cuda_ms(lambda: lstm_kernels.lstm_recurrence_bwd(*args), reps=20)
+        plain_ms = cuda_ms(
+            lambda: lstm_kernels.lstm_recurrence_bwd_reference(*args), reps=3, warmup=1
+        )
+        library_ms = _library_lstm_bwd_ms(args[0], args[1], args[7])
+        bound_ms, bound_by = _bwd_bound(B, torch.bfloat16)
+        timings[B] = {
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print(f"timing lstm_recurrence_bwd B={B} T'={T_STEPS} H={H} bf16: "
+              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"(cuDNN nn.LSTM backward, with weight gradients) {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"errs": errs, "grad_err": grad_err, "timings": timings}
 
 
 # --------------------------------------------------------------------------
@@ -320,6 +504,7 @@ def serving_phase() -> dict:
 
     # ---- the main path: counts reset just before, read just after ----
     lstm_kernels.lstm_recurrence.launches = 0
+    lstm_kernels.lstm_recurrence_bwd.launches = 0
     calls = 0
     out, warm_s = timed(singles[0])
     calls += 1
@@ -342,7 +527,9 @@ def serving_phase() -> dict:
     streamed = session.decode()
     calls += 1
     launches = lstm_kernels.lstm_recurrence.launches
+    bwd_launches = lstm_kernels.lstm_recurrence_bwd.launches
     # ------------------------------------------------------------------
+    check(bwd_launches == 0, f"serving launched the adjoint kernel {bwd_launches} times")
     expected = calls * ENCODES_PER_CALL * LAUNCHES_PER_ENCODE
     check(launches == expected,
           f"recurrence kernel launched {launches} times in {calls} predictor "
@@ -390,7 +577,8 @@ def serving_phase() -> dict:
               f"f32 tokens of {len(x)} samples: kernel path != plain path")
     print(f"f32 encoder, kernel vs plain path: max abs err {f32_err:.3e}; "
           "greedy tokens identical")
-    profile_requests(predictor, {"B=1": singles[0], "B=256": batch})
+    profile_call("B=1", lambda: predictor(singles[0]))
+    profile_call("B=256", lambda: predictor(batch))
     return {
         "launches": launches, "calls": calls, "latency_s": latencies,
         "batch_s": batch_s, "enc_err_bf16": enc_err, "enc_err_f32": f32_err,
@@ -399,7 +587,9 @@ def serving_phase() -> dict:
 
 def _category(kernel: str) -> str:
     if "lstm_recurrence_fwd" in kernel:
-        return "recurrence kernel"
+        return "K1f"
+    if "lstm_recurrence_bwd" in kernel:
+        return "K1b"
     if "Memcpy" in kernel or "Memset" in kernel:
         return "memcpy"
     if any(k in kernel.lower() for k in ("gemm", "xmma", "cutlass", "cublas")):
@@ -407,32 +597,210 @@ def _category(kernel: str) -> str:
     return "other kernels"
 
 
-def profile_requests(predictor, requests: dict) -> None:
-    """Where a request's device time goes: one warmed-up predictor call
-    under ``torch.profiler``, device time summed by kernel category,
-    beside the call's wall time (the profiler adds host overhead)."""
+def profile_call(name: str, fn, need=("K1f",)) -> dict:
+    """Where one warmed-up call's device time goes: ``fn`` under
+    ``torch.profiler``, device time summed by kernel category, beside
+    the call's wall time (the profiler adds host overhead)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name, x in requests.items():
-        predictor(x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            predictor(x)
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        by_cat: dict[str, float] = {}
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA:
-                cat = _category(ev.key)
-                by_cat[cat] = by_cat.get(cat, 0.0) + ev.self_device_time_total / 1e3
-        busy = sum(by_cat.values())
-        check(by_cat.get("recurrence kernel", 0.0) > 0.0,
-              f"profile {name}: no recurrence kernel time in the trace")
-        print(f"profile {name}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-              f"({100 * busy / wall_ms:.1f} %): "
-              + ", ".join(f"{k} {v:.3f} ms" for k, v in
-                          sorted(by_cat.items(), key=lambda kv: -kv[1])))
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_cat: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            cat = _category(ev.key)
+            by_cat[cat] = by_cat.get(cat, 0.0) + ev.self_device_time_total / 1e3
+    busy = sum(by_cat.values())
+    for cat in need:
+        check(by_cat.get(cat, 0.0) > 0.0, f"profile {name}: no {cat} time in the trace")
+    print(f"profile {name}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall_ms:.1f} %): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                      sorted(by_cat.items(), key=lambda kv: -kv[1])))
+    return {"wall_ms": wall_ms, "busy_ms": busy, **by_cat}
+
+
+# --------------------------------------------------------------------------
+# 4. training: the main path
+# --------------------------------------------------------------------------
+
+
+def _random_corpus(config: Seq2SeqConfig) -> dict:
+    """A device-resident corpus of N_TRIALS random trials (seed 0) in the
+    trainer's layout: one subject axis, ECoG in bf16, ragged lengths,
+    EOS-terminated pad-padded decoder targets, frame-aligned aux labels."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dev = "cuda"
+    shape = (1, N_TRIALS)
+    enc = torch.randn(shape + (T_RAW, config.in_channels), generator=g, device=dev)
+    L = config.max_dec_len
+    dec_len = torch.randint(4, L + 1, shape, generator=g, device=dev, dtype=torch.int32)
+    dec = torch.randint(3, config.vocab_size, shape + (L,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos = torch.arange(L, device=dev)
+    dec = torch.where(pos == dec_len[..., None] - 1, config.eos_id, dec)
+    dec = torch.where(pos >= dec_len[..., None], config.pad_id, dec)
+    return {
+        "encoder_inputs": enc.to(torch.bfloat16),
+        "encoder_lengths": torch.randint(T_RAW // 2, T_RAW + 1, shape, generator=g,
+                                         device=dev, dtype=torch.int32),
+        "decoder_targets": dec,
+        "decoder_lengths": dec_len,
+        "encoder_1_targets": torch.randint(0, 45, shape + (T_RAW,), generator=g,
+                                           device=dev, dtype=torch.int32),
+    }
+
+
+def _f32_kernel_vs_plain(params, data, idx) -> float:
+    """Loss and every gradient leaf of one f32 batch, kernel path against
+    the plain path, both drawing the same dropout masks (same seed)."""
+    batch = {k: v[0][torch.as_tensor(idx, device="cuda")] for k, v in data.items()}
+    batch["subject_idx"] = 0
+    out = {}
+    for use_pallas in (True, False):
+        cfg = serving_config(torch.float32, use_pallas_lstm=use_pallas)
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        loss, _ = seq2seq_loss(p, cfg, batch, gen, train=True, penalty_scales=PENALTIES)
+        loss.backward()
+        out[use_pallas] = (loss.detach(), [t.grad for t in tree_leaves(p)])
+    (lk, gk), (lp, gp) = out[True], out[False]
+    err, _ = compare("f32 training loss, kernel vs plain path", lk, lp, TOL[torch.float32])
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        e, _ = compare(f"f32 gradient leaf {i}, kernel vs plain path", a, b,
+                       TOL[torch.float32], normwise=True)
+        err = max(err, e)
+    print(f"f32 training step, kernel vs plain path: loss {float(lk):.6f} vs "
+          f"{float(lp):.6f}; {len(gk)} gradient leaves; max abs err {err:.3e}")
+    return err
+
+
+def training_phase() -> dict:
+    config = serving_config()  # bf16, kernels on, FF 0.1 / RNN 0.5 dropout
+    params = init_seq2seq(config, torch.Generator().manual_seed(0), device="cuda")
+    data = _random_corpus(config)
+    state = TrainState(
+        params, tree_map(lambda t: t.detach().clone(), params),
+        make_optimizer(params, 1e-3), 0,
+    )
+    runner = make_segment_runner(config, PENALTIES, 0.99)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    subject = np.zeros((1,), np.int32)
+
+    def step() -> float:
+        nonlocal state
+        idx = rng.permutation(N_TRIALS)[:B_TRAIN][None]
+        state, metrics = runner(state, data, subject, idx, gen, 0)
+        return float(metrics["loss_total"])  # waits for the step
+
+    t0 = time.perf_counter()
+    losses = [step()]
+    first_s = time.perf_counter() - t0
+    # ---- the main path: counts reset just before, read just after ----
+    lstm_kernels.lstm_recurrence.launches = 0
+    lstm_kernels.lstm_recurrence_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t0)
+    fwd = lstm_kernels.lstm_recurrence.launches
+    bwd = lstm_kernels.lstm_recurrence_bwd.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # ------------------------------------------------------------------
+    want = TRAIN_STEPS * LAUNCHES_PER_ENCODE
+    check(fwd == want and bwd == want,
+          f"{TRAIN_STEPS} training steps launched K1f {fwd} and K1b {bwd} times; "
+          f"expected {want} each")
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    ms = 1e3 * float(np.mean(step_s))
+    print(f"training B={B_TRAIN} x {T_RAW} samples, bf16, dropout on: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; {fwd} K1f + {bwd} K1b launches in {TRAIN_STEPS} steps")
+    print(f"training step: first {1e3 * first_s:.2f} ms, then "
+          + ", ".join(f"{1e3 * x:.2f}" for x in step_s)
+          + f" ms; mean {ms:.2f} ms = {B_TRAIN / (ms / 1e3):.2f} sentences/s; "
+          f"peak device memory {peak_gib:.2f} GiB (corpus included)")
+    prof = profile_call(f"training step B={B_TRAIN}", step, need=("K1f", "K1b"))
+    f32_err = _f32_kernel_vs_plain(params, data, rng.permutation(N_TRIALS)[:B_TRAIN])
+    return {"fwd": fwd, "bwd": bwd, "ms": ms, "losses": losses, "profile": prof,
+            "f32_err": f32_err}
+
+
+# --------------------------------------------------------------------------
+# 5. the trainer on the demo experiment: a main path
+# --------------------------------------------------------------------------
+
+
+def demo_trainer(root: str) -> MultiSubjectTrainer:
+    """The trainer of the synthetic demo experiment at its own widths,
+    bf16, kernels on, dropout on."""
+    manifest = make_demo_experiment(
+        f"{root}/exp", subject_ids=(1,), N_epochs=40, FF_dropout=0.1,
+        RNN_dropout=0.5,
+    )
+    return MultiSubjectTrainer(
+        manifest, [1], VERBOSE=False, device="cuda",
+        SN_kwargs={"compute_dtype": "bfloat16", "use_pallas_lstm": True,
+                   "batch_size": 16, "learning_rate": 3e-3, "max_dec_len": 10},
+    )
+
+
+def trainer_kernel_shapes(trainer: MultiSubjectTrainer) -> list[tuple[int, int, int]]:
+    """The (B, H, T') at which the trainer's steps launch K1f and K1b:
+    every step takes ``batch_size`` trials padded to the partition's
+    length, decimated by the conv stack."""
+    cfg = trainer.net_config
+    T_pad = trainer.packed_dataset("training").encoder_inputs.shape[2]
+    steps = T_pad // cfg.decimation_factor
+    return [(trainer.batch_size, h, steps) for h in sorted(set(cfg.rnn_sizes))]
+
+
+def trainer_phase(trainer: MultiSubjectTrainer) -> dict:
+    counts = trainer.packed_dataset("training").num_trials
+    steps = trainer.N_epochs * sum(-(-int(n) // trainer.batch_size) for n in counts if n)
+    # ---- the main path: counts reset just before, read just after ----
+    lstm_kernels.lstm_recurrence.launches = 0
+    lstm_kernels.lstm_recurrence_bwd.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.parallel_transfer_learn()
+    fit_s = time.perf_counter() - t0
+    fwd = lstm_kernels.lstm_recurrence.launches
+    bwd = lstm_kernels.lstm_recurrence_bwd.launches
+    # ------------------------------------------------------------------
+    per_step = 2 * len(trainer.net_config.rnn_sizes)
+    check(bwd == steps * per_step,
+          f"trainer: K1b launched {bwd} times in {steps} steps; expected "
+          f"{steps * per_step}")
+    check(fwd >= steps * per_step, f"trainer: K1f launched {fwd} times")
+    wers = [snap["training"]["word_error_rate"] for snap in history.values()]
+    check(all(np.isfinite(wers)) and wers[-1] < wers[0],
+          f"trainer: training WER did not fall: {wers}")
+    predictor = OnlinePredictor.from_trainer(trainer)
+    val = trainer.packed_dataset("validation")
+    x = val.encoder_inputs[0, 0, : int(val.encoder_lengths[0, 0])]
+    out = predictor(x)
+    tokens = out["tokens"]
+    check(tokens.shape == (1, trainer.net_config.max_dec_len)
+          and bool(((tokens >= 0) & (tokens < trainer.net_config.vocab_size)).all())
+          and bool(np.isfinite(out["probabilities"]).all()),
+          f"trainer: served tokens {tokens}")
+    print(f"trainer (demo experiment, bf16, kernels on): {steps} steps in "
+          f"{fit_s:.2f} s with 4 assessments; training WER by assessment "
+          + ", ".join(f"{w:.3f}" for w in wers)
+          + f"; K1b {bwd} launches ({per_step} per step), K1f {fwd}")
+    print(f"served validation trial 0: {out['sequences'][0]!r} "
+          f"(reference {' '.join(val.references[0][0])!r})")
+    return {"wers": wers, "steps": steps, "fwd": fwd, "bwd": bwd, "fit_s": fit_s}
 
 
 # --------------------------------------------------------------------------
@@ -444,9 +812,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     env = environment()
-    kern = kernel_phase()
-    serve = serving_phase()
+    with tempfile.TemporaryDirectory() as root:
+        trainer = demo_trainer(root)
+        demo_shapes = trainer_kernel_shapes(trainer)
+        print(f"demo trainer kernel shapes (B, H, T'): {demo_shapes}")
+        kern = kernel_phase(demo_shapes)
+        kern_b = kernel_bwd_phase(demo_shapes)
+        serve = serving_phase()
+        train = training_phase()
+        trainer_phase(trainer)
     t256, t1 = kern["timings"][256], kern["timings"][1]
+    b256 = kern_b["timings"][256]
     line = {"kernels": [{
         "name": "lstm_recurrence_fwd",
         "route": "cuda",
@@ -454,6 +830,7 @@ def main() -> int:
         "replaces": "ecog2txt_tpu/ops/pallas_lstm.py:215",
         "launches": serve["launches"],
         "launches_per_request": ENCODES_PER_CALL * LAUNCHES_PER_ENCODE,
+        "launches_training": train["fwd"],
         "max_abs_err": max(kern["errs"].values()),
         "max_abs_err_f32": kern["errs"][torch.float32],
         "max_abs_err_bf16": kern["errs"][torch.bfloat16],
@@ -464,7 +841,27 @@ def main() -> int:
         "rows_per_block_ms": t256["rows_per_block_ms"],
         "build_s": env["build_s"],
         "at_batch_1": t1,
-    }]}
+    }, {
+        "name": "lstm_recurrence_bwd",
+        "route": "cuda",
+        "source": "ecog2txt_tpu_torch/csrc/lstm_recurrence_bwd.cu",
+        "replaces": "ecog2txt_tpu/ops/pallas_lstm.py:380",
+        "launches": train["bwd"],
+        "launches_per_step": LAUNCHES_PER_ENCODE,
+        "max_abs_err": max(kern_b["errs"].values()),
+        "max_abs_err_f32": kern_b["errs"][torch.float32],
+        "max_abs_err_bf16": kern_b["errs"][torch.bfloat16],
+        "max_abs_err_function_grads_f32": kern_b["grad_err"],
+        "shape": f"T'={T_STEPS} B=256 H={H} bf16",
+        "ms": b256["ms"], "plain_ms": b256["plain_ms"],
+        "bound_ms": b256["bound_ms"], "bound_by": b256["bound_by"],
+        "library_ms": b256["library_ms"],
+        "library": "cuDNN nn.LSTM backward, (forward+backward)-forward; also "
+                   "computes the weight gradients",
+        "build_s": env["build_s"],
+        "at_batch_16": kern_b["timings"][16],
+    }], "training_step_ms": train["ms"],
+        "training_sentences_per_s": B_TRAIN / (train["ms"] / 1e3)}
     print(json.dumps(line))
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,26 @@
 """ecog2txt_tpu_torch — the PyTorch / CUDA (Hopper) port of ecog2txt_tpu.
 
 A package of its own beside the JAX package, which stays the reference
-the port is held against.  It imports ``torch`` and numpy only: nothing
-of JAX and nothing of ``ecog2txt_tpu``, so the few constants it shares
-with the JAX package are copied here.
+the port is held against.  It imports ``torch``, numpy, scipy and yaml:
+nothing of JAX and nothing of ``ecog2txt_tpu``, so the modules and
+constants it shares with the JAX package are copied here under the same
+names.
 
 Package layout (the slices ported so far):
-    tokenizers  — index → sentence detokenization
-    ops         — LSTM scans + the hand-written Hopper recurrence kernel
-    models      — seq2seq encoder-decoder, LSTM family, inference half
+    config      — experiment manifests (YAML) + block breakdowns (JSON)
+    geometry    — electrode grid layouts, channel referencing
+    audio       — mel-filterbank / MFCC featurization
+    tokenizers  — tokenization, vocab files, detokenization
+    records     — TFRecord container + tf.train.Example codec
+    datagen     — ECoGDataGenerator contract + synthetic generator
+    subjects    — ECoGSubject, SequenceDataManifest
+    pipeline    — records → padded, stacked corpus arrays + schedules
+    demo        — a synthetic demo experiment on disk
+    ops         — LSTM scans + the hand-written Hopper recurrence kernels
+                  (forward K1f, adjoint K1b)
+    models      — seq2seq encoder-decoder, LSTM family, training + inference
+    train       — MultiSubjectTrainer, segment runner, EMA, assessment
+    assess      — WER / accuracy / confusions
     convert     — parameter trees across the two packages, checkpoints
     serve       — online predictor and streaming session
 
@@ -20,15 +32,34 @@ CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 __version__ = "0.1.0"
+
+# Directory of the packaged vocab files and manifests (a copy of the JAX
+# package's auxiliary/).
+text_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "auxiliary")
 
 # Special tokens (the same strings as the JAX package's constants).
 EOS_token = "<EOS>"
 pad_token = "<pad>"
 OOV_token = "<OOV>"
 SPECIAL_TOKENS = (pad_token, EOS_token, OOV_token)
+
+# Recognised token types.
+TOKEN_TYPES = (
+    "phoneme",
+    "word",
+    "trial",
+    "word_sequence",
+    "word_piece_sequence",
+    "phoneme_sequence",
+)
+
+# Dataset partitions.
+DATA_PARTITIONS = ("training", "validation", "testing")
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -28,6 +28,16 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists and tuples, in the order
+    ``tree_map`` visits them (dict keys in insertion order)."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
 def params_from_numpy(tree, device="cuda"):
     """Numpy-leaf parameter tree → torch tensors on ``device``."""
     dev = resolve_device(device)

@@ -8,4 +8,5 @@ from .seq2seq import (  # noqa: F401
     encode,
     greedy_decode,
     init_seq2seq,
+    seq2seq_loss,
 )

@@ -1,4 +1,4 @@
-"""Encoder-decoder seq2seq core, LSTM family, inference half.
+"""Encoder-decoder seq2seq core, LSTM family: inference and training.
 
 The twin of ``ecog2txt_tpu/models/seq2seq.py`` with the same parameter
 tree (nested dicts and lists, the same keys and shapes, weights stored
@@ -12,11 +12,17 @@ tree (nested dicts and lists, the same keys and shapes, weights stored
   ``use_pallas_lstm`` the recurrences run the Hopper kernel);
 * an attention-free (or Luong cross-attention) LSTM decoder started from
   the encoder's final state, teacher-forced or greedy / temperature
-  sampled.
+  sampled;
+* training: feed-forward dropout after the conv and between stacked
+  layers, variational recurrent dropout (one mask per sequence, layer
+  and direction), and :func:`seq2seq_loss` with categorical, Gaussian and
+  Rayleigh auxiliary heads beside the decoder cross-entropy.
 
 Sequences are time-major ``(T, B, F)``.  Products round their operands
 to ``compute_dtype`` and accumulate in f32 (``ops.lstm.dot_f32``).
-Training (dropout, losses) and the conformer encoder family are later
+Where JAX takes an ``rng`` key the port takes a ``torch.Generator`` on
+the device of the tensors; the draws differ from JAX's, their rates and
+scaling do not.  The conformer encoder family and the CTC head are later
 slices of the port: they raise ``NotImplementedError``.
 """
 
@@ -108,11 +114,6 @@ class Seq2SeqConfig:
     @property
     def enc_out_dim(self) -> int:
         return self.rnn_sizes[-1] * (2 if self.BIDIRECTIONAL else 1)
-
-
-def _no_training(train: bool) -> None:
-    if train:
-        raise NotImplementedError(f"train=True (dropout, losses) {_NOT_PORTED}")
 
 
 def _dense_init(generator, in_dim, out_dim):
@@ -215,6 +216,31 @@ def init_seq2seq(
 # --------------------------------------------------------------------------
 
 
+def _require_generator(generator, train: bool) -> None:
+    """Dropout draws from an explicit generator, as JAX's ``rng`` is
+    required: ``train`` without one is an error, not a fixed seed."""
+    if train and generator is None:
+        raise ValueError("train=True needs a torch.Generator for dropout")
+
+
+def _ff_dropout(generator, x, rate, train):
+    """Inverted dropout: keep with probability ``1 - rate``, scale kept
+    values by ``1 / (1 - rate)``."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def _recurrent_mask(generator, B, H, rate, device) -> torch.Tensor:
+    """Variational recurrent dropout: one (B, H) f32 mask of 0 and
+    ``1 / (1 - rate)`` applied to ``h`` at every step."""
+    keep = 1.0 - rate
+    draw = torch.rand((B, H), generator=generator, device=device)
+    return (draw < keep).float() / keep
+
+
 def _select_subject(stacked, subject_idx):
     return tree_map(lambda a: a[subject_idx], stacked)
 
@@ -224,11 +250,13 @@ def convolve_sequences(
     config: Seq2SeqConfig,
     xs: torch.Tensor,  # (T, B, C) time-major
     subject_idx,
+    generator: torch.Generator | None = None,
     train: bool = False,
     reverse_lengths: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Per-subject temporal conv stack (width == stride, 'VALID') as a
-    reshape-GEMM: (T, B, C) → (B, T/d, d·C) @ W_subject → relu.
+    reshape-GEMM: (T, B, C) → (B, T/d, d·C) @ W_subject → relu →
+    dropout (``train``).
 
     With ``reverse_lengths``, ``xs`` is unreversed and the input
     reversal is fused into the first layer: convolving the reversed
@@ -237,7 +265,6 @@ def convolve_sequences(
     rate (exactly, when valid lengths are stride multiples).  The input
     is cast to ``compute_dtype`` first; no ``conv1d`` (cuDNN would run
     an f32 conv in TF32)."""
-    _no_training(train)
     for i, (layer, stride) in enumerate(
         zip(params["subnet"]["conv"], config.conv_strides)
     ):
@@ -262,6 +289,7 @@ def convolve_sequences(
                 (reverse_lengths + stride - 1) // stride, max=T_out
             )
             xs = reverse_padded(xs, lens0)
+        xs = _ff_dropout(generator, xs, config.FF_dropout, train)
     return xs
 
 
@@ -271,17 +299,20 @@ def encode(
     inputs: torch.Tensor,  # (B, T, C) batch-major raw
     lengths: torch.Tensor,  # (B,)
     subject_idx,
+    generator: torch.Generator | None = None,
     train: bool = False,
 ):
-    """Full encoder: reversal → conv → biLSTM stack.
+    """Full encoder: reversal → conv → biLSTM stack, with dropout when
+    ``train`` (drawn from ``generator``, which ``train`` requires).
 
     Returns (enc_outputs (T', B, 2H), final (h, c) (B, 2H),
     enc_lengths (B,))."""
-    _no_training(train)
+    _require_generator(generator, train)
     xs = inputs.transpose(0, 1)  # (T, B, C)
     if config.conv_sizes:
         xs = convolve_sequences(
-            params, config, xs, subject_idx, reverse_lengths=lengths
+            params, config, xs, subject_idx, generator, train,
+            reverse_lengths=lengths,
         )
     else:
         # no-conv experiment variant: plain strided decimation
@@ -293,17 +324,33 @@ def encode(
 
     out = xs
     final_h = final_c = None
-    for layer in params["encoder"]["rnn"]:
+    layers = params["encoder"]["rnn"]
+    recurrent_dropout = train and config.RNN_dropout > 0
+    for i, layer in enumerate(layers):
+        B, H = out.shape[1], layer["fwd"]["wh"].shape[0]
         if config.BIDIRECTIONAL:
+            masks = None
+            if recurrent_dropout:
+                masks = tuple(
+                    _recurrent_mask(generator, B, H, config.RNN_dropout, out.device)
+                    for _ in "fb"
+                )
             out, (final_h, final_c) = bidirectional_lstm(
-                layer["fwd"], layer["bwd"], out, enc_lengths, None,
+                layer["fwd"], layer["bwd"], out, enc_lengths, masks,
                 config.compute_dtype, use_pallas=config.use_pallas_lstm,
             )
         else:
+            mask = None
+            if recurrent_dropout:
+                mask = _recurrent_mask(
+                    generator, B, H, config.RNN_dropout, out.device
+                )
             out, (final_h, final_c) = lstm_scan(
-                layer["fwd"], out, enc_lengths, None, None,
+                layer["fwd"], out, enc_lengths, None, mask,
                 config.compute_dtype, use_pallas=config.use_pallas_lstm,
             )
+        if i < len(layers) - 1:
+            out = _ff_dropout(generator, out, config.FF_dropout, train)
     return out, (final_h, final_c), enc_lengths
 
 
@@ -355,13 +402,15 @@ def decoder_teacher_forcing(
     config: Seq2SeqConfig,
     enc_final,
     targets: torch.Tensor,  # (B, L) EOS-terminated, pad-padded
+    generator: torch.Generator | None = None,
     train: bool = False,
     enc_out: torch.Tensor | None = None,  # (T', B, E) for attention
     enc_lengths: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Teacher-forced logits (L, B, V).  Decoder inputs are the targets
-    shifted right behind an initial ``<pad>``."""
-    _no_training(train)
+    shifted right behind an initial ``<pad>``; with ``train``, recurrent
+    and between-layer dropout are drawn from ``generator``."""
+    _require_generator(generator, train)
     decoder = params["decoder"]
     targets = targets.long()
     shifted = torch.cat(
@@ -370,15 +419,140 @@ def decoder_teacher_forcing(
     )
     out = decoder["embedding"][shifted].transpose(0, 1)  # (L, B, E)
     states = _decoder_init_state(params, config, enc_final)
+    B = targets.shape[0]
     for li, layer in enumerate(decoder["rnn"]):
+        mask = None
+        if train and config.RNN_dropout > 0:
+            mask = _recurrent_mask(
+                generator, B, layer["wh"].shape[0], config.RNN_dropout,
+                out.device,
+            )
         # decoder sequences are short and wide: the step loop, not the
         # kernel (as in the JAX package)
-        out, _ = lstm_scan(layer, out, None, states[li], None, config.compute_dtype)
+        out, _ = lstm_scan(layer, out, None, states[li], mask, config.compute_dtype)
+        if li < len(decoder["rnn"]) - 1:
+            out = _ff_dropout(generator, out, config.FF_dropout, train)
     if config.use_attention:
         out = _attend(
             decoder["attn"], out, enc_out, enc_lengths, config.compute_dtype
         )
     return _dense(decoder["out"], out, config.compute_dtype)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+
+def _decimate_targets(ts, lengths, stride: int, T_out: int):
+    """Align per-sample encoder targets (T, B, ...) with encoder steps:
+    reverse the valid prefix (matching the encoder's input reversal),
+    then take every ``stride``-th sample."""
+    ts = reverse_padded(ts, lengths)
+    return ts[: T_out * stride : stride]
+
+
+def rayleigh_nll(log_sigma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Elementwise Rayleigh negative log-likelihood, log-σ head:
+    ``2·log σ + x²/(2σ²) − log x`` with x clamped at 1e-6 (padded zeros
+    stay finite; they are masked out of the loss anyway)."""
+    x = torch.clamp(x, min=1e-6)
+    return 2.0 * log_sigma + 0.5 * x * x * torch.exp(-2.0 * log_sigma) - torch.log(x)
+
+
+def _masked_mean(values, mask):
+    """Sum of ``values`` over ``mask`` divided by max(count, 1)."""
+    m = mask.to(values.dtype)
+    return (values * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def seq2seq_loss(
+    params: dict,
+    config: Seq2SeqConfig,
+    batch: dict[str, torch.Tensor],
+    generator: torch.Generator | None = None,
+    train: bool = True,
+    penalty_scales: dict[str, float] | None = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Total loss + metrics.
+
+    ``batch``: 'encoder_inputs' (B,T,C), 'encoder_lengths' (B,),
+    'decoder_targets' (B,L) EOS-terminated, 'decoder_lengths' (B,),
+    'subject_idx' scalar int, plus one entry per aux head (per-sample
+    targets at the raw rate: categorical (B,T), Gaussian/Rayleigh
+    (B,T,F)).  ``penalty_scales``: loss weight per aux head name and for
+    'decoder_targets'.  Metrics: ``loss_<head>``, ``loss_decoder``,
+    ``token_accuracy``, ``loss_total``.
+    """
+    penalty_scales = penalty_scales or {}
+    _require_generator(generator, train)
+    enc_out, enc_final, enc_lengths = encode(
+        params, config, batch["encoder_inputs"], batch["encoder_lengths"],
+        batch["subject_idx"], generator, train,
+    )
+    T_out = enc_out.shape[0]
+    step_mask = (
+        torch.arange(T_out, device=enc_out.device)[:, None] < enc_lengths[None, :]
+    )  # (T', B)
+
+    metrics: dict[str, torch.Tensor] = {}
+    total = torch.zeros((), dtype=torch.float32, device=enc_out.device)
+    for head in config.aux_heads:
+        head_params = params["aux"][head.name]
+        h = enc_out
+        for mlp in head_params["mlp"]:
+            h = torch.relu(_dense(mlp, h, config.compute_dtype))
+        pred = _dense(head_params["out"], h, config.compute_dtype)
+        raw = batch[head.name]
+        scale = penalty_scales.get(head.name, 1.0)
+        if head.distribution == "CTC":
+            raise NotImplementedError(
+                f"aux head {head.name!r}: the CTC loss (models/ctc.py) "
+                f"{_NOT_PORTED}, item 4"
+            )
+        if head.distribution not in ("categorical", "Gaussian", "Rayleigh"):
+            raise ValueError(
+                f"aux head {head.name!r}: unknown distribution "
+                f"{head.distribution!r} (expected 'categorical', 'CTC', "
+                "'Gaussian', or 'Rayleigh')"
+            )
+        aligned = _decimate_targets(
+            raw.transpose(0, 1), batch["encoder_lengths"],
+            config.decimation_factor, T_out,
+        )
+        if head.distribution == "categorical":
+            logp = torch.log_softmax(pred, dim=-1)
+            nll = -torch.gather(logp, -1, aligned.long()[..., None])[..., 0]
+            loss = _masked_mean(nll, step_mask)
+        elif head.distribution == "Gaussian":  # masked MSE
+            se = ((pred - aligned) ** 2).sum(dim=-1)
+            loss = _masked_mean(se, step_mask)
+        else:  # Rayleigh: the head predicts log σ per feature
+            nll = rayleigh_nll(pred, aligned).sum(dim=-1)
+            loss = _masked_mean(nll, step_mask)
+        metrics[f"loss_{head.name}"] = loss
+        total = total + scale * loss
+
+    targets = batch["decoder_targets"]  # (B, L)
+    logits = decoder_teacher_forcing(
+        params, config, enc_final, targets, generator, train,
+        enc_out=enc_out, enc_lengths=enc_lengths,
+    )  # (L, B, V)
+    L = targets.shape[1]
+    dec_mask = (
+        torch.arange(L, device=logits.device)[:, None]
+        < batch["decoder_lengths"][None, :]
+    )  # (L, B)
+    t_lb = targets.long().transpose(0, 1)  # (L, B)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, t_lb[..., None])[..., 0]
+    dec_loss = _masked_mean(nll, dec_mask)
+    total = total + penalty_scales.get("decoder_targets", 1.0) * dec_loss
+    metrics["loss_decoder"] = dec_loss
+    correct = (torch.argmax(logits, dim=-1) == t_lb).float()
+    metrics["token_accuracy"] = _masked_mean(correct, dec_mask)
+    metrics["loss_total"] = total
+    return total, metrics
 
 
 def greedy_decode(

@@ -7,4 +7,10 @@ from .lstm import (  # noqa: F401
     lstm_step,
     reverse_padded,
 )
-from .lstm_kernels import lstm_recurrence, lstm_recurrence_reference  # noqa: F401
+from .lstm_kernels import (  # noqa: F401
+    fused_lstm_recurrence,
+    lstm_recurrence,
+    lstm_recurrence_bwd,
+    lstm_recurrence_bwd_reference,
+    lstm_recurrence_reference,
+)

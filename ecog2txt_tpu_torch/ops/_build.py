@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -72,3 +73,12 @@ def load_library(name: str) -> ctypes.CDLL:
             )
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return ctypes.CDLL(str(out))
+
+
+def build_all() -> list[str]:
+    """Build and load every ``csrc/*.cu`` at once, one ``nvcc`` process
+    per source running in parallel; returns the kernel names."""
+    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        list(pool.map(load_library, names))
+    return names

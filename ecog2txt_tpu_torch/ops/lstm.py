@@ -14,6 +14,11 @@ The twin of ``ecog2txt_tpu/ops/lstm.py`` with the same semantics:
 * products round their operands to ``compute_dtype`` and accumulate in
   f32 with an f32 result (``jnp.dot(..., preferred_element_type=f32)``).
 
+The kernel paths go through :func:`~.lstm_kernels.fused_lstm_recurrence`
+(forward kernel K1f, adjoint kernel K1b); the recurrent weight enters
+it in f32 and is cast to the stream dtype inside, so its gradient stays
+f32.  The step loops are differentiable as they stand.
+
 ``torch.nn.LSTM`` cannot stand in: its gates are (i, f, g, o), it has
 no +1 forget bias and no per-step mask on ``h``.
 """
@@ -23,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_device
-from .lstm_kernels import lstm_recurrence
+from .lstm_kernels import fused_lstm_recurrence
 
 
 def dot_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -107,9 +112,9 @@ def lstm_scan(
 ):
     """Unidirectional LSTM over time: ``(outputs (T, B, H), (h, c))``.
 
-    ``use_pallas`` runs the recurrence as one kernel
-    (:func:`~.lstm_kernels.lstm_recurrence`); outputs then come back in
-    the stream dtype.  Otherwise a step loop with f32 outputs.
+    ``use_pallas`` runs the recurrence as one kernel launch
+    (:func:`~.lstm_kernels.fused_lstm_recurrence`); outputs then come
+    back in the stream dtype.  Otherwise a step loop with f32 outputs.
     """
     T, B, _ = xs.shape
     H = params["wh"].shape[0]
@@ -130,10 +135,10 @@ def lstm_scan(
             lengths if lengths is not None
             else torch.full((B,), T, dtype=torch.int32, device=dev)
         )
-        outputs, _, h_f, c_f = lstm_recurrence(
-            xw, params["wh"].to(xw.dtype).contiguous(),
-            lens.to(torch.int32).contiguous(), h0.float().contiguous(),
-            c0.float().contiguous(), mask.float().contiguous(),
+        outputs, h_f, c_f = fused_lstm_recurrence(
+            xw, params["wh"], lens.to(torch.int32).contiguous(),
+            h0.float().contiguous(), c0.float().contiguous(),
+            mask.float().contiguous(),
         )
         return outputs, (h_f, c_f)
 
@@ -198,12 +203,11 @@ def bidirectional_lstm(
 
         def run(p, mask, reverse_time):
             xw = _stream_projection(p, xs, compute_dtype)
-            h_seq, _, hT, cT = lstm_recurrence(
-                xw, p["wh"].to(xw.dtype).contiguous(), lens, zeros, zeros,
+            return fused_lstm_recurrence(
+                xw, p["wh"], lens, zeros, zeros,
                 (mask if mask is not None else ones).float().contiguous(),
                 reverse_time=reverse_time,
             )
-            return h_seq, hT, cT
 
         out_f, h_f, c_f = run(params_fwd, mask_f, False)
         out_b, h_b, c_b = run(params_bwd, mask_b, True)

@@ -47,6 +47,25 @@ class OnlinePredictor:
         self.subject_idx = int(subject_idx)
 
     @classmethod
+    def from_trainer(cls, trainer, use_ema: bool = True, **kwargs):
+        """Serve a ``train.MultiSubjectTrainer``'s (EMA) weights for its
+        target subject, on the trainer's device unless ``device`` is
+        given."""
+        params = trainer.state.ema if use_ema else trainer.state.params
+        dec_list = trainer.target_subject.data_manifests[
+            "decoder_targets"
+        ].feature_list
+        kwargs.setdefault("device", trainer.device)
+        return cls(
+            params,
+            trainer.net_config,
+            dec_list,
+            max_samples=trainer.target_subject.data_generator.max_samples,
+            subject_idx=len(trainer.ecog_subjects) - 1,
+            **kwargs,
+        )
+
+    @classmethod
     def from_checkpoint(
         cls,
         path: str,

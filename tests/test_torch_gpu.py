@@ -1,4 +1,4 @@
-"""Tests of the port's CUDA kernels that need an NVIDIA GPU.
+"""Tests of the port's CUDA kernels (K1f, K1b) that need an NVIDIA GPU.
 
 They import torch and the port only (no JAX), so they run on a machine
 with a card and without the JAX package's test setup:
@@ -72,3 +72,116 @@ def test_cuda_tensor_without_library_raises(monkeypatch):
     finally:
         _build.load_library.cache_clear()
     assert lstm_kernels.lstm_recurrence.launches == before
+
+
+def _bwd_inputs(dtype, T, B, H, seed=1):
+    """Adjoint inputs: ragged lengths with a zero, a 0/2 mask, nonzero
+    upstream gradients."""
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    lengths = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    lengths[0] = 0
+    mask = (torch.rand((B, H), generator=g) < 0.5).float() * 2.0
+    args = (
+        rand(T, B, 4 * H).to(dtype), (rand(H, 4 * H) / H ** 0.5).to(dtype),
+        rand(T, B, H).to(dtype), rand(T, B, H).to(dtype),
+        rand(T, B, H).to(dtype), lengths, mask, rand(T, B, H).to(dtype),
+        rand(B, H), rand(B, H),
+    )
+    return tuple(a.cuda() for a in args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse_time", [False, True])
+@pytest.mark.parametrize("shape", ["small", "training"])
+def test_bwd_kernel_matches_plain_version(dtype, reverse_time, shape):
+    _need_cuda()
+    dims = (T, B, H) if shape == "small" else (104, 16, 400)
+    args = _bwd_inputs(dtype, *dims)
+    before = lstm_kernels.lstm_recurrence_bwd.launches
+    got = lstm_kernels.lstm_recurrence_bwd(*args, reverse_time=reverse_time)
+    torch.cuda.synchronize()
+    assert lstm_kernels.lstm_recurrence_bwd.launches == before + 1
+    want = lstm_kernels.lstm_recurrence_bwd_reference(
+        *args, reverse_time=reverse_time
+    )
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse_time", [False, True])
+def test_function_gradients_match_plain_autograd(reverse_time):
+    """Forward K1f + backward K1b against autograd through the plain
+    forward step loop, at f32."""
+    _need_cuda()
+    xw, wh, lengths, h0, c0, mask = _inputs(torch.float32, reverse_time)
+    w_out = torch.randn((H,), generator=torch.Generator().manual_seed(2)).cuda()
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (xw, wh, h0, c0)]
+        out, hT, cT = fn(*leaves)
+        loss = (out * w_out).sum() + 2.0 * hT.sum() + 0.5 * (cT ** 2).sum()
+        loss.backward()
+        return [a.grad for a in leaves]
+
+    f0, b0 = lstm_kernels.lstm_recurrence.launches, lstm_kernels.lstm_recurrence_bwd.launches
+    got = grads(lambda x, w, h, c: lstm_kernels.fused_lstm_recurrence(
+        x, w, lengths, h, c, mask, reverse_time))
+    assert lstm_kernels.lstm_recurrence.launches == f0 + 1
+    assert lstm_kernels.lstm_recurrence_bwd.launches == b0 + 1
+
+    def plain(x, w, h, c):
+        h_seq, _, hT, cT = lstm_kernels.lstm_recurrence_reference(
+            x, w, lengths, h, c, mask, reverse_time)
+        return h_seq, hT, cT
+
+    want = grads(plain)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_training_step_launches_the_kernels():
+    """One step of the segment runner on the card (bf16, dropout on):
+    each biLSTM layer launches K1f and K1b once per direction, and the
+    loss is finite."""
+    _need_cuda()
+    import numpy as np
+
+    from ecog2txt_tpu_torch.convert import tree_map
+    from ecog2txt_tpu_torch.models.seq2seq import AuxHead, Seq2SeqConfig, init_seq2seq
+    from ecog2txt_tpu_torch.train import TrainState, make_optimizer, make_segment_runner
+
+    cfg = Seq2SeqConfig(
+        vocab_size=30, in_channels=7, conv_sizes=(16,), decimation_factor=4,
+        rnn_sizes=(H, H), aux_proj_sizes=(8,),
+        aux_heads=(AuxHead("aux", "categorical", 5),), dec_embedding_size=8,
+        dec_rnn_sizes=(2 * H,), max_dec_len=6, compute_dtype=torch.bfloat16,
+        use_pallas_lstm=True,
+    )
+    params = init_seq2seq(cfg, torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    N, Traw = 8, 48
+    dec = torch.randint(3, 30, (1, N, 6), generator=g, dtype=torch.int32)
+    dec[..., -1] = 1
+    data = {
+        "encoder_inputs": torch.randn((1, N, Traw, 7), generator=g).bfloat16(),
+        "encoder_lengths": torch.randint(12, Traw + 1, (1, N), generator=g,
+                                         dtype=torch.int32),
+        "decoder_targets": dec,
+        "decoder_lengths": torch.full((1, N), 6, dtype=torch.int32),
+        "aux": torch.randint(0, 5, (1, N, Traw), generator=g, dtype=torch.int32),
+    }
+    data = {k: v.cuda() for k, v in data.items()}
+    state = TrainState(params, tree_map(lambda t: t.detach().clone(), params),
+                       make_optimizer(params, 1e-3), 0)
+    runner = make_segment_runner(cfg, {"aux": 1.0}, 0.99)
+    f0, b0 = lstm_kernels.lstm_recurrence.launches, lstm_kernels.lstm_recurrence_bwd.launches
+    state, metrics = runner(state, data, np.zeros(1, np.int32),
+                            np.arange(4, dtype=np.int32)[None],
+                            torch.Generator(device="cuda").manual_seed(0), 1)
+    assert np.isfinite(float(metrics["loss_total"]))
+    assert lstm_kernels.lstm_recurrence.launches == f0 + 4
+    assert lstm_kernels.lstm_recurrence_bwd.launches == b0 + 4

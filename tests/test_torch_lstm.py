@@ -21,6 +21,7 @@ from ecog2txt_tpu.ops.pallas_lstm import _fwd_call
 from ecog2txt_tpu_torch.convert import params_from_numpy
 from ecog2txt_tpu_torch.ops import lstm as tlstm
 from ecog2txt_tpu_torch.ops import lstm_kernels
+from torch_threads import one_torch_thread  # noqa: F401
 
 T, B, F, H = 12, 4, 6, 8
 F32 = dict(rtol=1e-4, atol=1e-5)

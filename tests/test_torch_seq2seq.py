@@ -1,5 +1,5 @@
-"""The port's seq2seq (LSTM family, inference half) held to the JAX
-package at small shapes.
+"""The port's seq2seq (LSTM family, inference) held to the JAX package
+at small shapes (the training half is held in ``test_torch_train.py``).
 
 Parameters come from the JAX ``init_seq2seq`` and are carried across
 with ``params_from_numpy``; inputs come from a numpy seed; the port runs
@@ -23,6 +23,7 @@ import ecog2txt_tpu.ops.pallas_lstm as jpallas
 from ecog2txt_tpu.models import seq2seq as js
 from ecog2txt_tpu_torch.convert import params_from_numpy
 from ecog2txt_tpu_torch.models import seq2seq as ts
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16 = dict(rtol=5e-2, atol=2e-2)
@@ -214,12 +215,18 @@ def test_init_seq2seq_matches_the_jax_tree():
 def test_unported_paths_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ts.Seq2SeqConfig(vocab_size=20, encoder_type="conformer")
-    _, tp = _params("plain")
+    # the CTC aux head (models/ctc.py) is not ported yet
     _, tcfg = _configs("plain")
+    tcfg = dataclasses.replace(tcfg, aux_heads=(ts.AuxHead("ph", "CTC", 4),))
+    tp = ts.init_seq2seq(tcfg, torch.Generator().manual_seed(0), "cpu")
+    batch = {
+        "encoder_inputs": torch.from_numpy(_inputs()),
+        "encoder_lengths": torch.from_numpy(LENGTHS),
+        "decoder_targets": torch.ones((B, 2), dtype=torch.int32),
+        "decoder_lengths": torch.full((B,), 2, dtype=torch.int32),
+        "subject_idx": 0, "ph": torch.zeros((B, 3), dtype=torch.int32),
+    }
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.encode(
-            tp, tcfg, torch.from_numpy(_inputs()), torch.from_numpy(LENGTHS),
-            0, train=True,
-        )
+        ts.seq2seq_loss(tp, tcfg, batch, train=False)
     with pytest.raises(TypeError):
         ts.Seq2SeqConfig(vocab_size=20, compute_dtype=jnp.float32)

@@ -22,6 +22,7 @@ from ecog2txt_tpu.models import seq2seq as js
 from ecog2txt_tpu_torch import convert
 from ecog2txt_tpu_torch import serve as tserve
 from ecog2txt_tpu_torch.models import seq2seq as ts
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = dict(rtol=1e-4, atol=1e-5)
@@ -138,12 +139,22 @@ def test_entry_points_raise_without_a_gpu(setup, tmp_path):
 
 
 def test_port_imports_with_jax_blocked():
+    """Every module of the package (found by walking it, so new modules
+    are covered too) and chip_smoke.py import with JAX, optax, orbax and
+    the JAX package blocked."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'jaxlib', 'optax', 'orbax', 'ecog2txt_tpu'):\n"
         "    sys.modules[m] = None\n"
-        "import ecog2txt_tpu_torch, ecog2txt_tpu_torch.serve, "
-        "ecog2txt_tpu_torch.convert, ecog2txt_tpu_torch.ops._build\n"
+        "import ecog2txt_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "ecog2txt_tpu_torch.__path__, 'ecog2txt_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "need = {'train', 'pipeline', 'records', 'datagen', 'subjects', "
+        "'demo', 'config', 'assess', 'tokenizers', 'geometry', 'audio', "
+        "'serve', 'convert', 'ops.lstm_kernels', 'models.seq2seq'}\n"
+        "assert need <= {n.split('.', 1)[1] for n in names}, names\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'ecog2txt_tpu') "
