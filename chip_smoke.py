@@ -42,8 +42,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
    WER must fall, and K1b must launch 2 x len(encoder_rnn) times per
    step.  One validation trial is then served through
    ``OnlinePredictor.from_trainer``;
-6. the ``kernels`` JSON line, the card's name and power limit, and as
-   the last line ``{"ok": true, "device": {...}}``.
+6. attention kernels: K2f, K2b-dq, K2b-dkv and K3f against their plain
+   versions in f32 and bf16, full and ragged lengths, at the headline
+   conformer's training and serving shape (B=256, T'=104, D=384, H=6,
+   C=16, L=1), the ``ConformerStream`` window (B=1, T'=144, offsets -64
+   and 256), the long recording (B=16, T'=8192) and the conformer demo
+   trainer's own shape; the two autograd Functions' gradients against
+   autograd through the plain forwards (f32); CUDA-event timings beside
+   each kernel's bound and ``scaled_dot_product_attention`` as the
+   yardstick of K2f and K2b;
+7. conformer serving (a main path): the serving model with its encoder
+   swapped for the JAX package's headline conformer (bench.py:149-157,
+   4 blocks of width 384, bf16, random weights from seed 0) answers B=1
+   and B=256 requests through ``OnlinePredictor`` under
+   ``attention_impl='flash'`` (4 K2f launches per encode) and ``'fused'``
+   (4 K3f); no backward kernel runs.  f32 tokens equal the plain
+   (banded) path's; then ``ConformerStream`` (flash, f32) equals the
+   offline encode chunk by chunk, a ragged final chunk included;
+8. conformer training (a main path): B=256 x 1248 samples, bf16,
+   dropout on, a few segment-runner steps under 'flash' then 'fused':
+   per step 4 forward launches, 4 K2b-dq and 4 K2b-dkv, a falling loss,
+   a profile by kernel category, and at f32 the loss and every gradient
+   leaf of both paths against the plain path; the long recording:
+   ``conformer_encode`` forward and backward at B=16, T'=8192 under
+   'auto', which must launch K2f and K2b (tokens/s);
+9. the conformer demo trainer (a main path): ``MultiSubjectTrainer`` on
+   the demo experiment with a small flash conformer, bf16: training WER
+   must fall, with 2 K2b-dq and 2 K2b-dkv launches per step;
+10. the ``kernels`` JSON line (all six kernels), the card's name and
+   power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is
 present.
@@ -70,7 +97,12 @@ from ecog2txt_tpu_torch.models.seq2seq import (
     init_seq2seq,
     seq2seq_loss,
 )
-from ecog2txt_tpu_torch.ops import _build, lstm_kernels
+from ecog2txt_tpu_torch.models.conformer import (
+    ConformerConfig,
+    ConformerStream,
+    conformer_encode,
+)
+from ecog2txt_tpu_torch.ops import _build, attention_kernels, lstm_kernels
 from ecog2txt_tpu_torch.ops.lstm import init_lstm_params
 from ecog2txt_tpu_torch.serve import OnlinePredictor, StreamingSession
 from ecog2txt_tpu_torch.train import (
@@ -96,8 +128,41 @@ N_TRIALS, T_RAW, B_TRAIN, TRAIN_STEPS = 450, 1248, 256, 5  # training phase
 PENALTIES = {"encoder_1_targets": 1.0, "decoder_targets": 1.0}
 
 
+# the JAX package's headline conformer (bench.py:149-157) and its
+# long-recording cell (bench.py:255-300)
+HEADLINE_CONFORMER = dict(num_blocks=4, model_dim=384, num_heads=6, ffn_dim=1536,
+                          conv_kernel=8, chunk_size=16, left_context=1)
+LONG_B, LONG_T, LONG_IN = 16, 8192, 100
+# the conformer demo trainer's widths
+DEMO_CONFORMER = dict(num_blocks=2, model_dim=64, num_heads=4, ffn_dim=128,
+                      conv_kernel=4, chunk_size=4, left_context=1, attention_impl="flash")
+ATTN = attention_kernels
+WRAPPERS = {
+    "K1f": lstm_kernels.lstm_recurrence, "K1b": lstm_kernels.lstm_recurrence_bwd,
+    "K2f": ATTN.banded_attention_fwd, "K2b-dq": ATTN.banded_attention_dq,
+    "K2b-dkv": ATTN.banded_attention_dkv, "K3f": ATTN.fused_attention_fwd,
+}
+
+
 class SmokeFailure(RuntimeError):
     pass
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+
+
+def check_counts(path: str, counts: dict, expected: dict) -> None:
+    """Kernels named in ``expected`` launched exactly that often, every
+    other kernel never."""
+    want = {name: expected.get(name, 0) for name in WRAPPERS}
+    check(counts == want, f"{path}: kernel launches {counts}, expected {want}")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -503,8 +568,7 @@ def serving_phase() -> dict:
         return out, time.perf_counter() - t0
 
     # ---- the main path: counts reset just before, read just after ----
-    lstm_kernels.lstm_recurrence.launches = 0
-    lstm_kernels.lstm_recurrence_bwd.launches = 0
+    reset_counts()
     calls = 0
     out, warm_s = timed(singles[0])
     calls += 1
@@ -585,14 +649,20 @@ def serving_phase() -> dict:
     }
 
 
+_KERNEL_CATEGORIES = (
+    ("lstm_recurrence_fwd", "K1f"), ("lstm_recurrence_bwd", "K1b"),
+    ("banded_attention_fwd_kernel", "K2f"), ("banded_attention_dq_kernel", "K2b-dq"),
+    ("banded_attention_dkv_kernel", "K2b-dkv"), ("fused_attention_fwd_kernel", "K3f"),
+)
+
+
 def _category(kernel: str) -> str:
-    if "lstm_recurrence_fwd" in kernel:
-        return "K1f"
-    if "lstm_recurrence_bwd" in kernel:
-        return "K1b"
+    for key, cat in _KERNEL_CATEGORIES:
+        if key in kernel:
+            return cat
     if "Memcpy" in kernel or "Memset" in kernel:
         return "memcpy"
-    if any(k in kernel.lower() for k in ("gemm", "xmma", "cutlass", "cublas")):
+    if any(k in kernel.lower() for k in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "GEMM"
     return "other kernels"
 
@@ -704,8 +774,7 @@ def training_phase() -> dict:
     losses = [step()]
     first_s = time.perf_counter() - t0
     # ---- the main path: counts reset just before, read just after ----
-    lstm_kernels.lstm_recurrence.launches = 0
-    lstm_kernels.lstm_recurrence_bwd.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     step_s = []
     for _ in range(TRAIN_STEPS):
@@ -769,8 +838,7 @@ def trainer_phase(trainer: MultiSubjectTrainer) -> dict:
     counts = trainer.packed_dataset("training").num_trials
     steps = trainer.N_epochs * sum(-(-int(n) // trainer.batch_size) for n in counts if n)
     # ---- the main path: counts reset just before, read just after ----
-    lstm_kernels.lstm_recurrence.launches = 0
-    lstm_kernels.lstm_recurrence_bwd.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     history = trainer.parallel_transfer_learn()
     fit_s = time.perf_counter() - t0
@@ -804,6 +872,603 @@ def trainer_phase(trainer: MultiSubjectTrainer) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 6. the attention kernels
+# --------------------------------------------------------------------------
+
+
+def _attention_case(B, T, D, H, C, L, offset, dtype, ragged, seed):
+    """Inputs of one banded-attention case: q, k, v, an upstream gradient
+    and a pre-LayerNorm x, each (B, T1, D) with T1 a multiple of QB; the
+    K3f weights; lengths full (offset + T) or ragged (the first row ends
+    5 steps early, inside a chunk); the (B, T1, 1) valid-row mask."""
+    QB = ATTN._pick_query_rows(C, L, None)
+    T1 = -(-T // QB) * QB
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    q, k, v, gout, x = (rand(B, T1, D).to(dtype) for _ in range(5))
+    if ragged:
+        lengths = torch.randint(max(T // 2, 1), T + 1, (B,), generator=g, device="cuda")
+        lengths[0] = T - 5
+    else:
+        lengths = torch.full((B,), T, device="cuda")
+    lengths = (lengths + offset).to(torch.int32)
+    pos = torch.arange(T1, device="cuda") + offset
+    valid = ((torch.arange(T1, device="cuda")[None] < T) & (pos[None] >= 0)
+             & (pos[None] < lengths[:, None]))[..., None]
+    wqkv = rand(D, 3 * D) / D ** 0.5
+    ln_g, ln_b = 1.0 + 0.1 * rand(D), 0.1 * rand(D)
+    return dict(q=q, k=k, v=v, g=gout, x=x, lengths=lengths, valid=valid, QB=QB, T1=T1,
+                args=(offset, lengths, C, L, T, QB, H),
+                xw=ATTN._split_rot_weights(wqkv, H, dtype), ln_g=ln_g, ln_b=ln_b)
+
+
+def _check_attention_case(case: str, c: dict, dtype, errs: dict) -> None:
+    """K2f, K2b-dq, K2b-dkv and K3f against their plain versions on one
+    case: forward outputs on valid rows (finite everywhere), backward
+    outputs on every row."""
+    tol = TOL[dtype]
+    valid, args = c["valid"], c["args"]
+    masked = lambda a: torch.where(valid, a.float(), 0.0)  # noqa: E731
+
+    def hold(kernel, name, got, want, rows=True, t=tol):
+        check(bool(torch.isfinite(got).all()), f"{case} {kernel} {name}: non-finite values")
+        a, _ = compare(f"{case} {kernel} {name}", masked(got) if rows else got,
+                       masked(want) if rows else want, t)
+        errs[kernel][dtype] = max(errs[kernel][dtype], a)
+
+    out, lse = ATTN.banded_attention_fwd(c["q"], c["k"], c["v"], *args)
+    torch.cuda.synchronize()
+    r_out, r_lse = ATTN.banded_attention_fwd_reference(c["q"], c["k"], c["v"], *args)
+    hold("K2f", "out", out, r_out)
+    hold("K2f", "lse", lse, r_lse, t=TOL[torch.float32])
+    bwd = (c["q"], c["k"], c["v"], c["g"], r_lse, ATTN._delta(c["g"], r_out, args[-1]), *args)
+    dq = ATTN.banded_attention_dq(*bwd)
+    dk, dv = ATTN.banded_attention_dkv(*bwd)
+    torch.cuda.synchronize()
+    hold("K2b-dq", "dq", dq, ATTN.banded_attention_dq_reference(*bwd), rows=False)
+    r_dk, r_dv = ATTN.banded_attention_dkv_reference(*bwd)
+    hold("K2b-dkv", "dk", dk, r_dk, rows=False)
+    hold("K2b-dkv", "dv", dv, r_dv, rows=False)
+    fused = (c["x"], c["xw"], c["ln_g"], c["ln_b"], *args)
+    got = ATTN.fused_attention_fwd(*fused, True)
+    (unsaved,) = ATTN.fused_attention_fwd(*fused, False)
+    torch.cuda.synchronize()
+    want = ATTN.fused_attention_fwd_reference(*fused, True)
+    for name, a, b in zip(("out", "q", "k", "v", "lse"), got, want):
+        hold("K3f", name, a, b, rows=name in ("out", "lse"),
+             t=TOL[torch.float32] if name == "lse" and dtype == torch.float32 else tol)
+    check(torch.equal(unsaved, got[0]), f"{case} K3f: out without residuals differs")
+
+
+def _function_grads() -> float:
+    """The autograd Functions (K2f + K2b; K3f + K2b + plain products)
+    against autograd through the plain forward, f32, B=2, T'=300 (three
+    query blocks and a trailing pad), ragged lengths, a cotangent on
+    valid rows.  Held normwise: weight gradients sum B·T' products in
+    another order."""
+    B, T, D, H, C, L = 2, 300, 384, 6, 16, 1
+    Dh = D // H
+    QB = ATTN._pick_query_rows(C, L, None)
+    T1 = -(-T // QB) * QB
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rand = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    lengths = torch.tensor([T, 211], dtype=torch.int32, device="cuda")
+    valid = (torch.arange(T, device="cuda")[None] < lengths[:, None])[..., None]
+    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, T1 - T))  # noqa: E731
+    static = (0, lengths, C, L, T, QB, H)
+
+    def grads(fn, leaves, cot):
+        leaves = [a.detach().clone().requires_grad_() for a in leaves]
+        (fn(*leaves).float() * cot).sum().backward()
+        return [a.grad for a in leaves]
+
+    err = 0.0
+    qkv = [rand(B, T, H, Dh) for _ in range(3)]
+    cot = torch.where(valid[..., None], rand(B, T, H, Dh), 0.0)
+    got = grads(lambda q, k, v: ATTN.banded_flash_attention(
+        q, k, v, 0, lengths, chunk_size=C, left_context=L), qkv, cot)
+    want = grads(lambda q, k, v: ATTN.banded_attention_fwd_reference(
+        *(pad(a.reshape(B, T, D)) for a in (q, k, v)), *static
+    )[0][:, :T].reshape(B, T, H, Dh), qkv, cot)
+    for name, a, b in zip("qkv", got, want):
+        e, _ = compare(f"BandedAttention grad d{name}", a, b, TOL[torch.float32], normwise=True)
+        err = max(err, e)
+    leaves = [rand(D, 3 * D) / D ** 0.5, 1.0 + 0.1 * rand(D), 0.1 * rand(D), rand(B, T, D)]
+    cot = torch.where(valid, rand(B, T, D), 0.0)
+    got = grads(lambda w, gg, bb, x: ATTN.fused_attention_layer(
+        w, gg, bb, x, 0, lengths, chunk_size=C, left_context=L, num_heads=H), leaves, cot)
+    want = grads(lambda w, gg, bb, x: ATTN.fused_attention_fwd_reference(
+        pad(x), ATTN._split_rot_weights(w, H, x.dtype), gg, bb, *static, False
+    )[0][:, :T], leaves, cot)
+    for name, a, b in zip(("wqkv", "ln_g", "ln_b", "x"), got, want):
+        check(a.dtype == torch.float32, f"FusedAttentionLayer grad d{name}: {a.dtype}")
+        e, _ = compare(f"FusedAttentionLayer grad d{name}", a, b, TOL[torch.float32],
+                       normwise=True)
+        err = max(err, e)
+    print(f"autograd Functions (BandedAttention, FusedAttentionLayer) vs autograd "
+          f"through the plain forwards, f32 B=2 T'=300: max abs err {err:.3e}")
+    return err
+
+
+def _attention_bounds(c: dict, B: int, D: int, H: int, dtype) -> dict:
+    """Least time (ms) of each kernel on ``c``: the larger of the bytes
+    the function must move (each input read once, each output written
+    once) at the HBM rate and its operations at the card's peak for the
+    type, counting only the (query, key) pairs the band admits for this
+    run's lengths."""
+    T1, QB = c["T1"], c["QB"]
+    offset, lengths, C, L, T = c["args"][:5]
+    Dh = D // H
+    es = torch.finfo(dtype).bits // 8
+    pairs = float(ATTN._block_masks(B, T1, QB, L * C, C, L, T, offset, lengths, False).sum())
+    seq, rows = B * T1 * D * es, B * T1 * H * 4  # one (B, T1, D) tensor; one lse
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    work = {
+        # (bytes, operations): QK and PV; + G.V and dS.K; + dV and dK
+        "K2f": (4 * seq + rows + 4 * B, 4 * Dh * H * pairs),
+        "K2b-dq": (5 * seq + 2 * rows + 4 * B, 6 * Dh * H * pairs),
+        "K2b-dkv": (6 * seq + 2 * rows + 4 * B, 8 * Dh * H * pairs),
+        # x, five (D, D) weights, ln g/b and frequencies in, out; the q, k
+        # and v projections of every row (W@R is a signed column
+        # permutation of W, so its product is a copy, not work), then the
+        # attention
+        "K3f": (2 * seq + 5 * D * D * es + 3 * D * 4 + 4 * B,
+                2.0 * B * T1 * D * 3 * D + 4 * Dh * H * pairs),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / peak
+        out[name] = (1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def _sdpa_ms(c: dict, B: int, D: int, H: int) -> dict:
+    """One library call computing the same function, timed as a yardstick
+    only: ``scaled_dot_product_attention`` with the band as a boolean
+    (B, 1, T1, T1) mask; its backward as (forward + backward) - forward.
+    Also its largest difference to K2f on valid rows."""
+    F = torch.nn.functional
+    T1 = c["T1"]
+    offset, lengths, C, L, T = c["args"][:5]
+    Dh = D // H
+    base = torch.zeros((), dtype=torch.long, device="cuda")
+    mask = ATTN._band_mask(base, base, T1, T1, C, L, T, offset, lengths.view(B, 1, 1))[:, None]
+    heads = lambda a: a.view(B, T1, H, Dh).transpose(1, 2)  # noqa: E731
+    q, k, v = (heads(c[n]).detach().clone().requires_grad_() for n in "qkv")
+    gh = heads(c["g"])
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20)
+        lib = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    ours, _ = ATTN.banded_attention_fwd(c["q"], c["k"], c["v"], *c["args"])
+    lib_rows = lib.transpose(1, 2).reshape(B, T1, D).float()
+    diff = torch.where(c["valid"], lib_rows - ours.float(), 0.0)
+
+    def fwd_bwd():
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask).backward(gh)
+
+    with torch.enable_grad():
+        both = cuda_ms(fwd_bwd, 20)
+        fwd_grad_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20)
+    return {"fwd_ms": fwd_ms, "bwd_ms": both - fwd_grad_ms,
+            "max_abs_diff_to_K2f": float(diff.abs().max())}
+
+
+def _attention_timings(label: str, B: int, T: int) -> dict:
+    """CUDA-event times (mean of 20 after warm-up; plain versions mean of
+    3) of the four kernels at one conformer shape, bf16, full lengths,
+    beside their bounds and the SDPA yardstick."""
+    D, H, C, L = 384, 6, 16, 1
+    dtype = torch.bfloat16
+    c = _attention_case(B, T, D, H, C, L, 0, dtype, False, 900 + B)
+    args = c["args"]
+    out, lse = ATTN.banded_attention_fwd(c["q"], c["k"], c["v"], *args)
+    bwd = (c["q"], c["k"], c["v"], c["g"], lse, ATTN._delta(c["g"], out, H), *args)
+    fused = (c["x"], c["xw"], c["ln_g"], c["ln_b"], *args)
+    calls = {
+        "K2f": (lambda: ATTN.banded_attention_fwd(c["q"], c["k"], c["v"], *args),
+                lambda: ATTN.banded_attention_fwd_reference(c["q"], c["k"], c["v"], *args)),
+        "K2b-dq": (lambda: ATTN.banded_attention_dq(*bwd),
+                   lambda: ATTN.banded_attention_dq_reference(*bwd)),
+        "K2b-dkv": (lambda: ATTN.banded_attention_dkv(*bwd),
+                    lambda: ATTN.banded_attention_dkv_reference(*bwd)),
+        "K3f": (lambda: ATTN.fused_attention_fwd(*fused, False),
+                lambda: ATTN.fused_attention_fwd_reference(*fused, False)),
+    }
+    bounds = _attention_bounds(c, B, D, H, dtype)
+    lib = _sdpa_ms(c, B, D, H)
+    timings = {}
+    for name, (kernel, plain) in calls.items():
+        t = {"ms": cuda_ms(kernel, reps=20), "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+             "library_ms": None}  # K3f: no one library call computes it
+        if name == "K2f":
+            t["library_ms"] = lib["fwd_ms"]
+        elif name.startswith("K2b"):
+            t["library_ms"] = lib["bwd_ms"]  # one backward computes dq, dk and dv
+        timings[name] = t
+    timings["K3f"]["ms_with_residuals"] = cuda_ms(
+        lambda: ATTN.fused_attention_fwd(*fused, True), 20)
+    for name, t in timings.items():
+        print(f"timing {name} {label} B={B} T'={T} (T1={c['T1']}) D={D} H={H} bf16: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              + (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None else "none")
+              + f", bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+              + (f", with residuals {t['ms_with_residuals']:.4f} ms" if name == "K3f" else ""))
+    print(f"library yardstick (SDPA, boolean band mask) at {label}: forward "
+          f"{lib['fwd_ms']:.4f} ms, backward {lib['bwd_ms']:.4f} ms, max abs diff to "
+          f"K2f on valid rows {lib['max_abs_diff_to_K2f']:.3e}")
+    return timings
+
+
+def attention_kernel_phase(demo_shape) -> dict:
+    """K2f, K2b-dq, K2b-dkv and K3f against their plain versions in f32
+    and bf16, full and ragged lengths, at the headline training and
+    batch-serving shape, the B=1 request shape, the ConformerStream window (negative and positive
+    offsets), the long recording and the conformer demo trainer's own
+    shape; the Functions' gradients; the timings."""
+    D, H, C, L = 384, 6, 16, 1
+    shapes = [
+        ("headline", 256, 104, D, H, C, L, 0),
+        ("serving request", 1, 104, D, H, C, L, 0),
+        ("stream window", 1, 144, D, H, C, L, -64),
+        ("stream window", 1, 144, D, H, C, L, 256),
+        ("long", LONG_B, LONG_T, D, H, C, L, 0),
+        ("demo trainer", *demo_shape, 0),
+    ]
+    errs = {k: {torch.float32: 0.0, torch.bfloat16: 0.0}
+            for k in ("K2f", "K2b-dq", "K2b-dkv", "K3f")}
+    seed = 300
+    for label, B, T, d, h, cs, lc, offset in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for ragged in (False, True):
+                seed += 1
+                case = (f"{label} B={B} T'={T} D={d} H={h} C={cs} L={lc} offset={offset} "
+                        f"{str(dtype)[6:]} {'ragged' if ragged else 'full'}")
+                c = _attention_case(B, T, d, h, cs, lc, offset, dtype, ragged, seed)
+                _check_attention_case(case, c, dtype, errs)
+                print(f"attention kernels {case}: max abs err "
+                      + ", ".join(f"{k} {v[dtype]:.3e}" for k, v in errs.items()))
+                del c
+    grad_err = _function_grads()
+    timings = {"headline": _attention_timings("headline", 256, 104),
+               "long": _attention_timings("long", LONG_B, LONG_T)}
+    return {"errs": errs, "grad_err": grad_err, "timings": timings}
+
+
+# --------------------------------------------------------------------------
+# 7. conformer serving and streaming: main paths
+# --------------------------------------------------------------------------
+
+
+def conformer_config(dtype=torch.bfloat16, impl: str = "flash") -> Seq2SeqConfig:
+    """The serving model with its encoder swapped for the JAX package's
+    headline conformer (bench.py:149-157)."""
+    return dataclasses.replace(
+        serving_config(dtype, use_pallas_lstm=False), encoder_type="conformer",
+        conformer=ConformerConfig(**HEADLINE_CONFORMER, attention_impl=impl),
+    )
+
+
+def conformer_serving_phase(params) -> dict:
+    targets = ["<pad>", "<EOS>", "<OOV>"] + [f"w{i}_" for i in range(3, 1809)]
+    rng = np.random.default_rng(0)
+    singles = [rng.standard_normal((n, 469), dtype=np.float32) for n in (1248, 1000, 600)]
+    batch = rng.standard_normal((256, 1248, 469), dtype=np.float32)
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    results = {}
+    for impl, kernel in (("flash", "K2f"), ("fused", "K3f")):
+        config = conformer_config(impl=impl)
+        predictor = OnlinePredictor(params, config, targets, max_samples=1248, device="cuda")
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        predictor(singles[0])  # warm-up
+        calls = 1
+        latencies = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = predictor(singles[0])
+            latencies.append(time.perf_counter() - t0)
+            calls += 1
+        b1 = predictor(batch)
+        t0 = time.perf_counter()
+        b2 = predictor(batch)
+        batch_s = time.perf_counter() - t0
+        calls += 2
+        counts = read_counts()
+        # --------------------------------------------------------------
+        check_counts(f"conformer serving ({impl})", counts,
+                     {kernel: calls * ENCODES_PER_CALL * nb})
+        _check_response(out, 1, f"conformer {impl} single")
+        _check_response(b2, 256, f"conformer {impl} batch")
+        check(np.array_equal(b1["tokens"], b2["tokens"]), f"conformer {impl}: batch tokens differ")
+        latency = float(np.median(latencies))
+        print(f"conformer serving ({impl}): {calls} predictor calls, {counts[kernel]} {kernel} "
+              f"launches ({ENCODES_PER_CALL * nb} per request), 0 of every other kernel; "
+              f"B=1 1248 samples "
+              + ", ".join(f"{1e3 * x:.2f}" for x in latencies)
+              + f" ms (median {1e3 * latency:.2f}); B=256 {1e3 * batch_s:.2f} ms = "
+              f"{256 / batch_s:.2f} sentences/s")
+        # ---- against the plain path (the banded attention, no kernel) ----
+        plain = conformer_config(impl="banded")
+        enc_err = 0.0
+        for x in singles:
+            (ok, _, _), (op, _, _) = (_encode_padded(params, config, x),
+                                      _encode_padded(params, plain, x))
+            check(bool(torch.isfinite(ok.float()).all()), f"conformer {impl}: non-finite encode")
+            enc_err = max(enc_err, float((ok.float() - op.float()).abs().max()))
+        print(f"conformer ({impl}) bf16 encoder, kernel vs plain path: max abs err {enc_err:.3e}")
+        f32 = conformer_config(torch.float32, impl)
+        f32_plain = conformer_config(torch.float32, "banded")
+        pk = OnlinePredictor(params, f32, targets, max_samples=1248, device="cuda")
+        pp = OnlinePredictor(params, f32_plain, targets, max_samples=1248, device="cuda")
+        f32_err = 0.0
+        for x in singles:
+            (ok, fk, _), (op, fp, _) = (_encode_padded(params, f32, x),
+                                        _encode_padded(params, f32_plain, x))
+            for name, g, w in (("outputs", ok, op), ("pooled", fk[0], fp[0])):
+                a, _ = compare(f"conformer {impl} f32 encode {len(x)} {name}", g, w,
+                               TOL[torch.float32], normwise=True)
+                f32_err = max(f32_err, a)
+            check(np.array_equal(pk(x)["tokens"], pp(x)["tokens"]),
+                  f"conformer {impl} f32 tokens of {len(x)} samples: kernel path != plain path")
+        print(f"conformer ({impl}) f32 encoder, kernel vs plain path: max abs err "
+              f"{f32_err:.3e}; greedy tokens identical")
+        prof1 = profile_call(f"conformer {impl} B=1", lambda: predictor(singles[0]), need=(kernel,))
+        prof256 = profile_call(f"conformer {impl} B=256", lambda: predictor(batch), need=(kernel,))
+        results[impl] = {"counts": counts, "calls": calls, "latency_s": latency,
+                         "latencies_s": latencies, "batch_s": batch_s,
+                         "enc_err_bf16": enc_err, "enc_err_f32": f32_err,
+                         "profile_b1": prof1, "profile_b256": prof256}
+    return results
+
+
+def conformer_stream_phase(params) -> dict:
+    """``ConformerStream`` (flash, f32, B=1) over 6 chunks, the last with
+    11 valid steps: each emitted chunk equals the offline encode's rows."""
+    ccfg = ConformerConfig(**HEADLINE_CONFORMER, attention_impl="flash")
+    enc = params["encoder"]["conformer"]
+    C, n_chunks = ccfg.chunk_size, 6
+    n_valid = n_chunks * C - 5
+    x = torch.randn((1, n_chunks * C, 100), generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    stream = ConformerStream(enc, ccfg, compute_dtype=torch.float32)
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    outs = [stream.push(x[:, i * C:(i + 1) * C], n_valid - i * C if i == n_chunks - 1 else None)
+            for i in range(n_chunks)]
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    check_counts("conformer stream", counts, {"K2f": n_chunks * ccfg.num_blocks})
+    with torch.inference_mode():
+        offline, _ = conformer_encode(enc, ccfg, x, torch.tensor([n_valid], device="cuda",
+                                                                  dtype=torch.int32))
+    err = 0.0
+    for i, got in enumerate(outs):
+        rows = min(C, n_valid - i * C)
+        a, _ = compare(f"stream chunk {i}", got[:, :rows], offline[:, i * C:i * C + rows],
+                       TOL[torch.float32])
+        err = max(err, a)
+    print(f"conformer stream (flash, f32, window {stream.window_steps} steps): {n_chunks} chunks "
+          f"(last {n_valid - (n_chunks - 1) * C} valid) == offline encode, max abs err {err:.3e}; "
+          f"{counts['K2f']} K2f launches")
+    return {"counts": counts, "err": err}
+
+
+# --------------------------------------------------------------------------
+# 8. conformer training and the long recording: main paths
+# --------------------------------------------------------------------------
+
+
+def _conformer_f32_kernel_vs_plain(params, data, idx) -> float:
+    """Loss and every gradient leaf of one f32 batch, the flash and fused
+    paths against the plain (banded) path; no dropout draws differ (same
+    generator seed)."""
+    batch = {k: v[0][torch.as_tensor(idx, device="cuda")] for k, v in data.items()}
+    batch["subject_idx"] = 0
+    out = {}
+    for impl in ("flash", "fused", "banded"):
+        cfg = conformer_config(torch.float32, impl)
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        loss, _ = seq2seq_loss(p, cfg, batch, gen, train=True, penalty_scales=PENALTIES)
+        loss.backward()
+        out[impl] = (loss.detach(), [t.grad for t in tree_leaves(p)])
+    err = 0.0
+    lp, gp = out["banded"]
+    for impl in ("flash", "fused"):
+        lk, gk = out[impl]
+        e, _ = compare(f"conformer f32 loss, {impl} vs plain", lk, lp, TOL[torch.float32])
+        err = max(err, e)
+        for i, (a, b) in enumerate(zip(gk, gp)):
+            e, _ = compare(f"conformer f32 gradient leaf {i}, {impl} vs plain", a, b,
+                           TOL[torch.float32], normwise=True)
+            err = max(err, e)
+    print(f"conformer f32 training batch of {len(idx)}, flash and fused vs plain path: loss "
+          f"{float(out['flash'][0]):.6f} / {float(out['fused'][0]):.6f} vs {float(lp):.6f}; "
+          f"{len(gp)} gradient leaves; max abs err {err:.3e}")
+    return err
+
+
+def conformer_training_phase(params) -> dict:
+    """The headline conformer model, bf16, dropout on, B=256 x up to 1248
+    samples: TRAIN_STEPS steps of the segment runner under 'flash', then
+    under 'fused'."""
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    results = {}
+    for impl, kernel in (("flash", "K2f"), ("fused", "K3f")):
+        config = conformer_config(impl=impl)
+        p = tree_map(lambda t: t.detach().clone(), params)
+        data = _random_corpus(config)
+        state = TrainState(p, tree_map(lambda t: t.detach().clone(), p),
+                           make_optimizer(p, 1e-3), 0)
+        runner = make_segment_runner(config, PENALTIES, 0.99)
+        rng = np.random.default_rng(0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        subject = np.zeros((1,), np.int32)
+
+        def step() -> float:
+            nonlocal state
+            idx = rng.permutation(N_TRIALS)[:B_TRAIN][None]
+            state, metrics = runner(state, data, subject, idx, gen, 0)
+            return float(metrics["loss_total"])  # waits for the step
+
+        t0 = time.perf_counter()
+        losses = [step()]
+        first_s = time.perf_counter() - t0
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            step_s.append(time.perf_counter() - t0)
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        # ------------------------------------------------------------------
+        want = TRAIN_STEPS * nb
+        check_counts(f"conformer training ({impl})", counts,
+                     {kernel: want, "K2b-dq": want, "K2b-dkv": want})
+        check(all(np.isfinite(losses)), f"conformer {impl}: non-finite training loss {losses}")
+        check(losses[-1] < losses[0], f"conformer {impl}: training loss did not fall: {losses}")
+        ms = 1e3 * float(np.mean(step_s))
+        print(f"conformer training ({impl}) B={B_TRAIN} x {T_RAW} samples, bf16, dropout on: "
+              "losses " + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; per step {nb} {kernel} + {nb} K2b-dq + {nb} K2b-dkv launches")
+        print(f"conformer training step ({impl}): first {1e3 * first_s:.2f} ms, then "
+              + ", ".join(f"{1e3 * x:.2f}" for x in step_s)
+              + f" ms; mean {ms:.2f} ms = {B_TRAIN / (ms / 1e3):.2f} sentences/s; peak device "
+              f"memory {peak_gib:.2f} GiB (corpus included)")
+        prof = profile_call(f"conformer training step ({impl}) B={B_TRAIN}", step,
+                            need=(kernel, "K2b-dq", "K2b-dkv"))
+        results[impl] = {"counts": counts, "ms": ms, "losses": losses, "profile": prof}
+        del data, state
+    idx = np.random.default_rng(1).permutation(N_TRIALS)[:64]
+    results["f32_err"] = _conformer_f32_kernel_vs_plain(
+        params, _random_corpus(conformer_config()), idx)
+    return results
+
+
+def long_recording_phase(params) -> dict:
+    """``conformer_encode`` forward and backward at B=16, T'=8192 steps of
+    100 features, bf16, attention_impl 'auto' (the JAX package's
+    long-recording cell, bench.py:255-300): the kernels must run."""
+    ccfg = ConformerConfig(**HEADLINE_CONFORMER)  # 'auto'
+    enc = tree_map(lambda t: t.detach().clone().requires_grad_(), params["encoder"]["conformer"])
+    leaves = tree_leaves(enc)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((LONG_B, LONG_T, LONG_IN), generator=gen, device="cuda").to(torch.bfloat16)
+    lengths = torch.full((LONG_B,), LONG_T, dtype=torch.int32, device="cuda")
+
+    def fwd_bwd():
+        out, _ = conformer_encode(enc, ccfg, x, lengths, compute_dtype=torch.bfloat16)
+        grads = torch.autograd.grad((out.float() ** 2).sum(), leaves)
+        return grads
+
+    def fwd():
+        with torch.inference_mode():
+            return conformer_encode(enc, ccfg, x, lengths, compute_dtype=torch.bfloat16)[0]
+
+    grads = fwd_bwd()
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) for g in grads), "long recording: non-finite gradients")
+    iters = 3
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fwd_bwd()
+    torch.cuda.synchronize()
+    train_s = (time.perf_counter() - t0) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fwd()
+    torch.cuda.synchronize()
+    fwd_s = (time.perf_counter() - t0) / iters
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # ------------------------------------------------------------------
+    nb = ccfg.num_blocks
+    check_counts("long recording", counts,
+                 {"K2f": 2 * iters * nb, "K2b-dq": iters * nb, "K2b-dkv": iters * nb})
+    check(bool(torch.isfinite(out.float()).all()), "long recording: non-finite encoder output")
+    tokens = LONG_B * LONG_T
+    print(f"long recording B={LONG_B} T'={LONG_T} bf16 ('auto' -> flash): forward+backward "
+          f"{1e3 * train_s:.2f} ms = {tokens / train_s:.0f} tokens/s; forward {1e3 * fwd_s:.2f} ms "
+          f"= {tokens / fwd_s:.0f} tokens/s; launches {counts}; peak device memory "
+          f"{peak_gib:.2f} GiB")
+    prof = profile_call(f"long recording forward+backward B={LONG_B} T'={LONG_T}", fwd_bwd,
+                        need=("K2f", "K2b-dq", "K2b-dkv"))
+    return {"counts": counts, "train_s": train_s, "fwd_s": fwd_s,
+            "train_tokens_per_s": tokens / train_s, "fwd_tokens_per_s": tokens / fwd_s,
+            "profile": prof, "peak_gib": peak_gib}
+
+
+# --------------------------------------------------------------------------
+# 9. the trainer with a conformer encoder: a main path
+# --------------------------------------------------------------------------
+
+
+def demo_conformer_trainer(root: str) -> MultiSubjectTrainer:
+    """The demo experiment's trainer with a small conformer encoder
+    (flash attention), bf16, dropout on."""
+    manifest = make_demo_experiment(
+        f"{root}/conformer_exp", subject_ids=(1,), N_epochs=40, FF_dropout=0.1,
+        RNN_dropout=0.5,
+    )
+    return MultiSubjectTrainer(
+        manifest, [1], VERBOSE=False, device="cuda",
+        SN_kwargs={"encoder_type": "conformer", "conformer": DEMO_CONFORMER,
+                   "compute_dtype": "bfloat16", "batch_size": 16, "learning_rate": 3e-3,
+                   "max_dec_len": 10},
+    )
+
+
+def conformer_trainer_shape(trainer: MultiSubjectTrainer) -> tuple:
+    """(B, T', D, H, C, L) of the attention kernels in the trainer's steps."""
+    cfg = trainer.net_config
+    ccfg = cfg.conformer
+    T_pad = trainer.packed_dataset("training").encoder_inputs.shape[2]
+    return (trainer.batch_size, T_pad // cfg.decimation_factor, ccfg.model_dim,
+            ccfg.num_heads, ccfg.chunk_size, ccfg.left_context)
+
+
+def conformer_trainer_phase(trainer: MultiSubjectTrainer) -> dict:
+    counts_n = trainer.packed_dataset("training").num_trials
+    steps = trainer.N_epochs * sum(-(-int(n) // trainer.batch_size) for n in counts_n if n)
+    nb = trainer.net_config.conformer.num_blocks
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    t0 = time.perf_counter()
+    history = trainer.parallel_transfer_learn()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    check(counts["K2b-dq"] == counts["K2b-dkv"] == steps * nb,
+          f"conformer trainer: K2b launched {counts} in {steps} steps; expected "
+          f"{steps * nb} of each")
+    check(counts["K2f"] >= steps * nb and counts["K3f"] == counts["K1f"] == counts["K1b"] == 0,
+          f"conformer trainer: launches {counts}")
+    wers = [snap["training"]["word_error_rate"] for snap in history.values()]
+    check(all(np.isfinite(wers)) and wers[-1] < wers[0],
+          f"conformer trainer: training WER did not fall: {wers}")
+    predictor = OnlinePredictor.from_trainer(trainer)
+    val = trainer.packed_dataset("validation")
+    out = predictor(val.encoder_inputs[0, 0, : int(val.encoder_lengths[0, 0])])
+    check(out["tokens"].shape == (1, trainer.net_config.max_dec_len)
+          and bool(np.isfinite(out["probabilities"]).all()),
+          f"conformer trainer: served tokens {out['tokens']}")
+    print(f"conformer trainer (demo experiment, {DEMO_CONFORMER}, bf16): {steps} steps in "
+          f"{fit_s:.2f} s with 4 assessments; training WER by assessment "
+          + ", ".join(f"{w:.3f}" for w in wers)
+          + f"; launches {counts} ({nb} K2b-dq and {nb} K2b-dkv per step)")
+    print(f"served validation trial 0: {out['sequences'][0]!r} "
+          f"(reference {' '.join(val.references[0][0])!r})")
+    return {"wers": wers, "steps": steps, "counts": counts, "fit_s": fit_s}
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -814,15 +1479,83 @@ def main() -> int:
     env = environment()
     with tempfile.TemporaryDirectory() as root:
         trainer = demo_trainer(root)
+        conf_trainer = demo_conformer_trainer(root)
         demo_shapes = trainer_kernel_shapes(trainer)
-        print(f"demo trainer kernel shapes (B, H, T'): {demo_shapes}")
+        conf_shape = conformer_trainer_shape(conf_trainer)
+        print(f"demo trainer kernel shapes (B, H, T'): {demo_shapes}; conformer demo "
+              f"trainer attention shape (B, T', D, H, C, L): {conf_shape}")
         kern = kernel_phase(demo_shapes)
         kern_b = kernel_bwd_phase(demo_shapes)
+        attn = attention_kernel_phase(conf_shape)
         serve = serving_phase()
         train = training_phase()
         trainer_phase(trainer)
+        conf_params = init_seq2seq(conformer_config(), torch.Generator().manual_seed(0),
+                                   device="cuda")
+        cserve = conformer_serving_phase(conf_params)
+        cstream = conformer_stream_phase(conf_params)
+        ctrain = conformer_training_phase(conf_params)
+        clong = long_recording_phase(conf_params)
+        ctrainer = conformer_trainer_phase(conf_trainer)
     t256, t1 = kern["timings"][256], kern["timings"][1]
     b256 = kern_b["timings"][256]
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    headline = "B=256 T'=104 (T1=128) D=384 H=6 C=16 L=1 bf16"
+    source = "ecog2txt_tpu_torch/csrc/banded_attention.cu"
+    pallas = "ecog2txt_tpu/ops/pallas_attention.py"
+
+    def attention_entry(name, key, src, replaces, launches, extra):
+        th, tl = attn["timings"]["headline"][key], attn["timings"]["long"][key]
+        return {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, **extra,
+            "max_abs_err": max(attn["errs"][key].values()),
+            "max_abs_err_f32": attn["errs"][key][torch.float32],
+            "max_abs_err_bf16": attn["errs"][key][torch.bfloat16],
+            "max_abs_err_function_grads_f32": attn["grad_err"],
+            "shape": headline,
+            "ms": th["ms"], "plain_ms": th["plain_ms"], "bound_ms": th["bound_ms"],
+            "bound_by": th["bound_by"], "library_ms": th["library_ms"],
+            "build_s": env["build_s"],
+            "at_long": {"shape": f"B={LONG_B} T'={LONG_T} D=384 H=6 bf16", **tl},
+        }
+
+    sdpa = "scaled_dot_product_attention with a boolean band mask"
+    attention_entries = [
+        attention_entry("banded_attention_fwd", "K2f", source, f"{pallas}:321",
+                        cserve["flash"]["counts"]["K2f"], {
+                            "launches_per_request": ENCODES_PER_CALL * nb,
+                            "launches_stream": cstream["counts"]["K2f"],
+                            "launches_training": ctrain["flash"]["counts"]["K2f"],
+                            "launches_long": clong["counts"]["K2f"],
+                            "launches_demo_trainer": ctrainer["counts"]["K2f"],
+                            "library": f"{sdpa}, forward"}),
+        attention_entry("banded_attention_dq", "K2b-dq", source, f"{pallas}:290",
+                        ctrain["flash"]["counts"]["K2b-dq"], {
+                            "launches_per_step": nb,
+                            "launches_training_fused": ctrain["fused"]["counts"]["K2b-dq"],
+                            "launches_long": clong["counts"]["K2b-dq"],
+                            "launches_demo_trainer": ctrainer["counts"]["K2b-dq"],
+                            "library": f"{sdpa}, (forward+backward)-forward; one backward "
+                                       "computes dq, dk and dv together"}),
+        attention_entry("banded_attention_dkv", "K2b-dkv", source, f"{pallas}:302",
+                        ctrain["flash"]["counts"]["K2b-dkv"], {
+                            "launches_per_step": nb,
+                            "launches_training_fused": ctrain["fused"]["counts"]["K2b-dkv"],
+                            "launches_long": clong["counts"]["K2b-dkv"],
+                            "launches_demo_trainer": ctrainer["counts"]["K2b-dkv"],
+                            "library": f"{sdpa}, (forward+backward)-forward; one backward "
+                                       "computes dq, dk and dv together"}),
+        attention_entry("fused_attention_fwd", "K3f",
+                        "ecog2txt_tpu_torch/csrc/fused_attention.cu", f"{pallas}:550",
+                        cserve["fused"]["counts"]["K3f"], {
+                            "launches_per_request": ENCODES_PER_CALL * nb,
+                            "launches_training": ctrain["fused"]["counts"]["K3f"],
+                            "ms_with_residuals": attn["timings"]["headline"]["K3f"][
+                                "ms_with_residuals"],
+                            "library": "none: no single library call computes LayerNorm, "
+                                       "the rotary projections and the banded attention"}),
+    ]
     line = {"kernels": [{
         "name": "lstm_recurrence_fwd",
         "route": "cuda",
@@ -860,8 +1593,18 @@ def main() -> int:
                    "computes the weight gradients",
         "build_s": env["build_s"],
         "at_batch_16": kern_b["timings"][16],
-    }], "training_step_ms": train["ms"],
-        "training_sentences_per_s": B_TRAIN / (train["ms"] / 1e3)}
+    }, *attention_entries], "training_step_ms": train["ms"],
+        "training_sentences_per_s": B_TRAIN / (train["ms"] / 1e3),
+        "conformer": {
+            impl: {"request_ms_b1": 1e3 * cserve[impl]["latency_s"],
+                   "sentences_per_s_b256": 256 / cserve[impl]["batch_s"],
+                   "training_step_ms": ctrain[impl]["ms"],
+                   "training_sentences_per_s": B_TRAIN / (ctrain[impl]["ms"] / 1e3)}
+            for impl in ("flash", "fused")
+        },
+        "long_recording": {"train_tokens_per_s": clong["train_tokens_per_s"],
+                           "forward_tokens_per_s": clong["fwd_tokens_per_s"]},
+        "conformer_demo_wers": ctrainer["wers"]}
     print(json.dumps(line))
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

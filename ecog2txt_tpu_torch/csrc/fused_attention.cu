@@ -1,0 +1,231 @@
+// The fused attention layer for Hopper (sm_90a): K3f.
+//
+// Replaces ecog2txt_tpu/ops/pallas_attention.py::_fused_fwd_call (the
+// pallas_call at :579): LayerNorm (f32 statistics, eps 1e-6) -> the q,
+// k, v projections with rotary as two products per projection, against
+// W and the sign-permuted W@R -> the chunk-causal attention of K2f;
+// optionally it saves q, k, v and the per-head LSE for the backward
+// (which is K2b plus plain products, ops/attention_kernels.py).
+//
+// Design: one block per (query block n, head h, batch row b), as K2f.
+// The block recomputes the LayerNorm of its QB + L*C window rows (f32
+// statistics in shared memory) and runs the five projections of its
+// head in its own body: the (D, D) weights do not fit shared memory, so
+// for each projection the contraction over D is streamed in tiles of
+// kTile columns (the LayerNorm output of the window rows, computed on the
+// fly, and the matching kTile x Dh slice of the weight), each thread
+// keeping a column strip of the result in registers.  Results are
+// rounded to the stream dtype where the Pallas kernel rounds: the
+// LayerNorm output, each product, cos and sin, and each step of
+// S(x*cos) + S(xr*sin).  q, k and v of the window stay in shared memory
+// as f32 and feed the attention of K2f (attention_common.cuh).
+//
+// Bound on the card: at the conformer's shapes the projections dominate
+// (~2*(2*QB + 3*W)*D*Dh operations per block and head, recomputing the
+// L*C previous rows' k/v), which is below the bf16 tensor-core ridge of
+// bytes moved; this simple kernel runs them on the CUDA cores from
+// shared memory.  wgmma and TMA are later work.
+
+#include "attention_common.cuh"
+
+using namespace attn;
+
+namespace {
+
+constexpr int kTile = 32;       // contraction columns per streamed tile
+constexpr int kLStride = kTile + 4;  // LayerNorm tile row stride (16-byte rows)
+constexpr int kMaxAcc = 48;     // result elements a thread keeps per pass
+constexpr int kPassRows = 192;  // window rows per projection pass, at most
+
+struct Layer {
+  int T1, H, Dh, C, L, t_real, QB, offset;
+  float scale, eps;
+};
+
+// Result of one projection of window rows [lo, hi) (local row w is
+// sequence row base - PREV + w) against columns [h*Dh, (h+1)*Dh) of
+// `w`, rounded to the stream dtype.  With `rot` (the second product of a
+// rotary pair), dst already holds S(lnx . W) and becomes
+// S(S(dst * cos) + S(S(lnx . W@R) * sin)); else dst = S(lnx . W).
+// dst row w - lo, stride Dh + 1.
+template <typename T>
+__device__ void project(float* dst, int lo, int hi, bool rot, const T* xb, const float* mu,
+                        const float* rs, const float* lng, const float* lnb, const T* w,
+                        const float* freq, int h, int base, const Layer& P, float* ltile,
+                        float* wtile) {
+  const int Dh = P.Dh, D = P.H * Dh, PREV = P.L * P.C, stride = Dh + 1;
+  const int RG = kThreads / Dh, ty = threadIdx.x / Dh, col = threadIdx.x % Dh;
+  const int PR = min(kPassRows, kMaxAcc * RG), nacc = PR / RG;
+  for (int p0 = lo; p0 < hi; p0 += PR) {
+    const int prow = min(PR, hi - p0);
+    float acc[kMaxAcc];
+#pragma unroll
+    for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kTile) {
+      const int tk = min(kTile, D - d0);
+      __syncthreads();  // the previous tiles are consumed
+      for (int idx = threadIdx.x; idx < prow * kTile; idx += kThreads) {
+        const int r = idx / kTile, c = idx - r * kTile;
+        const int wr = p0 + r, gr = base - PREV + wr;
+        float val = 0.f;
+        if (c < tk && gr >= 0) {
+          const float xv = to_f<T>(xb[(size_t)gr * D + d0 + c]);
+          val = rnd<T>(__fadd_rn(__fmul_rn(__fmul_rn(xv - mu[wr], rs[wr]), lng[d0 + c]),
+                                 lnb[d0 + c]));
+        }
+        ltile[r * kLStride + c] = val;
+      }
+      for (int idx = threadIdx.x; idx < kTile * Dh; idx += kThreads) {
+        const int kk = idx / Dh, c = idx - kk * Dh;
+        wtile[idx] = kk < tk ? to_f<T>(w[(size_t)(d0 + kk) * D + h * Dh + c]) : 0.f;
+      }
+      __syncthreads();
+      // four contraction columns per step: one 16-byte load of the
+      // LayerNorm row per result element (columns past tk are zeros in
+      // both tiles, so they add exact zeros)
+      for (int kk = 0; kk < tk; kk += 4) {
+        const float w0 = wtile[kk * Dh + col], w1 = wtile[(kk + 1) * Dh + col];
+        const float w2 = wtile[(kk + 2) * Dh + col], w3 = wtile[(kk + 3) * Dh + col];
+#pragma unroll
+        for (int a = 0; a < kMaxAcc; ++a) {
+          const int r = ty + a * RG;
+          if (a < nacc && r < prow) {
+            const float4 l = *reinterpret_cast<const float4*>(ltile + r * kLStride + kk);
+            acc[a] = fmaf(l.w, w3, fmaf(l.z, w2, fmaf(l.y, w1, fmaf(l.x, w0, acc[a]))));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kMaxAcc; ++a) {
+      const int r = ty + a * RG;
+      if (a < nacc && r < prow) {
+        const int wr = p0 + r;
+        float* o = dst + (wr - lo) * stride + col;
+        const float y = rnd<T>(acc[a]);
+        if (rot) {
+          const float ang = __fmul_rn((float)(base - PREV + P.offset + wr), freq[h * Dh + col]);
+          const float cs = rnd<T>(cosf(ang)), sn = rnd<T>(sinf(ang));
+          *o = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(*o, cs)), rnd<T>(__fmul_rn(y, sn))));
+        } else {
+          *o = y;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fused_attention_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wq,
+                               const T* __restrict__ wqr, const T* __restrict__ wk,
+                               const T* __restrict__ wkr, const T* __restrict__ wv,
+                               const float* __restrict__ lng, const float* __restrict__ lnb,
+                               const float* __restrict__ freq, const int* __restrict__ lengths,
+                               T* __restrict__ out, T* __restrict__ qs, T* __restrict__ ks,
+                               T* __restrict__ vs, float* __restrict__ lse, Layer P,
+                               int save) {
+  const int n = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int Dh = P.Dh, D = P.H * Dh, PREV = P.L * P.C, QB = P.QB, W = QB + PREV;
+  const int stride = Dh + 1, T1 = P.T1;
+  const int base = n * QB;
+  const size_t boff = (size_t)b * T1 * D;
+  const T* xb = x + boff;
+  extern __shared__ float smem[];
+  float* ltile = smem;                         // kPassRows x kLStride (16-byte aligned)
+  float* wtile = ltile + kPassRows * kLStride;  // kTile x Dh
+  float* qsm = wtile + kTile * Dh;             // QB x stride: rotated q
+  float* ksm = qsm + QB * stride;              // W x stride: rotated k
+  float* vsm = ksm + W * stride;               // W x stride: v
+  float* mu = vsm + W * stride;                // W: row means
+  float* rs = mu + W;                          // W: row 1/sqrt(var + eps)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sbuf = rs + W + warp * W;
+
+  // LayerNorm statistics of the window rows (rows before the sequence
+  // are never read: their keys are masked)
+  for (int wr = warp; wr < W; wr += kWarps) {
+    const int gr = base - PREV + wr;
+    float m = 0.f, r = 0.f;
+    if (gr >= 0) {
+      const T* xr = xb + (size_t)gr * D;
+      float part = 0.f;
+      for (int d = lane; d < D; d += 32) part += to_f<T>(xr[d]);
+      m = warp_sum(part) / (float)D;
+      part = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        const float c = to_f<T>(xr[d]) - m;
+        part = fmaf(c, c, part);
+      }
+      r = rsqrtf(warp_sum(part) / (float)D + P.eps);
+    }
+    if (lane == 0) {
+      mu[wr] = m;
+      rs[wr] = r;
+    }
+  }
+  __syncthreads();
+
+  project<T>(qsm, PREV, W, false, xb, mu, rs, lng, lnb, wq, freq, h, base, P, ltile, wtile);
+  project<T>(qsm, PREV, W, true, xb, mu, rs, lng, lnb, wqr, freq, h, base, P, ltile, wtile);
+  project<T>(ksm, 0, W, false, xb, mu, rs, lng, lnb, wk, freq, h, base, P, ltile, wtile);
+  project<T>(ksm, 0, W, true, xb, mu, rs, lng, lnb, wkr, freq, h, base, P, ltile, wtile);
+  project<T>(vsm, 0, W, false, xb, mu, rs, lng, lnb, wv, freq, h, base, P, ltile, wtile);
+
+  const Band band{P.C, P.L, P.t_real, P.offset, lengths[b]};
+  for (int i = warp; i < QB; i += kWarps) {
+    const int gq = base + i;
+    const size_t row = boff + (size_t)gq * D + h * Dh;
+    attend_row<T>(qsm + i * stride, ksm, vsm, stride, W, Dh, P.scale, band, gq,
+                  base - PREV, sbuf, out + row,
+                  save ? lse + ((size_t)b * T1 + gq) * P.H + h : nullptr, lane);
+  }
+  if (save) {
+    for (int idx = threadIdx.x; idx < QB * Dh; idx += kThreads) {
+      const int i = idx / Dh, d = idx - i * Dh;
+      const size_t o = boff + (size_t)(base + i) * D + h * Dh + d;
+      qs[o] = from_f<T>(qsm[i * stride + d]);
+      ks[o] = from_f<T>(ksm[(PREV + i) * stride + d]);
+      vs[o] = from_f<T>(vsm[(PREV + i) * stride + d]);
+    }
+  }
+}
+
+size_t fused_smem(int QB, int W, int Dh) {
+  return sizeof(float) * ((size_t)(QB + 2 * W) * (Dh + 1) + 2 * (size_t)W +
+                          (size_t)kPassRows * kLStride + (size_t)kTile * Dh +
+                          (size_t)kWarps * W);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K3f on `stream` over the grid (T1/QB, H, B) and returns the
+// CUDA error code (0 on success).  bf16 != 0 selects bfloat16 streams.
+// With save == 0, qs, ks, vs and lse may be null.
+int fused_attention_fwd(const void* x, const void* wq, const void* wqr, const void* wk,
+                        const void* wkr, const void* wv, const float* lng, const float* lnb,
+                        const float* freq, const int* lengths, void* out, void* qs, void* ks,
+                        void* vs, float* lse, int B, int T1, int H, int Dh, int C, int L,
+                        int t_real, int QB, int offset, int bf16, int save, float scale,
+                        float eps, void* stream) {
+  const int W = QB + L * C;
+  const dim3 grid(T1 / QB, H, B);
+  const size_t smem = fused_smem(QB, W, Dh);
+  const Layer P{T1, H, Dh, C, L, t_real, QB, offset, scale, eps};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return launch(fused_attention_fwd_kernel<T>, grid, smem, s, (const T*)x, (const T*)wq,
+                  (const T*)wqr, (const T*)wk, (const T*)wkr, (const T*)wv, lng, lnb, freq,
+                  lengths, (T*)out, (T*)qs, (T*)ks, (T*)vs, lse, P, save);
+  }
+  using T = float;
+  return launch(fused_attention_fwd_kernel<T>, grid, smem, s, (const T*)x, (const T*)wq,
+                (const T*)wqr, (const T*)wk, (const T*)wkr, (const T*)wv, lng, lnb, freq,
+                lengths, (T*)out, (T*)qs, (T*)ks, (T*)vs, lse, P, save);
+}
+
+}  // extern "C"

@@ -1,5 +1,12 @@
 """Model cores (functional: explicit parameter trees + apply functions)."""
 
+from .conformer import (  # noqa: F401
+    ConformerConfig,
+    ConformerStream,
+    conformer_encode,
+    init_conformer,
+    receptive_field_steps,
+)
 from .seq2seq import (  # noqa: F401
     AuxHead,
     Seq2SeqConfig,

@@ -1,4 +1,5 @@
-"""Encoder-decoder seq2seq core, LSTM family: inference and training.
+"""Encoder-decoder seq2seq core, LSTM and conformer families: inference
+and training.
 
 The twin of ``ecog2txt_tpu/models/seq2seq.py`` with the same parameter
 tree (nested dicts and lists, the same keys and shapes, weights stored
@@ -9,7 +10,11 @@ tree (nested dicts and lists, the same keys and shapes, weights stored
   rows flipped inside each stride group, output reversed at the
   decimated rate);
 * a bidirectional LSTM encoder stack (``ops.lstm``; with
-  ``use_pallas_lstm`` the recurrences run the Hopper kernel);
+  ``use_pallas_lstm`` the recurrences run the Hopper kernel), or, with
+  ``encoder_type='conformer'``, the chunked-causal conformer
+  (``models.conformer``; its ``attention_impl`` picks the Hopper
+  attention kernels) over natural-order steps, bridged to the decoder
+  by a masked mean over the valid steps;
 * an attention-free (or Luong cross-attention) LSTM decoder started from
   the encoder's final state, teacher-forced or greedy / temperature
   sampled;
@@ -22,8 +27,8 @@ Sequences are time-major ``(T, B, F)``.  Products round their operands
 to ``compute_dtype`` and accumulate in f32 (``ops.lstm.dot_f32``).
 Where JAX takes an ``rng`` key the port takes a ``torch.Generator`` on
 the device of the tensors; the draws differ from JAX's, their rates and
-scaling do not.  The conformer encoder family and the CTC head are later
-slices of the port: they raise ``NotImplementedError``.
+scaling do not.  The CTC head is a later slice of the port: it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ..ops.lstm import (
     lstm_step,
     reverse_padded,
 )
+from .conformer import ConformerConfig, conformer_encode, init_conformer
 
 _NOT_PORTED = "is not ported yet (see ROADMAP.md, Queue 1)"
 
@@ -76,17 +82,17 @@ class Seq2SeqConfig:
     # (ops/lstm_kernels.py); the field keeps the JAX package's name so
     # one manifest drives both packages
     use_pallas_lstm: bool = False
-    encoder_type: str = "lstm"  # only 'lstm' in the port so far
-    conformer: Any = None
+    encoder_type: str = "lstm"  # 'lstm' | 'conformer'
+    conformer: ConformerConfig | None = None  # used when encoder_type=conformer
     use_attention: bool = False
     compute_dtype: torch.dtype = torch.float32
     pad_id: int = 0
     eos_id: int = 1
 
     def __post_init__(self):
-        if self.encoder_type != "lstm":
-            raise NotImplementedError(
-                f"encoder_type={self.encoder_type!r} {_NOT_PORTED}"
+        if self.encoder_type not in ("lstm", "conformer"):
+            raise ValueError(
+                f"encoder_type={self.encoder_type!r}: expected 'lstm' or 'conformer'"
             )
         if not isinstance(self.compute_dtype, torch.dtype):
             raise TypeError(
@@ -113,6 +119,8 @@ class Seq2SeqConfig:
 
     @property
     def enc_out_dim(self) -> int:
+        if self.encoder_type == "conformer":
+            return (self.conformer or ConformerConfig()).model_dim
         return self.rnn_sizes[-1] * (2 if self.BIDIRECTIONAL else 1)
 
 
@@ -157,22 +165,28 @@ def init_seq2seq(
         in_dim = size
     params["subnet"] = {"conv": subnet_layers}
 
-    enc_layers = []
-    for size in config.rnn_sizes:
-        if config.BIDIRECTIONAL:
-            enc_layers.append(
-                {
-                    "fwd": init_lstm_params(g, in_dim, size, device="cpu"),
-                    "bwd": init_lstm_params(g, in_dim, size, device="cpu"),
-                }
-            )
-            in_dim = 2 * size
-        else:
-            enc_layers.append(
-                {"fwd": init_lstm_params(g, in_dim, size, device="cpu")}
-            )
-            in_dim = size
-    params["encoder"] = {"rnn": enc_layers}
+    if config.encoder_type == "conformer":
+        ccfg = config.conformer or ConformerConfig()
+        params["encoder"] = {
+            "conformer": init_conformer(g, ccfg, in_dim, device="cpu")
+        }
+    else:
+        enc_layers = []
+        for size in config.rnn_sizes:
+            if config.BIDIRECTIONAL:
+                enc_layers.append(
+                    {
+                        "fwd": init_lstm_params(g, in_dim, size, device="cpu"),
+                        "bwd": init_lstm_params(g, in_dim, size, device="cpu"),
+                    }
+                )
+                in_dim = 2 * size
+            else:
+                enc_layers.append(
+                    {"fwd": init_lstm_params(g, in_dim, size, device="cpu")}
+                )
+                in_dim = size
+        params["encoder"] = {"rnn": enc_layers}
 
     # aux heads: MLP (aux_proj_sizes) → linear to target dim
     aux = {}
@@ -302,25 +316,46 @@ def encode(
     generator: torch.Generator | None = None,
     train: bool = False,
 ):
-    """Full encoder: reversal → conv → biLSTM stack, with dropout when
+    """Full encoder: reversal → conv → biLSTM stack, or (conformer
+    family) conv → conformer in natural time order, with dropout when
     ``train`` (drawn from ``generator``, which ``train`` requires).
 
-    Returns (enc_outputs (T', B, 2H), final (h, c) (B, 2H),
-    enc_lengths (B,))."""
+    Returns (enc_outputs (T', B, E), final (h, c) (B, E), enc_lengths
+    (B,)); for the conformer, the outputs are zero past each length and
+    the final state is their masked mean over the valid steps."""
     _require_generator(generator, train)
     xs = inputs.transpose(0, 1)  # (T, B, C)
+    # the LSTM family reads its input reversed (fused into the first
+    # conv layer); the chunked-causal conformer reads natural order so
+    # the same function streams chunk by chunk
+    reverse = config.encoder_type != "conformer"
     if config.conv_sizes:
         xs = convolve_sequences(
             params, config, xs, subject_idx, generator, train,
-            reverse_lengths=lengths,
+            reverse_lengths=lengths if reverse else None,
         )
     else:
         # no-conv experiment variant: plain strided decimation
-        xs = reverse_padded(xs, lengths)
+        if reverse:
+            xs = reverse_padded(xs, lengths)
         d0 = config.decimation_factor
         xs = xs[: (xs.shape[0] // d0) * d0 : d0]
     d = config.decimation_factor
     enc_lengths = torch.clamp((lengths + d - 1) // d, max=xs.shape[0])
+
+    if config.encoder_type == "conformer":
+        out_bm, _ = conformer_encode(
+            params["encoder"]["conformer"], config.conformer or ConformerConfig(),
+            xs.transpose(0, 1), enc_lengths, compute_dtype=config.compute_dtype,
+        )  # (B, T', D)
+        T_out = out_bm.shape[1]
+        step_mask = (
+            torch.arange(T_out, device=out_bm.device)[None, :] < enc_lengths[:, None]
+        )[..., None]
+        denom = torch.clamp(enc_lengths[:, None], min=1).to(out_bm.dtype)
+        pooled = (out_bm * step_mask).sum(dim=1) / denom
+        out = (out_bm * step_mask).transpose(0, 1)  # (T', B, D)
+        return out, (pooled, pooled), enc_lengths
 
     out = xs
     final_h = final_c = None
@@ -444,11 +479,13 @@ def decoder_teacher_forcing(
 # --------------------------------------------------------------------------
 
 
-def _decimate_targets(ts, lengths, stride: int, T_out: int):
+def _decimate_targets(ts, lengths, stride: int, T_out: int, reverse: bool = True):
     """Align per-sample encoder targets (T, B, ...) with encoder steps:
     reverse the valid prefix (matching the encoder's input reversal),
-    then take every ``stride``-th sample."""
-    ts = reverse_padded(ts, lengths)
+    then take every ``stride``-th sample.  ``reverse=False`` for the
+    natural-order (conformer) encoder."""
+    if reverse:
+        ts = reverse_padded(ts, lengths)
     return ts[: T_out * stride : stride]
 
 
@@ -519,6 +556,7 @@ def seq2seq_loss(
         aligned = _decimate_targets(
             raw.transpose(0, 1), batch["encoder_lengths"],
             config.decimation_factor, T_out,
+            reverse=config.encoder_type != "conformer",
         )
         if head.distribution == "categorical":
             logp = torch.log_softmax(pred, dim=-1)

@@ -35,6 +35,7 @@ from . import DATA_PARTITIONS, EOS_token, TOKEN_TYPES, pad_token, resolve_device
 from .assess import confusion_matrix, sequence_accuracy, wer_vector
 from .config import Manifest, load_experiment_manifest
 from .convert import load_checkpoint, save_checkpoint, tree_leaves, tree_map
+from .models.conformer import ConformerConfig
 from .models.seq2seq import (
     AuxHead,
     Seq2SeqConfig,
@@ -361,10 +362,12 @@ class MultiSubjectTrainer:
                 f"compute_dtype {dtype_name!r}: expected one of "
                 f"{sorted(_COMPUTE_DTYPES)}"
             )
-        if manifest.resolve("conformer", self.SN_kwargs.get("conformer"), None):
-            raise NotImplementedError(
-                "the conformer encoder is not ported yet (see ROADMAP.md, Queue 1)"
-            )
+        # conformer hyperparameters: manifest key 'conformer' or
+        # SN_kwargs['conformer'], a dict of ConformerConfig fields; None
+        # keeps the defaults of models/conformer.py
+        conformer_kwargs = manifest.resolve(
+            "conformer", self.SN_kwargs.get("conformer"), None
+        )
         self.net_config = Seq2SeqConfig(
             vocab_size=len(dec_list),
             num_subjects=len(self.ecog_subjects),
@@ -397,6 +400,9 @@ class MultiSubjectTrainer:
                 manifest.resolve(
                     "encoder_type", self.SN_kwargs.get("encoder_type"), "lstm"
                 )
+            ),
+            conformer=(
+                ConformerConfig(**conformer_kwargs) if conformer_kwargs else None
             ),
             use_pallas_lstm=bool(self.SN_kwargs.get("use_pallas_lstm", False)),
             compute_dtype=_COMPUTE_DTYPES[dtype_name],

@@ -1,4 +1,5 @@
-"""Tests of the port's CUDA kernels (K1f, K1b) that need an NVIDIA GPU.
+"""Tests of the port's CUDA kernels (K1f, K1b, K2f, K2b-dq, K2b-dkv, K3f)
+that need an NVIDIA GPU.
 
 They import torch and the port only (no JAX), so they run on a machine
 with a card and without the JAX package's test setup:
@@ -185,3 +186,186 @@ def test_training_step_launches_the_kernels():
     assert np.isfinite(float(metrics["loss_total"]))
     assert lstm_kernels.lstm_recurrence.launches == f0 + 4
     assert lstm_kernels.lstm_recurrence_bwd.launches == b0 + 4
+
+
+# --------------------------------------------------------------------------
+# the banded-attention kernels (K2f, K2b-dq, K2b-dkv, K3f)
+# --------------------------------------------------------------------------
+
+
+def _attention_inputs(dtype, B=2, T=100, H=2, Dh=16, C=8, L=2, offset=-16, seed=3):
+    """q, k, v, g, x (B, T1, D) with T1 a multiple of QB=32 (four query
+    blocks, a trailing pad), ragged lengths at a negative offset, the
+    K3f weights; the static arguments of the wrappers."""
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    QB = ak._pick_query_rows(C, L, 32)
+    T1 = -(-T // QB) * QB
+    D = H * Dh
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    seqs = [rand(B, T1, D).to(dtype).cuda() for _ in range(5)]
+    lengths = torch.tensor([T + offset, T + offset - 13], dtype=torch.int32).cuda()
+    weights = ak._split_rot_weights((rand(D, 3 * D) / D ** 0.5).cuda(), H, dtype)
+    ln = ((1 + 0.1 * rand(D)).cuda(), (0.1 * rand(D)).cuda())
+    pos = torch.arange(T1).cuda() + offset
+    valid = ((torch.arange(T1).cuda()[None] < T) & (pos[None] >= 0)
+             & (pos[None] < lengths[:, None]))[..., None]
+    return seqs, weights, ln, valid, (offset, lengths, C, L, T, QB, H)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_match_plain_versions(dtype):
+    """Each of the four kernels launches once and matches its plain
+    version (forward outputs on valid rows, backward outputs on every
+    row)."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    (q, k, v, gout, x), xw, (ln_g, ln_b), valid, args = _attention_inputs(dtype)
+    H = args[-1]
+    rows = lambda a: torch.where(valid, a.float(), 0.0)  # noqa: E731
+    wrappers = (ak.banded_attention_fwd, ak.banded_attention_dq,
+                ak.banded_attention_dkv, ak.fused_attention_fwd)
+    before = [w.launches for w in wrappers]
+    out, lse = ak.banded_attention_fwd(q, k, v, *args)
+    r_out, r_lse = ak.banded_attention_fwd_reference(q, k, v, *args)
+    bwd = (q, k, v, gout, r_lse, ak._delta(gout, r_out, H), *args)
+    dq = ak.banded_attention_dq(*bwd)
+    dk, dv = ak.banded_attention_dkv(*bwd)
+    fused = ak.fused_attention_fwd(x, xw, ln_g, ln_b, *args, True)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]
+    torch.testing.assert_close(rows(out), rows(r_out), **TOL[dtype])
+    torch.testing.assert_close(rows(lse), rows(r_lse), **TOL[torch.float32])
+    torch.testing.assert_close(dq.float(), ak.banded_attention_dq_reference(*bwd).float(),
+                               **TOL[dtype])
+    for got, want in zip((dk, dv), ak.banded_attention_dkv_reference(*bwd)):
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    want = ak.fused_attention_fwd_reference(x, xw, ln_g, ln_b, *args, True)
+    for name, got, w in zip(("out", "q", "k", "v", "lse"), fused, want):
+        if name in ("out", "lse"):
+            got, w = rows(got), rows(w)
+        tol = TOL[torch.float32] if name == "lse" and dtype == torch.float32 else TOL[dtype]
+        torch.testing.assert_close(got.float(), w.float(), **tol, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_kernels_take_a_head_dim_that_does_not_divide_256(dtype):
+    """K2f, K2b-dq and K2b-dkv at Dh=48 match their plain versions; K3f,
+    whose projections need a head dim dividing 256, refuses it."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    (q, k, v, gout, x), xw, (ln_g, ln_b), valid, args = _attention_inputs(dtype, Dh=48)
+    H = args[-1]
+    rows = lambda a: torch.where(valid, a.float(), 0.0)  # noqa: E731
+    out, lse = ak.banded_attention_fwd(q, k, v, *args)
+    r_out, r_lse = ak.banded_attention_fwd_reference(q, k, v, *args)
+    torch.testing.assert_close(rows(out), rows(r_out), **TOL[dtype])
+    torch.testing.assert_close(rows(lse), rows(r_lse), **TOL[torch.float32])
+    bwd = (q, k, v, gout, r_lse, ak._delta(gout, r_out, H), *args)
+    torch.testing.assert_close(ak.banded_attention_dq(*bwd).float(),
+                               ak.banded_attention_dq_reference(*bwd).float(), **TOL[dtype])
+    for got, want in zip(ak.banded_attention_dkv(*bwd), ak.banded_attention_dkv_reference(*bwd)):
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    with pytest.raises(ValueError, match="divides 256"):
+        ak.fused_attention_fwd(x, xw, ln_g, ln_b, *args, False)
+
+
+@pytest.mark.gpu
+def test_attention_functions_gradients_match_plain_autograd():
+    """BandedAttention (K2f + K2b) and FusedAttentionLayer (K3f + K2b +
+    plain products) against autograd through the plain forwards, f32;
+    held normwise (weight gradients sum B·T products in another order).
+    The f32 parameters' gradients stay f32."""
+    _need_cuda()
+    import torch.nn.functional as F
+
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    (q, k, v, _, x), _, (ln_g, ln_b), valid, args = _attention_inputs(torch.float32)
+    offset, lengths, C, L, T, QB, H = args
+    B, T1, D = q.shape
+    g = torch.Generator().manual_seed(5)
+    cot = torch.where(valid[:, :T], torch.randn((B, T, D), generator=g).cuda(), 0.0)
+    wqkv = (torch.randn((D, 3 * D), generator=g) / D ** 0.5).cuda()
+
+    def grads(fn, leaves):
+        leaves = [a.detach().clone().requires_grad_() for a in leaves]
+        (fn(*leaves) * cot).sum().backward()
+        return [a.grad for a in leaves]
+
+    def close(got, want):
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32
+            bound = 1e-5 + 1e-4 * b.abs().max()
+            assert float((a - b).abs().max()) <= float(bound)
+
+    heads = lambda a: a[:, :T].reshape(B, T, H, D // H)  # noqa: E731
+    pad = lambda a: F.pad(a.reshape(B, T, D), (0, 0, 0, T1 - T))  # noqa: E731
+    kw = dict(chunk_size=C, left_context=L, query_rows=QB)
+    close(grads(lambda *a: ak.banded_flash_attention(*a, offset, lengths, **kw).reshape(B, T, D),
+                [heads(q), heads(k), heads(v)]),
+          grads(lambda *a: ak.banded_attention_fwd_reference(
+              *(pad(t) for t in a), *args)[0][:, :T], [heads(q), heads(k), heads(v)]))
+    leaves = [wqkv, ln_g, ln_b, x[:, :T]]
+    close(grads(lambda w, gg, bb, xx: ak.fused_attention_layer(
+              w, gg, bb, xx, offset, lengths, num_heads=H, **kw), leaves),
+          grads(lambda w, gg, bb, xx: ak.fused_attention_fwd_reference(
+              pad(xx), ak._split_rot_weights(w, H, xx.dtype), gg, bb, *args, False
+          )[0][:, :T], leaves))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["flash", "fused"])
+def test_conformer_training_step_launches_the_kernels(impl):
+    """One segment-runner step of a small conformer seq2seq on the card
+    (bf16, dropout on): each block launches its forward kernel and both
+    backward kernels once, and the loss is finite."""
+    _need_cuda()
+    import numpy as np
+
+    from ecog2txt_tpu_torch.convert import tree_map
+    from ecog2txt_tpu_torch.models.conformer import ConformerConfig
+    from ecog2txt_tpu_torch.models.seq2seq import AuxHead, Seq2SeqConfig, init_seq2seq
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+    from ecog2txt_tpu_torch.train import TrainState, make_optimizer, make_segment_runner
+
+    cfg = Seq2SeqConfig(
+        vocab_size=30, in_channels=7, conv_sizes=(16,), decimation_factor=4,
+        aux_proj_sizes=(8,), aux_heads=(AuxHead("aux", "categorical", 5),),
+        dec_embedding_size=8, dec_rnn_sizes=(32,), max_dec_len=6,
+        compute_dtype=torch.bfloat16, encoder_type="conformer",
+        conformer=ConformerConfig(num_blocks=2, model_dim=32, num_heads=2, ffn_dim=64,
+                                  conv_kernel=4, chunk_size=4, attention_impl=impl),
+    )
+    params = init_seq2seq(cfg, torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    N, Traw = 8, 48
+    dec = torch.randint(3, 30, (1, N, 6), generator=g, dtype=torch.int32)
+    dec[..., -1] = 1
+    data = {
+        "encoder_inputs": torch.randn((1, N, Traw, 7), generator=g).bfloat16(),
+        "encoder_lengths": torch.randint(12, Traw + 1, (1, N), generator=g,
+                                         dtype=torch.int32),
+        "decoder_targets": dec,
+        "decoder_lengths": torch.full((1, N), 6, dtype=torch.int32),
+        "aux": torch.randint(0, 5, (1, N, Traw), generator=g, dtype=torch.int32),
+    }
+    data = {k: v.cuda() for k, v in data.items()}
+    state = TrainState(params, tree_map(lambda t: t.detach().clone(), params),
+                       make_optimizer(params, 1e-3), 0)
+    runner = make_segment_runner(cfg, {"aux": 1.0}, 0.99)
+    wrappers = {"K2f": ak.banded_attention_fwd, "K3f": ak.fused_attention_fwd,
+                "dq": ak.banded_attention_dq, "dkv": ak.banded_attention_dkv}
+    before = {k: w.launches for k, w in wrappers.items()}
+    state, metrics = runner(state, data, np.zeros(1, np.int32),
+                            np.arange(4, dtype=np.int32)[None],
+                            torch.Generator(device="cuda").manual_seed(0), 1)
+    assert np.isfinite(float(metrics["loss_total"]))
+    fwd = "K2f" if impl == "flash" else "K3f"
+    want = {k: 2 if k in (fwd, "dq", "dkv") else 0 for k in wrappers}
+    assert {k: w.launches - before[k] for k, w in wrappers.items()} == want
