@@ -16,7 +16,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    upstream gradients for K1b); then the autograd Function's gradients
    against autograd through the plain forward at f32.  CUDA-event timings of
    each kernel, its plain version and a one-call library yardstick,
-   beside the least time the card could take (``bound_ms``);
+   beside the least time the card could take (``bound_ms``).  Then the
+   one-launch biLSTM grid K4f / K4b at the same shapes (both directions,
+   ragged lengths, 0/2 masks, nonzero upstream gradients), the row
+   LayerNorm K5f / K5b at the conformer's headline rows (B=256 x T'=104,
+   D=384), the long recording's (B=16 x T'=8192) and at D=64 and D=100,
+   both Functions' gradients, and their timings beside cuDNN's
+   bidirectional ``nn.LSTM``, ``F.layer_norm`` and, for K4f, the two K1f
+   launches it replaces;
 3. serving (a main path): the full-width biLSTM model of the JAX
    package's benchmark configuration (469 channels, conv 100 / stride
    12, 3x400 biLSTM, LSTM-800 decoder, vocab 1809, bf16, random weights
@@ -41,13 +48,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``parallel_transfer_learn`` for a few assessment intervals: training
    WER must fall, and K1b must launch 2 x len(encoder_rnn) times per
    step.  One validation trial is then served through
-   ``OnlinePredictor.from_trainer``;
+   ``OnlinePredictor.from_trainer``.  Then the phase 3 model under
+   ``use_pallas_lstm='bi_grid'`` (a main path): B=1 requests, a B=256
+   batch and a stream, 3 K4f launches per encode and no other kernel,
+   f32 tokens equal to the plain path's; and phase 4's training under
+   'bi_grid' (a main path): 3 K4f + 3 K4b launches per step, no K1f or
+   K1b, a falling loss, f32 loss and gradients against the plain path;
 6. attention kernels: K2f, K2b-dq, K2b-dkv and K3f against their plain
    versions in f32 and bf16, full and ragged lengths, at the headline
    conformer's training and serving shape (B=256, T'=104, D=384, H=6,
    C=16, L=1), the ``ConformerStream`` window (B=1, T'=144, offsets -64
-   and 256), the long recording (B=16, T'=8192) and the conformer demo
-   trainer's own shape; the two autograd Functions' gradients against
+   and 256), the long recording (B=16, T'=8192), the conformer demo
+   trainer's own shape and head dims 48 and 96 (B=16, 8 and 4 heads); the two autograd Functions' gradients against
    autograd through the plain forwards (f32); CUDA-event timings beside
    each kernel's bound and ``scaled_dot_product_attention`` as the
    yardstick of K2f and K2b;
@@ -69,7 +81,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
 9. the conformer demo trainer (a main path): ``MultiSubjectTrainer`` on
    the demo experiment with a small flash conformer, bf16: training WER
    must fall, with 2 K2b-dq and 2 K2b-dkv launches per step;
-10. the ``kernels`` JSON line (all six kernels), the card's name and
+Every conformer path also counts its LayerNorm launches: 5 K5f per block
+and encode (4 under 'fused', where K3f normalises inside) and as many K5b
+per training step; the flash training step is timed once more with the
+LayerNorm swapped back to the plain math, in turns with K5.
+
+10. the ``kernels`` JSON line (all ten kernels), the card's name and
    power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is
@@ -102,7 +119,8 @@ from ecog2txt_tpu_torch.models.conformer import (
     ConformerStream,
     conformer_encode,
 )
-from ecog2txt_tpu_torch.ops import _build, attention_kernels, lstm_kernels
+from ecog2txt_tpu_torch.models import conformer as conformer_module
+from ecog2txt_tpu_torch.ops import _build, attention_kernels, layernorm_kernels, lstm_kernels
 from ecog2txt_tpu_torch.ops.lstm import init_lstm_params
 from ecog2txt_tpu_torch.serve import OnlinePredictor, StreamingSession
 from ecog2txt_tpu_torch.train import (
@@ -141,7 +159,13 @@ WRAPPERS = {
     "K1f": lstm_kernels.lstm_recurrence, "K1b": lstm_kernels.lstm_recurrence_bwd,
     "K2f": ATTN.banded_attention_fwd, "K2b-dq": ATTN.banded_attention_dq,
     "K2b-dkv": ATTN.banded_attention_dkv, "K3f": ATTN.fused_attention_fwd,
+    "K4f": lstm_kernels.bilstm_grid_fwd, "K4b": lstm_kernels.bilstm_grid_bwd,
+    "K5f": layernorm_kernels.layer_norm_fwd, "K5b": layernorm_kernels.layer_norm_bwd,
 }
+# LayerNorms per conformer block that run K5f/K5b: both FFNs, the
+# attention's (except under 'fused', where K3f normalises inside), the
+# conv module's and the block's output
+LN_PER_BLOCK = {"flash": 5, "fused": 4}
 
 
 class SmokeFailure(RuntimeError):
@@ -382,13 +406,15 @@ def kernel_phase(extra_shapes) -> dict:
                     lambda: lstm_kernels._launch(*args, False, False, rows), reps=10
                 )
             t["rows_per_block_ms"] = sweep
+            t["rows_per_block"] = lstm_kernels._rows_per_block(B, H, args[0].device, waves=2)
         timings[B] = t
         print(f"timing lstm_recurrence_fwd B={B} T'={T_STEPS} H={H} bf16: "
               f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library (cuDNN nn.LSTM) {library_ms:.4f} ms "
               f"[max abs diff to the kernel {lib_err:.3e}], "
               f"bound {bound_ms:.4f} ms ({bound_by})"
-              + (f", rows/block sweep {t['rows_per_block_ms']}" if B > 1 else ""))
+              + (f", rows/block sweep {t['rows_per_block_ms']}, rows/block taken "
+                 f"{t['rows_per_block']}" if B > 1 else ""))
     return {"errs": errs, "timings": timings}
 
 
@@ -521,6 +547,300 @@ def kernel_bwd_phase(extra_shapes) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 2b. the one-launch biLSTM grid (K4f, K4b) and LayerNorm (K5f, K5b)
+# --------------------------------------------------------------------------
+
+
+def _grid_inputs(B, dtype, variant, seed, h=H, steps=T_STEPS):
+    """K4f's inputs: both directions' projections and weights from two
+    recurrences of width ``h`` (zero state); full lengths and unit masks,
+    or ragged lengths and 0/2 masks."""
+    xwf, whf, lengths, _, _, maskf = _recurrence_inputs(B, dtype, variant, True, seed, h, steps)
+    xwb, whb, _, _, _, maskb = _recurrence_inputs(B, dtype, variant, True, seed + 5000, h, steps)
+    return xwf, xwb, whf, whb, lengths, maskf, maskb
+
+
+def _grid_adjoint_inputs(B, dtype, variant, seed, h=H, steps=T_STEPS):
+    """K4b's inputs from a real forward pass (the plain version), with
+    nonzero upstream gradients for both directions' h_seq and the final
+    states."""
+    xwf, xwb, whf, whb, lengths, maskf, maskb = _grid_inputs(B, dtype, variant, seed, h, steps)
+    hf, hb, cf, cb, _, _ = lstm_kernels.bilstm_grid_fwd_reference(
+        xwf, xwb, whf, whb, lengths, maskf, maskb)
+    zeros = torch.zeros((B, h), device="cuda")
+    hpf, cpf = (lstm_kernels._shifted(s, zeros, False) for s in (hf, cf))
+    hpb, cpb = (lstm_kernels._shifted(s, zeros, True) for s in (hb, cb))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dhsf, dhsb = (torch.randn(hf.shape, generator=g, device="cuda").to(dtype) for _ in "fb")
+    dhT, dcT = (torch.randn((2, B, h), generator=g, device="cuda") for _ in "hc")
+    return (xwf, xwb, whf, whb, hpf, hpb, cpf, cpb, cf, cb, lengths, maskf, maskb,
+            dhsf, dhsb, dhT, dcT)
+
+
+def _library_bilstm(whf: torch.Tensor, whb: torch.Tensor):
+    """A one-layer bidirectional ``torch.nn.LSTM`` (cuDNN) of the same
+    width on a (T', B, 4H) input, each direction's weights set as in
+    :func:`_library_lstm`: both chains in one call.  cuDNN feeds both
+    directions the same input, where K4f takes one projection each, so
+    it is a yardstick of time, not of values."""
+    one_f, one_b = _library_lstm(whf), _library_lstm(whb)
+    lstm = torch.nn.LSTM(4 * H, H, bidirectional=True).cuda().to(whf.dtype)
+    with torch.no_grad():
+        for suffix, one in (("", one_f), ("_reverse", one_b)):
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                getattr(lstm, f"{name}_l0{suffix}").copy_(getattr(one, f"{name}_l0"))
+    lstm.flatten_parameters()
+    return lstm
+
+
+def _grid_case_check(kind, B, h, steps, dtype, variant, seed, errs):
+    """One K4f or K4b case against its plain version."""
+    case = f"B={B} H={h} T'={steps} {str(dtype)[6:]} {variant}"
+    if kind == "K4f":
+        args = _grid_inputs(B, dtype, variant, seed, h, steps)
+        got = lstm_kernels.bilstm_grid_fwd(*args)
+        want = lstm_kernels.bilstm_grid_fwd_reference(*args)
+        names = ("hf", "hb", "cf", "cb", "hT", "cT")
+    else:
+        args = _grid_adjoint_inputs(B, dtype, variant, seed, h, steps)
+        got = lstm_kernels.bilstm_grid_bwd(*args)
+        want = lstm_kernels.bilstm_grid_bwd_reference(*args)
+        names = ("dgf", "dgb", "dh0", "dc0")
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        a, _ = compare(f"{kind} {case} {name}", g, w, TOL[dtype])
+        worst = max(worst, a)
+    errs[kind][dtype] = max(errs[kind][dtype], worst)
+    print(f"kernel {kind} {case}: max abs err {worst:.3e}")
+
+
+def _grid_function_grads() -> float:
+    """``fused_bilstm_grid`` (K4f + K4b + two GEMMs) against autograd
+    through the plain forward at f32, B=16, ragged lengths and 0/2 masks;
+    held normwise (``dwh`` sums T'·B products in another order)."""
+    xwf, xwb, whf, whb, lengths, maskf, maskb = _grid_inputs(
+        16, torch.float32, "ragged_mask_state", 210)
+    w_out = torch.randn((2 * H,), generator=torch.Generator().manual_seed(4)).cuda()
+
+    def grads(fn):
+        leaves = [a.detach().clone().requires_grad_() for a in (xwf, xwb, whf, whb)]
+        out, hT, cT = fn(*leaves)
+        ((out * w_out).sum() + 2.0 * hT.sum() + 0.5 * (cT ** 2).sum()).backward()
+        return [a.grad for a in leaves]
+
+    got = grads(lambda *a: lstm_kernels.fused_bilstm_grid(*a, lengths, maskf, maskb))
+
+    def plain(xf, xb, wf, wb):
+        hf, hb, _, _, hT, cT = lstm_kernels.bilstm_grid_fwd_reference(
+            xf, xb, wf, wb, lengths, maskf, maskb, return_c_seq=False)
+        return torch.cat([hf, hb], -1), torch.cat([hT[0], hT[1]], -1), torch.cat([cT[0], cT[1]], -1)
+
+    want = grads(plain)
+    err = 0.0
+    for name, g, w in zip(("xwf", "xwb", "whf", "whb"), got, want):
+        a, _ = compare(f"BiLSTMGrid grad {name}", g, w, TOL[torch.float32], normwise=True)
+        err = max(err, a)
+    print(f"autograd Function (K4f + K4b) vs autograd through the plain forward, f32 B=16: "
+          f"max abs err {err:.3e}")
+    return err
+
+
+def _grid_timings(B: int) -> dict:
+    """K4f at the serving shape and K4b at the training shape (bf16, full
+    lengths, unit masks): CUDA-event times beside the plain versions,
+    the bounds (twice K1f's and K1b's: two chains of the same work), the
+    cuDNN bidirectional yardstick and the two K1f launches K4f replaces;
+    at B=256 a sweep of K4f's rows per block."""
+    dtype = torch.bfloat16
+    args = _grid_inputs(B, dtype, "serving", 1100 + B)
+    xwf, xwb, whf, whb, lengths, maskf, maskb = args
+    zeros = torch.zeros((B, H), device="cuda")
+    fwd = {"ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_fwd(*args, return_c_seq=False), 20),
+           "plain_ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_fwd_reference(
+               *args, return_c_seq=False), reps=3, warmup=1)}
+    fwd["two_k1f_ms"] = cuda_ms(lambda: (
+        lstm_kernels.lstm_recurrence(xwf, whf, lengths, zeros, zeros, maskf),
+        lstm_kernels.lstm_recurrence(xwb, whb, lengths, zeros, zeros, maskb, True)), 20)
+    lstm = _library_bilstm(whf, whb)
+    with torch.no_grad():
+        fwd["library_ms"] = cuda_ms(lambda: lstm(xwf), 20)
+    bound, by = _bound(B, dtype)
+    fwd.update(bound_ms=2 * bound, bound_by=by,
+               rows_per_block=lstm_kernels._rows_per_block(B, H, xwf.device, directions=2))
+    if B == 256:
+        fwd["rows_per_block_ms"] = {
+            rows: cuda_ms(lambda: lstm_kernels._launch_grid_fwd(*args, False, rows), 10)
+            for rows in lstm_kernels._ROWS_PER_BLOCK
+        }
+    bargs = _grid_adjoint_inputs(B, dtype, "serving", 1200 + B)
+    bwd = {"ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_bwd(*bargs), 20),
+           "plain_ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_bwd_reference(*bargs),
+                               reps=3, warmup=1)}
+    bwd["two_k1b_ms"] = cuda_ms(lambda: (
+        lstm_kernels.lstm_recurrence_bwd(xwf, whf, bargs[4], bargs[6], bargs[8], lengths,
+                                         maskf, bargs[13], bargs[15][0], bargs[16][0]),
+        lstm_kernels.lstm_recurrence_bwd(xwb, whb, bargs[5], bargs[7], bargs[9], lengths,
+                                         maskb, bargs[14], bargs[15][1], bargs[16][1], True)),
+        20)
+    x = xwf.detach().clone().requires_grad_()
+    dy = torch.cat([bargs[13], bargs[14]], dim=-1)
+
+    def lib_fwd_bwd():
+        out, _ = lstm(x)
+        out.backward(dy)
+
+    with torch.enable_grad():
+        both = cuda_ms(lib_fwd_bwd, 20)
+        lib_fwd = cuda_ms(lambda: lstm(x), 20)
+    bound, by = _bwd_bound(B, dtype)
+    bwd.update(library_ms=both - lib_fwd, bound_ms=2 * bound, bound_by=by)
+    for name, t in (("K4f", fwd), ("K4b", bwd)):
+        print(f"timing {name} B={B} T'={T_STEPS} H={H} bf16: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library (cuDNN bidirectional nn.LSTM"
+              f"{'' if name == 'K4f' else ' backward, with weight gradients'}) "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              + (f"two K1f launches {t['two_k1f_ms']:.4f} ms, rows/block "
+                 f"{t['rows_per_block']}" if name == "K4f" else
+                 f"two K1b launches {t['two_k1b_ms']:.4f} ms")
+              + (f", rows/block sweep {t['rows_per_block_ms']}" if "rows_per_block_ms" in t
+                 else ""))
+    return {"K4f": fwd, "K4b": bwd}
+
+
+def _ln_bounds(rows: int, D: int, dtype) -> dict:
+    """Least time (ms) of K5f and K5b: bytes (K5f: x in, y out, g and b;
+    K5b: x and dy in, dx out, g in, dg and db out) at the HBM rate, or
+    their elementwise f32 operations (about 8 per element forward, 12
+    backward) at the f32 peak, whichever is larger."""
+    es = torch.finfo(dtype).bits // 8
+    n = rows * D
+    out = {}
+    for name, nbytes, ops in (("K5f", 2 * n * es + 2 * D * 4, 8.0 * n),
+                              ("K5b", 3 * n * es + 3 * D * 4, 12.0 * n)):
+        t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / PEAK_F32_FLOPS
+        out[name] = (1e3 * max(t_bytes, t_ops), "operations" if t_ops > t_bytes else "bytes")
+    return out
+
+
+def _ln_inputs(rows, D, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((rows, D), generator=g, device="cuda") * 3 + 1).to(dtype)
+    dy = torch.randn((rows, D), generator=g, device="cuda").to(dtype)
+    lng = 1 + 0.2 * torch.randn((D,), generator=g, device="cuda")
+    lnb = 0.1 * torch.randn((D,), generator=g, device="cuda")
+    return x, dy, lng, lnb
+
+
+def _ln_timings(label: str, rows: int, D: int) -> dict:
+    """K5f and K5b at one shape, bf16: CUDA-event times beside the plain
+    versions, the bounds and ``F.layer_norm`` (forward; its backward as
+    (forward+backward) - forward)."""
+    F = torch.nn.functional
+    dtype = torch.bfloat16
+    x, dy, lng, lnb = _ln_inputs(rows, D, dtype, 77)
+    LN = layernorm_kernels
+    bounds = _ln_bounds(rows, D, dtype)
+    t = {"K5f": {"ms": cuda_ms(lambda: LN.layer_norm_fwd(x, lng, lnb), 20),
+                 "plain_ms": cuda_ms(lambda: LN.layer_norm_fwd_reference(x, lng, lnb), 5, 1)},
+         "K5b": {"ms": cuda_ms(lambda: LN.layer_norm_bwd(x, dy, lng), 20),
+                 "plain_ms": cuda_ms(lambda: LN.layer_norm_bwd_reference(x, dy, lng), 5, 1)}}
+    # the library call takes its affine parameters in the stream dtype
+    gl, bl = lng.to(dtype), lnb.to(dtype)
+    with torch.no_grad():
+        t["K5f"]["library_ms"] = cuda_ms(lambda: F.layer_norm(x, (D,), gl, bl, 1e-6), 20)
+    xl, gq, bq = (a.detach().clone().requires_grad_() for a in (x, gl, bl))
+
+    def lib_fwd_bwd():
+        F.layer_norm(xl, (D,), gq, bq, 1e-6).backward(dy)
+
+    with torch.enable_grad():
+        both = cuda_ms(lib_fwd_bwd, 20)
+        lib_fwd = cuda_ms(lambda: F.layer_norm(xl, (D,), gq, bq, 1e-6), 20)
+    t["K5b"]["library_ms"] = both - lib_fwd
+    for name in ("K5f", "K5b"):
+        t[name]["bound_ms"], t[name]["bound_by"] = bounds[name]
+        r = t[name]
+        print(f"timing {name} {label} rows={rows} D={D} bf16: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library (F.layer_norm{'' if name == 'K5f' else ' backward'}"
+              f") {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return t
+
+
+def _ln_function_grads() -> float:
+    """``layer_norm`` (K5f + K5b + one sum) against autograd through the
+    plain forward, f32, (B=4, T'=37, D=384) with a nonlinear loss; held
+    normwise (dg and db sum over every row in another order)."""
+    x, _, lng, lnb = _ln_inputs(4 * 37, 384, torch.float32, 78)
+    x = x.reshape(4, 37, 384)
+
+    def grads(fn):
+        leaves = [a.detach().clone().requires_grad_() for a in (x, lng, lnb)]
+        fn(*leaves).sin().sum().backward()
+        return [a.grad for a in leaves]
+
+    got = grads(layernorm_kernels.layer_norm)
+    want = grads(layernorm_kernels.layer_norm_fwd_reference)
+    err = 0.0
+    for name, g, w in zip(("x", "g", "b"), got, want):
+        check(g.dtype == torch.float32, f"LayerNorm grad d{name}: {g.dtype}")
+        a, _ = compare(f"LayerNorm grad d{name}", g, w, TOL[torch.float32], normwise=True)
+        err = max(err, a)
+    print(f"autograd Function (K5f + K5b) vs autograd through the plain forward, f32: "
+          f"max abs err {err:.3e}")
+    return err
+
+
+def grid_and_layernorm_kernel_phase(demo_shapes) -> dict:
+    """K4f and K4b against their plain versions at the full-width shapes
+    (H=400, T'=104, B in {1, 256}) and the demo trainer's own (B=16,
+    H=64); K5f and K5b at the headline conformer rows (B=256 x T'=104,
+    D=384), the long recording's (B=16 x T'=8192) and at D=64; f32 and
+    bf16, ragged lengths and 0/2 masks or odd row counts; the two
+    Functions' gradients; the timings."""
+    errs = {k: {torch.float32: 0.0, torch.bfloat16: 0.0} for k in ("K4f", "K4b", "K5f", "K5b")}
+    shapes = [(1, H, T_STEPS), (256, H, T_STEPS), *demo_shapes]
+    seed = 500
+    for kind in ("K4f", "K4b"):
+        for B, h, steps in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                for variant in ("serving", "ragged_mask_state"):
+                    seed += 1
+                    _grid_case_check(kind, B, h, steps, dtype, variant, seed, errs)
+    grid_grad_err = _grid_function_grads()
+    LN = layernorm_kernels
+    for label, rows, D in (("headline", 256 * T_STEPS, 384), ("long", LONG_B * LONG_T, 384),
+                           ("demo width", 16 * 24 + 5, 64), ("odd", 37, 100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            seed += 1
+            x, dy, lng, lnb = _ln_inputs(rows, D, dtype, seed)
+            y = LN.layer_norm_fwd(x, lng, lnb)
+            dx, dg, db = LN.layer_norm_bwd(x, dy, lng)
+            torch.cuda.synchronize()
+            ry = LN.layer_norm_fwd_reference(x, lng, lnb)
+            rdx, rdg, rdb = LN.layer_norm_bwd_reference(x, dy, lng)
+            case = f"{label} rows={rows} D={D} {str(dtype)[6:]}"
+            a, _ = compare(f"K5f {case} y", y, ry, TOL[dtype])
+            errs["K5f"][dtype] = max(errs["K5f"][dtype], a)
+            worst = compare(f"K5b {case} dx", dx, rdx, TOL[dtype])[0]
+            # dg and db: per-block partials summed here, against one sum
+            # over every row: held normwise
+            for name, g, w in (("dg", dg.sum(0), rdg.sum(0)), ("db", db.sum(0), rdb.sum(0))):
+                check(g.dtype == torch.float32, f"K5b {case} {name}: {g.dtype}")
+                worst = max(worst, compare(f"K5b {case} {name}", g, w, TOL[torch.float32],
+                                           normwise=True)[0])
+            errs["K5b"][dtype] = max(errs["K5b"][dtype], worst)
+            print(f"kernels K5f/K5b {case}: max abs err {a:.3e} / {worst:.3e}")
+            del x, dy, y, dx, ry, rdx
+    ln_grad_err = _ln_function_grads()
+    timings = {B: _grid_timings(B) for B in (1, 256)}
+    ln_timings = {"headline": _ln_timings("headline", 256 * T_STEPS, 384),
+                  "long": _ln_timings("long", LONG_B * LONG_T, 384)}
+    return {"errs": errs, "grid_grad_err": grid_grad_err, "ln_grad_err": ln_grad_err,
+            "timings": timings, "ln_timings": ln_timings}
+
+
+# --------------------------------------------------------------------------
 # 3. serving: the main path
 # --------------------------------------------------------------------------
 
@@ -590,14 +910,11 @@ def serving_phase() -> dict:
         session.push(chunk)
     streamed = session.decode()
     calls += 1
-    launches = lstm_kernels.lstm_recurrence.launches
-    bwd_launches = lstm_kernels.lstm_recurrence_bwd.launches
+    counts = read_counts()
+    launches = counts["K1f"]
     # ------------------------------------------------------------------
-    check(bwd_launches == 0, f"serving launched the adjoint kernel {bwd_launches} times")
     expected = calls * ENCODES_PER_CALL * LAUNCHES_PER_ENCODE
-    check(launches == expected,
-          f"recurrence kernel launched {launches} times in {calls} predictor "
-          f"calls; expected {expected}")
+    check_counts(f"biLSTM serving ({calls} predictor calls)", counts, {"K1f": expected})
     check(np.array_equal(streamed["tokens"], single_out[1]["tokens"]),
           "streaming: tokens differ from the whole utterance")
     check(np.allclose(streamed["probabilities"], single_out[1]["probabilities"],
@@ -653,6 +970,8 @@ _KERNEL_CATEGORIES = (
     ("lstm_recurrence_fwd", "K1f"), ("lstm_recurrence_bwd", "K1b"),
     ("banded_attention_fwd_kernel", "K2f"), ("banded_attention_dq_kernel", "K2b-dq"),
     ("banded_attention_dkv_kernel", "K2b-dkv"), ("fused_attention_fwd_kernel", "K3f"),
+    ("bilstm_grid_fwd_kernel", "K4f"), ("bilstm_grid_bwd_kernel", "K4b"),
+    ("layer_norm_fwd_kernel", "K5f"), ("layer_norm_bwd_kernel", "K5b"),
 )
 
 
@@ -727,26 +1046,28 @@ def _random_corpus(config: Seq2SeqConfig) -> dict:
     }
 
 
-def _f32_kernel_vs_plain(params, data, idx) -> float:
-    """Loss and every gradient leaf of one f32 batch, kernel path against
-    the plain path, both drawing the same dropout masks (same seed)."""
+def _f32_kernel_vs_plain(params, data, idx, kernel_path=True) -> float:
+    """Loss and every gradient leaf of one f32 batch, the kernel path
+    (``use_pallas_lstm=kernel_path``) against the plain path, both
+    drawing the same dropout masks (same seed)."""
     batch = {k: v[0][torch.as_tensor(idx, device="cuda")] for k, v in data.items()}
     batch["subject_idx"] = 0
     out = {}
-    for use_pallas in (True, False):
+    for use_pallas in (kernel_path, False):
         cfg = serving_config(torch.float32, use_pallas_lstm=use_pallas)
         p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
         gen = torch.Generator(device="cuda").manual_seed(7)
         loss, _ = seq2seq_loss(p, cfg, batch, gen, train=True, penalty_scales=PENALTIES)
         loss.backward()
         out[use_pallas] = (loss.detach(), [t.grad for t in tree_leaves(p)])
-    (lk, gk), (lp, gp) = out[True], out[False]
-    err, _ = compare("f32 training loss, kernel vs plain path", lk, lp, TOL[torch.float32])
+    (lk, gk), (lp, gp) = out[kernel_path], out[False]
+    path = f"use_pallas_lstm={kernel_path!r}"
+    err, _ = compare(f"f32 training loss, {path} vs plain path", lk, lp, TOL[torch.float32])
     for i, (a, b) in enumerate(zip(gk, gp)):
-        e, _ = compare(f"f32 gradient leaf {i}, kernel vs plain path", a, b,
+        e, _ = compare(f"f32 gradient leaf {i}, {path} vs plain path", a, b,
                        TOL[torch.float32], normwise=True)
         err = max(err, e)
-    print(f"f32 training step, kernel vs plain path: loss {float(lk):.6f} vs "
+    print(f"f32 training step, {path} vs plain path: loss {float(lk):.6f} vs "
           f"{float(lp):.6f}; {len(gk)} gradient leaves; max abs err {err:.3e}")
     return err
 
@@ -781,14 +1102,12 @@ def training_phase() -> dict:
         t0 = time.perf_counter()
         losses.append(step())
         step_s.append(time.perf_counter() - t0)
-    fwd = lstm_kernels.lstm_recurrence.launches
-    bwd = lstm_kernels.lstm_recurrence_bwd.launches
+    counts = read_counts()
+    fwd, bwd = counts["K1f"], counts["K1b"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     # ------------------------------------------------------------------
     want = TRAIN_STEPS * LAUNCHES_PER_ENCODE
-    check(fwd == want and bwd == want,
-          f"{TRAIN_STEPS} training steps launched K1f {fwd} and K1b {bwd} times; "
-          f"expected {want} each")
+    check_counts(f"biLSTM training ({TRAIN_STEPS} steps)", counts, {"K1f": want, "K1b": want})
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
     ms = 1e3 * float(np.mean(step_s))
@@ -842,9 +1161,11 @@ def trainer_phase(trainer: MultiSubjectTrainer) -> dict:
     t0 = time.perf_counter()
     history = trainer.parallel_transfer_learn()
     fit_s = time.perf_counter() - t0
-    fwd = lstm_kernels.lstm_recurrence.launches
-    bwd = lstm_kernels.lstm_recurrence_bwd.launches
+    counts = read_counts()
+    fwd, bwd = counts["K1f"], counts["K1b"]
     # ------------------------------------------------------------------
+    check(all(v == 0 for k, v in counts.items() if k not in ("K1f", "K1b")),
+          f"trainer: launches {counts}")
     per_step = 2 * len(trainer.net_config.rnn_sizes)
     check(bwd == steps * per_step,
           f"trainer: K1b launched {bwd} times in {steps} steps; expected "
@@ -869,6 +1190,129 @@ def trainer_phase(trainer: MultiSubjectTrainer) -> dict:
     print(f"served validation trial 0: {out['sequences'][0]!r} "
           f"(reference {' '.join(val.references[0][0])!r})")
     return {"wers": wers, "steps": steps, "fwd": fwd, "bwd": bwd, "fit_s": fit_s}
+
+
+# --------------------------------------------------------------------------
+# 5b. biLSTM serving and training under 'bi_grid': main paths
+# --------------------------------------------------------------------------
+
+
+def grid_serving_phase() -> dict:
+    """The serving model of phase 3 under ``use_pallas_lstm='bi_grid'``:
+    B=1 requests, a B=256 batch and a 4-chunk ``StreamingSession``, with
+    3 K4f launches per encode and no other kernel; at f32 the encoder
+    and the greedy tokens against the plain path."""
+    config = serving_config(use_pallas_lstm="bi_grid")
+    params = init_seq2seq(config, torch.Generator().manual_seed(0), device="cuda")
+    targets = ["<pad>", "<EOS>", "<OOV>"] + [f"w{i}_" for i in range(3, 1809)]
+    predictor = OnlinePredictor(params, config, targets, max_samples=1248, device="cuda")
+    rng = np.random.default_rng(0)
+    singles = [rng.standard_normal((n, 469), dtype=np.float32) for n in (1248, 1000, 600)]
+    batch = rng.standard_normal((256, 1248, 469), dtype=np.float32)
+    layers = len(config.rnn_sizes)
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    predictor(singles[0])  # warm-up
+    calls = 1
+    latencies, outs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = predictor(singles[0])
+        latencies.append(time.perf_counter() - t0)
+        outs.append(out)
+        calls += 1
+    single_1000 = predictor(singles[1])
+    b1 = predictor(batch)
+    t0 = time.perf_counter()
+    b2 = predictor(batch)
+    batch_s = time.perf_counter() - t0
+    calls += 3
+    session = StreamingSession(predictor)
+    for chunk in np.split(singles[1], [250, 380, 780]):
+        session.push(chunk)
+    streamed = session.decode()
+    calls += 1
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    check_counts("biLSTM 'bi_grid' serving", counts,
+                 {"K4f": calls * ENCODES_PER_CALL * layers})
+    _check_response(outs[-1], 1, "'bi_grid' single")
+    _check_response(b2, 256, "'bi_grid' batch")
+    check(np.array_equal(b1["tokens"], b2["tokens"]), "'bi_grid' batch: tokens differ")
+    check(np.array_equal(streamed["tokens"], single_1000["tokens"])
+          and streamed["sequences"] == single_1000["sequences"],
+          "'bi_grid' streaming: tokens differ from the whole utterance")
+    latency = float(np.median(latencies))
+    print(f"biLSTM 'bi_grid' serving: {calls} predictor calls, {counts['K4f']} K4f launches "
+          f"({ENCODES_PER_CALL * layers} per request), 0 of every other kernel; B=1 1248 "
+          "samples " + ", ".join(f"{1e3 * x:.2f}" for x in latencies)
+          + f" ms (median {1e3 * latency:.2f}); B=256 {1e3 * batch_s:.2f} ms = "
+          f"{256 / batch_s:.2f} sentences/s; streamed 4 chunks == whole utterance")
+    f32 = serving_config(torch.float32, use_pallas_lstm="bi_grid")
+    f32_plain = serving_config(torch.float32, use_pallas_lstm=False)
+    pk = OnlinePredictor(params, f32, targets, max_samples=1248, device="cuda")
+    pp = OnlinePredictor(params, f32_plain, targets, max_samples=1248, device="cuda")
+    f32_err = 0.0
+    for x in singles:
+        (ok, fk, _), (op, fp, _) = (_encode_padded(params, f32, x),
+                                    _encode_padded(params, f32_plain, x))
+        for name, g, w in (("outputs", ok, op), ("h", fk[0], fp[0]), ("c", fk[1], fp[1])):
+            a, _ = compare(f"'bi_grid' f32 encode {len(x)} {name}", g, w, TOL[torch.float32])
+            f32_err = max(f32_err, a)
+        check(np.array_equal(pk(x)["tokens"], pp(x)["tokens"]),
+              f"'bi_grid' f32 tokens of {len(x)} samples: kernel path != plain path")
+    print(f"'bi_grid' f32 encoder vs plain path: max abs err {f32_err:.3e}; greedy tokens "
+          "identical")
+    prof = profile_call("'bi_grid' B=1", lambda: predictor(singles[0]), need=("K4f",))
+    return {"counts": counts, "calls": calls, "latency_s": latency, "latencies_s": latencies,
+            "batch_s": batch_s, "enc_err_f32": f32_err, "profile_b1": prof}
+
+
+def grid_training_phase() -> dict:
+    """Phase 4's training under ``use_pallas_lstm='bi_grid'``: B=256,
+    dropout on, TRAIN_STEPS segment-runner steps with 3 K4f and 3 K4b
+    launches per step and no K1f/K1b; a falling loss; at f32 the loss and
+    every gradient leaf against the plain path with the same masks."""
+    config = serving_config(use_pallas_lstm="bi_grid")
+    params = init_seq2seq(config, torch.Generator().manual_seed(0), device="cuda")
+    data = _random_corpus(config)
+    state = TrainState(params, tree_map(lambda t: t.detach().clone(), params),
+                       make_optimizer(params, 1e-3), 0)
+    runner = make_segment_runner(config, PENALTIES, 0.99)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    subject = np.zeros((1,), np.int32)
+
+    def step() -> float:
+        nonlocal state
+        idx = rng.permutation(N_TRIALS)[:B_TRAIN][None]
+        state, metrics = runner(state, data, subject, idx, gen, 0)
+        return float(metrics["loss_total"])  # waits for the step
+
+    losses = [step()]
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t0)
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    want = TRAIN_STEPS * len(config.rnn_sizes)
+    check_counts("biLSTM 'bi_grid' training", counts, {"K4f": want, "K4b": want})
+    check(all(np.isfinite(losses)), f"'bi_grid' training: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"'bi_grid' training loss did not fall: {losses}")
+    ms = 1e3 * float(np.mean(step_s))
+    print(f"biLSTM 'bi_grid' training B={B_TRAIN} x {T_RAW} samples, bf16, dropout on: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; {counts['K4f']} K4f + {counts['K4b']} K4b launches in {TRAIN_STEPS} steps; step "
+          + ", ".join(f"{1e3 * x:.2f}" for x in step_s)
+          + f" ms, mean {ms:.2f} ms = {B_TRAIN / (ms / 1e3):.2f} sentences/s")
+    prof = profile_call(f"'bi_grid' training step B={B_TRAIN}", step, need=("K4f", "K4b"))
+    f32_err = _f32_kernel_vs_plain(params, data, rng.permutation(N_TRIALS)[:B_TRAIN],
+                                   kernel_path="bi_grid")
+    return {"counts": counts, "ms": ms, "losses": losses, "profile": prof, "f32_err": f32_err}
 
 
 # --------------------------------------------------------------------------
@@ -1114,6 +1558,9 @@ def attention_kernel_phase(demo_shape) -> dict:
         ("stream window", 1, 144, D, H, C, L, 256),
         ("long", LONG_B, LONG_T, D, H, C, L, 0),
         ("demo trainer", *demo_shape, 0),
+        # head dims that do not divide K3f's 256 threads (8 and 4 heads)
+        ("head dim 48", 16, 104, D, 8, C, L, 0),
+        ("head dim 96", 16, 104, D, 4, C, L, 0),
     ]
     errs = {k: {torch.float32: 0.0, torch.bfloat16: 0.0}
             for k in ("K2f", "K2b-dq", "K2b-dkv", "K3f")}
@@ -1176,14 +1623,17 @@ def conformer_serving_phase(params) -> dict:
         calls += 2
         counts = read_counts()
         # --------------------------------------------------------------
+        encodes = calls * ENCODES_PER_CALL
         check_counts(f"conformer serving ({impl})", counts,
-                     {kernel: calls * ENCODES_PER_CALL * nb})
+                     {kernel: encodes * nb, "K5f": encodes * nb * LN_PER_BLOCK[impl]})
         _check_response(out, 1, f"conformer {impl} single")
         _check_response(b2, 256, f"conformer {impl} batch")
         check(np.array_equal(b1["tokens"], b2["tokens"]), f"conformer {impl}: batch tokens differ")
         latency = float(np.median(latencies))
         print(f"conformer serving ({impl}): {calls} predictor calls, {counts[kernel]} {kernel} "
-              f"launches ({ENCODES_PER_CALL * nb} per request), 0 of every other kernel; "
+              f"launches ({ENCODES_PER_CALL * nb} per request), {counts['K5f']} K5f "
+              f"({ENCODES_PER_CALL * nb * LN_PER_BLOCK[impl]} per request), 0 of every other "
+              "kernel; "
               f"B=1 1248 samples "
               + ", ".join(f"{1e3 * x:.2f}" for x in latencies)
               + f" ms (median {1e3 * latency:.2f}); B=256 {1e3 * batch_s:.2f} ms = "
@@ -1213,8 +1663,10 @@ def conformer_serving_phase(params) -> dict:
                   f"conformer {impl} f32 tokens of {len(x)} samples: kernel path != plain path")
         print(f"conformer ({impl}) f32 encoder, kernel vs plain path: max abs err "
               f"{f32_err:.3e}; greedy tokens identical")
-        prof1 = profile_call(f"conformer {impl} B=1", lambda: predictor(singles[0]), need=(kernel,))
-        prof256 = profile_call(f"conformer {impl} B=256", lambda: predictor(batch), need=(kernel,))
+        prof1 = profile_call(f"conformer {impl} B=1", lambda: predictor(singles[0]),
+                             need=(kernel, "K5f"))
+        prof256 = profile_call(f"conformer {impl} B=256", lambda: predictor(batch),
+                               need=(kernel, "K5f"))
         results[impl] = {"counts": counts, "calls": calls, "latency_s": latency,
                          "latencies_s": latencies, "batch_s": batch_s,
                          "enc_err_bf16": enc_err, "enc_err_f32": f32_err,
@@ -1238,7 +1690,9 @@ def conformer_stream_phase(params) -> dict:
             for i in range(n_chunks)]
     counts = read_counts()
     # ------------------------------------------------------------------
-    check_counts("conformer stream", counts, {"K2f": n_chunks * ccfg.num_blocks})
+    check_counts("conformer stream", counts,
+                 {"K2f": n_chunks * ccfg.num_blocks,
+                  "K5f": n_chunks * ccfg.num_blocks * LN_PER_BLOCK["flash"]})
     with torch.inference_mode():
         offline, _ = conformer_encode(enc, ccfg, x, torch.tensor([n_valid], device="cuda",
                                                                   dtype=torch.int32))
@@ -1250,7 +1704,7 @@ def conformer_stream_phase(params) -> dict:
         err = max(err, a)
     print(f"conformer stream (flash, f32, window {stream.window_steps} steps): {n_chunks} chunks "
           f"(last {n_valid - (n_chunks - 1) * C} valid) == offline encode, max abs err {err:.3e}; "
-          f"{counts['K2f']} K2f launches")
+          f"{counts['K2f']} K2f and {counts['K5f']} K5f launches")
     return {"counts": counts, "err": err}
 
 
@@ -1327,26 +1781,59 @@ def conformer_training_phase(params) -> dict:
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         # ------------------------------------------------------------------
         want = TRAIN_STEPS * nb
+        ln = want * LN_PER_BLOCK[impl]
         check_counts(f"conformer training ({impl})", counts,
-                     {kernel: want, "K2b-dq": want, "K2b-dkv": want})
+                     {kernel: want, "K2b-dq": want, "K2b-dkv": want, "K5f": ln, "K5b": ln})
         check(all(np.isfinite(losses)), f"conformer {impl}: non-finite training loss {losses}")
         check(losses[-1] < losses[0], f"conformer {impl}: training loss did not fall: {losses}")
         ms = 1e3 * float(np.mean(step_s))
         print(f"conformer training ({impl}) B={B_TRAIN} x {T_RAW} samples, bf16, dropout on: "
               "losses " + ", ".join(f"{x:.4f}" for x in losses)
-              + f"; per step {nb} {kernel} + {nb} K2b-dq + {nb} K2b-dkv launches")
+              + f"; per step {nb} {kernel} + {nb} K2b-dq + {nb} K2b-dkv + "
+              f"{nb * LN_PER_BLOCK[impl]} K5f + {nb * LN_PER_BLOCK[impl]} K5b launches")
         print(f"conformer training step ({impl}): first {1e3 * first_s:.2f} ms, then "
               + ", ".join(f"{1e3 * x:.2f}" for x in step_s)
               + f" ms; mean {ms:.2f} ms = {B_TRAIN / (ms / 1e3):.2f} sentences/s; peak device "
               f"memory {peak_gib:.2f} GiB (corpus included)")
         prof = profile_call(f"conformer training step ({impl}) B={B_TRAIN}", step,
-                            need=(kernel, "K2b-dq", "K2b-dkv"))
+                            need=(kernel, "K2b-dq", "K2b-dkv", "K5f", "K5b"))
         results[impl] = {"counts": counts, "ms": ms, "losses": losses, "profile": prof}
+        if impl == "flash":
+            results["plain_layernorm"] = _steps_with_plain_layernorm(step)
         del data, state
     idx = np.random.default_rng(1).permutation(N_TRIALS)[:64]
     results["f32_err"] = _conformer_f32_kernel_vs_plain(
         params, _random_corpus(conformer_config()), idx)
     return results
+
+
+def _steps_with_plain_layernorm(step, n: int = 3) -> dict:
+    """A finding, not a path: the flash training step with the conformer's
+    ``_layernorm`` swapped back to the plain math (as the JAX package's
+    scripts/layernorm_bench.py swaps its kernel in), in turns with the
+    K5 step: plain, K5, K5, plain, ``n`` steps each."""
+    real = conformer_module._layernorm
+
+    def plain(p, x, eps=1e-6):
+        return layernorm_kernels.layer_norm_fwd_reference(x, p["g"], p["b"], eps)
+
+    times = {"plain": [], "K5": []}
+    for which in ("plain", "K5", "K5", "plain"):
+        conformer_module._layernorm = plain if which == "plain" else real
+        try:
+            reset_counts()
+            for _ in range(n):
+                t0 = time.perf_counter()
+                step()
+                times[which].append(time.perf_counter() - t0)
+            k5 = read_counts()["K5f"]
+        finally:
+            conformer_module._layernorm = real
+        check((k5 == 0) == (which == "plain"), f"plain-LayerNorm timing: {which} ran {k5} K5f")
+    ms = {k: 1e3 * float(np.mean(v)) for k, v in times.items()}
+    print(f"conformer flash training step, LayerNorm as K5f/K5b vs the plain math (in turns, "
+          f"{2 * n} steps each): {ms['K5']:.2f} vs {ms['plain']:.2f} ms")
+    return {"K5_ms": ms["K5"], "plain_ms": ms["plain"]}
 
 
 def long_recording_phase(params) -> dict:
@@ -1390,8 +1877,10 @@ def long_recording_phase(params) -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     # ------------------------------------------------------------------
     nb = ccfg.num_blocks
+    ln = nb * LN_PER_BLOCK["flash"]
     check_counts("long recording", counts,
-                 {"K2f": 2 * iters * nb, "K2b-dq": iters * nb, "K2b-dkv": iters * nb})
+                 {"K2f": 2 * iters * nb, "K2b-dq": iters * nb, "K2b-dkv": iters * nb,
+                  "K5f": 2 * iters * ln, "K5b": iters * ln})
     check(bool(torch.isfinite(out.float()).all()), "long recording: non-finite encoder output")
     tokens = LONG_B * LONG_T
     print(f"long recording B={LONG_B} T'={LONG_T} bf16 ('auto' -> flash): forward+backward "
@@ -1399,7 +1888,7 @@ def long_recording_phase(params) -> dict:
           f"= {tokens / fwd_s:.0f} tokens/s; launches {counts}; peak device memory "
           f"{peak_gib:.2f} GiB")
     prof = profile_call(f"long recording forward+backward B={LONG_B} T'={LONG_T}", fwd_bwd,
-                        need=("K2f", "K2b-dq", "K2b-dkv"))
+                        need=("K2f", "K2b-dq", "K2b-dkv", "K5f", "K5b"))
     return {"counts": counts, "train_s": train_s, "fwd_s": fwd_s,
             "train_tokens_per_s": tokens / train_s, "fwd_tokens_per_s": tokens / fwd_s,
             "profile": prof, "peak_gib": peak_gib}
@@ -1448,7 +1937,11 @@ def conformer_trainer_phase(trainer: MultiSubjectTrainer) -> dict:
     check(counts["K2b-dq"] == counts["K2b-dkv"] == steps * nb,
           f"conformer trainer: K2b launched {counts} in {steps} steps; expected "
           f"{steps * nb} of each")
-    check(counts["K2f"] >= steps * nb and counts["K3f"] == counts["K1f"] == counts["K1b"] == 0,
+    ln = steps * nb * LN_PER_BLOCK["flash"]
+    check(counts["K5b"] == ln and counts["K5f"] >= ln,
+          f"conformer trainer: K5 launched {counts} in {steps} steps; expected {ln} K5b")
+    check(counts["K2f"] >= steps * nb
+          and all(counts[k] == 0 for k in ("K1f", "K1b", "K3f", "K4f", "K4b")),
           f"conformer trainer: launches {counts}")
     wers = [snap["training"]["word_error_rate"] for snap in history.values()]
     check(all(np.isfinite(wers)) and wers[-1] < wers[0],
@@ -1462,7 +1955,8 @@ def conformer_trainer_phase(trainer: MultiSubjectTrainer) -> dict:
     print(f"conformer trainer (demo experiment, {DEMO_CONFORMER}, bf16): {steps} steps in "
           f"{fit_s:.2f} s with 4 assessments; training WER by assessment "
           + ", ".join(f"{w:.3f}" for w in wers)
-          + f"; launches {counts} ({nb} K2b-dq and {nb} K2b-dkv per step)")
+          + f"; launches {counts} ({nb} K2b-dq, {nb} K2b-dkv and "
+          f"{nb * LN_PER_BLOCK['flash']} K5b per step)")
     print(f"served validation trial 0: {out['sequences'][0]!r} "
           f"(reference {' '.join(val.references[0][0])!r})")
     return {"wers": wers, "steps": steps, "counts": counts, "fit_s": fit_s}
@@ -1486,10 +1980,13 @@ def main() -> int:
               f"trainer attention shape (B, T', D, H, C, L): {conf_shape}")
         kern = kernel_phase(demo_shapes)
         kern_b = kernel_bwd_phase(demo_shapes)
+        gridk = grid_and_layernorm_kernel_phase(demo_shapes)
         attn = attention_kernel_phase(conf_shape)
         serve = serving_phase()
         train = training_phase()
         trainer_phase(trainer)
+        gserve = grid_serving_phase()
+        gtrain = grid_training_phase()
         conf_params = init_seq2seq(conformer_config(), torch.Generator().manual_seed(0),
                                    device="cuda")
         cserve = conformer_serving_phase(conf_params)
@@ -1520,6 +2017,75 @@ def main() -> int:
             "at_long": {"shape": f"B={LONG_B} T'={LONG_T} D=384 H=6 bf16", **tl},
         }
 
+    def grid_entry(name, key, replaces, launches, extra):
+        t256, t1 = gridk["timings"][256][key], gridk["timings"][1][key]
+        return {
+            "name": name, "route": "cuda", "source": "ecog2txt_tpu_torch/csrc/bilstm_grid.cu",
+            "replaces": replaces, "launches": launches, **extra,
+            "max_abs_err": max(gridk["errs"][key].values()),
+            "max_abs_err_f32": gridk["errs"][key][torch.float32],
+            "max_abs_err_bf16": gridk["errs"][key][torch.bfloat16],
+            "max_abs_err_function_grads_f32": gridk["grid_grad_err"],
+            "shape": f"T'={T_STEPS} B=256 H={H} bf16, both directions",
+            "ms": t256["ms"], "plain_ms": t256["plain_ms"], "bound_ms": t256["bound_ms"],
+            "bound_by": t256["bound_by"], "library_ms": t256["library_ms"],
+            "build_s": env["build_s"], "at_batch_1": t1,
+        }
+
+    def ln_entry(name, key, replaces, launches, extra):
+        th, tl = gridk["ln_timings"]["headline"][key], gridk["ln_timings"]["long"][key]
+        return {
+            "name": name, "route": "cuda", "source": "ecog2txt_tpu_torch/csrc/layer_norm.cu",
+            "replaces": replaces, "launches": launches, **extra,
+            "max_abs_err": max(gridk["errs"][key].values()),
+            "max_abs_err_f32": gridk["errs"][key][torch.float32],
+            "max_abs_err_bf16": gridk["errs"][key][torch.bfloat16],
+            "max_abs_err_function_grads_f32": gridk["ln_grad_err"],
+            "shape": f"rows=B*T'={256 * T_STEPS} D=384 bf16",
+            "ms": th["ms"], "plain_ms": th["plain_ms"], "bound_ms": th["bound_ms"],
+            "bound_by": th["bound_by"], "library_ms": th["library_ms"],
+            "build_s": env["build_s"],
+            "at_long": {"shape": f"rows={LONG_B * LONG_T} D=384 bf16", **tl},
+        }
+
+    pallas_lstm = "ecog2txt_tpu/ops/pallas_lstm.py"
+    pallas_ln = "ecog2txt_tpu/ops/pallas_layernorm.py"
+    layers = len(serving_config().rnn_sizes)
+    new_entries = [
+        grid_entry("bilstm_grid_fwd", "K4f", f"{pallas_lstm}:643", gserve["counts"]["K4f"], {
+            "launches_per_request": ENCODES_PER_CALL * layers,
+            "launches_training": gtrain["counts"]["K4f"],
+            "two_k1f_ms": gridk["timings"][256]["K4f"]["two_k1f_ms"],
+            "rows_per_block": gridk["timings"][256]["K4f"]["rows_per_block"],
+            "rows_per_block_ms": gridk["timings"][256]["K4f"]["rows_per_block_ms"],
+            "library": "cuDNN bidirectional nn.LSTM forward (one input for both directions)"}),
+        grid_entry("bilstm_grid_bwd", "K4b", f"{pallas_lstm}:805", gtrain["counts"]["K4b"], {
+            "launches_per_step": layers,
+            "two_k1b_ms": gridk["timings"][256]["K4b"]["two_k1b_ms"],
+            "library": "cuDNN bidirectional nn.LSTM backward, (forward+backward)-forward; "
+                       "also computes the weight gradients"}),
+        ln_entry("layer_norm_fwd", "K5f", f"{pallas_ln}:100",
+                 cserve["flash"]["counts"]["K5f"], {
+                     "launches_per_request": {
+                         impl: ENCODES_PER_CALL * nb * LN_PER_BLOCK[impl]
+                         for impl in ("flash", "fused")},
+                     "launches_fused_serving": cserve["fused"]["counts"]["K5f"],
+                     "launches_stream": cstream["counts"]["K5f"],
+                     "launches_training": ctrain["flash"]["counts"]["K5f"],
+                     "launches_training_fused": ctrain["fused"]["counts"]["K5f"],
+                     "launches_long": clong["counts"]["K5f"],
+                     "launches_demo_trainer": ctrainer["counts"]["K5f"],
+                     "library": "F.layer_norm forward (bf16 affine parameters)"}),
+        ln_entry("layer_norm_bwd", "K5b", f"{pallas_ln}:119",
+                 ctrain["flash"]["counts"]["K5b"], {
+                     "launches_per_step": nb * LN_PER_BLOCK["flash"],
+                     "launches_training_fused": ctrain["fused"]["counts"]["K5b"],
+                     "launches_long": clong["counts"]["K5b"],
+                     "launches_demo_trainer": ctrainer["counts"]["K5b"],
+                     "flash_step_ms_plain_layernorm": ctrain["plain_layernorm"]["plain_ms"],
+                     "flash_step_ms_k5": ctrain["plain_layernorm"]["K5_ms"],
+                     "library": "F.layer_norm backward, (forward+backward)-forward"}),
+    ]
     sdpa = "scaled_dot_product_attention with a boolean band mask"
     attention_entries = [
         attention_entry("banded_attention_fwd", "K2f", source, f"{pallas}:321",
@@ -1572,6 +2138,7 @@ def main() -> int:
         "bound_ms": t256["bound_ms"], "bound_by": t256["bound_by"],
         "library_ms": t256["library_ms"],
         "rows_per_block_ms": t256["rows_per_block_ms"],
+        "rows_per_block": t256["rows_per_block"],
         "build_s": env["build_s"],
         "at_batch_1": t1,
     }, {
@@ -1593,7 +2160,7 @@ def main() -> int:
                    "computes the weight gradients",
         "build_s": env["build_s"],
         "at_batch_16": kern_b["timings"][16],
-    }, *attention_entries], "training_step_ms": train["ms"],
+    }, *attention_entries, *new_entries], "training_step_ms": train["ms"],
         "training_sentences_per_s": B_TRAIN / (train["ms"] / 1e3),
         "conformer": {
             impl: {"request_ms_b1": 1e3 * cserve[impl]["latency_s"],
@@ -1602,6 +2169,10 @@ def main() -> int:
                    "training_sentences_per_s": B_TRAIN / (ctrain[impl]["ms"] / 1e3)}
             for impl in ("flash", "fused")
         },
+        "bi_grid": {"request_ms_b1": 1e3 * gserve["latency_s"],
+                    "sentences_per_s_b256": 256 / gserve["batch_s"],
+                    "training_step_ms": gtrain["ms"],
+                    "training_sentences_per_s": B_TRAIN / (gtrain["ms"] / 1e3)},
         "long_recording": {"train_tokens_per_s": clong["train_tokens_per_s"],
                            "forward_tokens_per_s": clong["fwd_tokens_per_s"]},
         "conformer_demo_wers": ctrainer["wers"]}

@@ -47,7 +47,10 @@ struct Layer {
 // `w`, rounded to the stream dtype.  With `rot` (the second product of a
 // rotary pair), dst already holds S(lnx . W) and becomes
 // S(S(dst * cos) + S(S(lnx . W@R) * sin)); else dst = S(lnx . W).
-// dst row w - lo, stride Dh + 1.
+// dst row w - lo, stride Dh + 1.  Thread (ty, col) takes column col and
+// rows ty, ty + RG, ... with RG = kThreads / Dh row groups; a head dim
+// that does not divide kThreads leaves kThreads - RG * Dh threads over
+// (ty >= RG): they stage tiles and reach every barrier but own no result.
 template <typename T>
 __device__ void project(float* dst, int lo, int hi, bool rot, const T* xb, const float* mu,
                         const float* rs, const float* lng, const float* lnb, const T* w,
@@ -55,7 +58,8 @@ __device__ void project(float* dst, int lo, int hi, bool rot, const T* xb, const
                         float* wtile) {
   const int Dh = P.Dh, D = P.H * Dh, PREV = P.L * P.C, stride = Dh + 1;
   const int RG = kThreads / Dh, ty = threadIdx.x / Dh, col = threadIdx.x % Dh;
-  const int PR = min(kPassRows, kMaxAcc * RG), nacc = PR / RG;
+  // rows per pass: at most kMaxAcc results a thread (ceil(PR / RG) <= kMaxAcc)
+  const int PR = min(kPassRows, kMaxAcc * RG), nacc = ty < RG ? (PR + RG - 1) / RG : 0;
   for (int p0 = lo; p0 < hi; p0 += PR) {
     const int prow = min(PR, hi - p0);
     float acc[kMaxAcc];
@@ -201,6 +205,19 @@ size_t fused_smem(int QB, int W, int Dh) {
 }  // namespace
 
 extern "C" {
+
+// The largest query block QB' <= QB, a multiple of step = L * C, whose K3f
+// block (window QB' + step rows) fits the current device's shared memory.
+int fused_attention_fit_rows(int QB, int step, int Dh) {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess) {
+    return QB;
+  }
+  while (QB > step && fused_smem(QB, QB + step, Dh) > static_cast<size_t>(limit)) QB -= step;
+  return QB;
+}
 
 // Launches K3f on `stream` over the grid (T1/QB, H, B) and returns the
 // CUDA error code (0 on success).  bf16 != 0 selects bfloat16 streams.

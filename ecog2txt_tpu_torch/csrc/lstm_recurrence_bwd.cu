@@ -34,7 +34,8 @@
 //
 // Design (simple and right first), carried over from K1f
 // (lstm_recurrence.cu).  Each block owns R batch rows and loops over t
-// inside the kernel; thread u owns hidden unit u, and dh, dc and the
+// inside the kernel (lstm_common.cuh::bwd_rows, shared with the
+// bidirectional grid K4b); thread u owns hidden unit u, and dh, dc and the
 // mask of its R rows live in f32 registers.  Each step has two phases,
 // each closed by a barrier:
 //   1. thread u recomputes the four gate columns u, H+u, 2H+u, 3H+u from
@@ -55,41 +56,10 @@
 // Plain C interface, loaded with ctypes; the launch goes on the caller's
 // stream and the function returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "lstm_common.cuh"
 
 namespace {
 
-template <typename S>
-struct Stream;
-
-template <>
-struct Stream<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Stream<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// Threads per block: one per hidden unit, rounded up to whole warps.
 template <typename S, int R>
 __global__ void __launch_bounds__(R <= 2 ? 1024 : 512)
 lstm_recurrence_bwd_kernel(const S* __restrict__ xw,         // (T, B, 4H)
@@ -107,138 +77,8 @@ lstm_recurrence_bwd_kernel(const S* __restrict__ xw,         // (T, B, 4H)
                            float* __restrict__ dh0,          // (B, H)
                            float* __restrict__ dc0,          // (B, H)
                            int T, int B, int H, int reverse_time) {
-  extern __shared__ float smem[];
-  float* hin = smem;          // [R][H]:  S(hprev * mask) of this step
-  float* dgs = smem + R * H;  // [R][4H]: S(dgates) of this step
-  const int u = threadIdx.x;
-  const bool active = u < H;
-  const int row0 = blockIdx.x * R;
-  const size_t G = 4 * static_cast<size_t>(H);
-
-  float dh[R], dc[R], m[R];
-  int len[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = row0 + r;
-    const bool ok = active && row < B;
-    const size_t o = static_cast<size_t>(row) * H + u;
-    dh[r] = ok ? dhT[o] : 0.0f;
-    dc[r] = ok ? dcT[o] : 0.0f;
-    m[r] = ok ? mask[o] : 0.0f;
-    len[r] = row < B ? lengths[row] : 0;
-  }
-
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse_time ? s : T - 1 - s;
-    // ---- phase 0: the shared operand S(hprev * mask) ----
-    if (active) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = row0 + r;
-        float v = 0.0f;
-        if (row < B) {
-          v = Stream<S>::load(hprev + (static_cast<size_t>(t) * B + row) * H +
-                              u) *
-              m[r];
-        }
-        hin[r * H + u] = Stream<S>::round(v);
-      }
-    }
-    __syncthreads();
-    // ---- phase 1: recompute the gates, form and store dgates ----
-    if (active) {
-      float ai[R], ag[R], af[R], ao[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) ai[r] = ag[r] = af[r] = ao[r] = 0.0f;
-      const S* w = wh + u;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const S* wk = w + k * G;
-        const float wi = Stream<S>::load(wk);
-        const float wg = Stream<S>::load(wk + H);
-        const float wf = Stream<S>::load(wk + 2 * H);
-        const float wo = Stream<S>::load(wk + 3 * H);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float a = hin[r * H + k];
-          ai[r] = fmaf(a, wi, ai[r]);
-          ag[r] = fmaf(a, wg, ag[r]);
-          af[r] = fmaf(a, wf, af[r]);
-          ao[r] = fmaf(a, wo, ao[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = row0 + r;
-        float di = 0.0f, dg = 0.0f, df = 0.0f, dov = 0.0f;
-        if (row < B && t < len[r]) {
-          const size_t o = (static_cast<size_t>(t) * B + row) * H + u;
-          const S* x = xw + (static_cast<size_t>(t) * B + row) * G + u;
-          const float si = sigmoid(Stream<S>::load(x) + ai[r]);
-          const float tg = tanhf(Stream<S>::load(x + H) + ag[r]);
-          const float sf = sigmoid(Stream<S>::load(x + 2 * H) + af[r] + 1.0f);
-          const float so = sigmoid(Stream<S>::load(x + 3 * H) + ao[r]);
-          const float tc = tanhf(Stream<S>::load(cseq + o));
-          const float dht = dh[r] + Stream<S>::load(dhseq + o);
-          dov = dht * tc * so * (1.0f - so);
-          const float dct = dht * so * (1.0f - tc * tc) + dc[r];
-          di = dct * tg * si * (1.0f - si);
-          dg = dct * si * (1.0f - tg * tg);
-          df = dct * Stream<S>::load(cprev + o) * sf * (1.0f - sf);
-          dc[r] = dct * sf;
-        }
-        di = Stream<S>::round(di);
-        dg = Stream<S>::round(dg);
-        df = Stream<S>::round(df);
-        dov = Stream<S>::round(dov);
-        float* d = dgs + r * G + u;
-        d[0] = di;
-        d[H] = dg;
-        d[2 * H] = df;
-        d[3 * H] = dov;
-        if (row < B) {
-          S* out = dgates + (static_cast<size_t>(t) * B + row) * G + u;
-          out[0] = Stream<S>::store(di);
-          out[H] = Stream<S>::store(dg);
-          out[2 * H] = Stream<S>::store(df);
-          out[3 * H] = Stream<S>::store(dov);
-        }
-      }
-    }
-    __syncthreads();
-    // ---- phase 2: dh_prev[u] = (S(dgates) @ S(wh)^T)[u] * mask ----
-    if (active) {
-      float acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-      const S* w = whT + u;
-#pragma unroll 4
-      for (int j = 0; j < static_cast<int>(G); ++j) {
-        const float wj = Stream<S>::load(w + static_cast<size_t>(j) * H);
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(dgs[r * G + j], wj, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (t < len[r]) dh[r] = acc[r] * m[r];
-      }
-    }
-    // the next step's phase 0 writes hin, which phase 1 above finished
-    // reading before the last barrier; it writes dgs only after the next
-    // barrier, when every thread has left this phase 2
-  }
-
-  if (active) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = row0 + r;
-      if (row < B) {
-        const size_t o = static_cast<size_t>(row) * H + u;
-        dh0[o] = dh[r];
-        dc0[o] = dc[r];
-      }
-    }
-  }
+  lstm::bwd_rows<S, R>(xw, wh, whT, hprev, cprev, cseq, lengths, mask, dhseq, dhT, dcT,
+                       dgates, dh0, dc0, T, B, H, reverse_time, blockIdx.x * R);
 }
 
 template <typename S, int R>
@@ -248,16 +88,11 @@ cudaError_t launch(const void* xw, const void* wh, const void* whT,
                    const void* dhT, const void* dcT, void* dgates, void* dh0,
                    void* dc0, int T, int B, int H, int reverse_time,
                    cudaStream_t stream) {
-  const int threads = (H + 31) / 32 * 32;
-  const size_t smem = 5 * static_cast<size_t>(R) * H * sizeof(float);
+  const size_t smem = lstm::bwd_smem<R>(H);
   auto kernel = lstm_recurrence_bwd_kernel<S, R>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<(B + R - 1) / R, threads, smem, stream>>>(
+  const cudaError_t err = lstm::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(B + R - 1) / R, lstm::threads_for(H), smem, stream>>>(
       static_cast<const S*>(xw), static_cast<const S*>(wh),
       static_cast<const S*>(whT), static_cast<const S*>(hprev),
       static_cast<const S*>(cprev), static_cast<const S*>(cseq),
@@ -308,7 +143,7 @@ extern "C" int lstm_recurrence_bwd(const void* xw, const void* wh,
                                    void* dc0, int T, int B, int H,
                                    int is_bf16, int reverse_time, int rows,
                                    void* stream) {
-  if (T < 0 || B <= 0 || H <= 0 || H > 1024 || (rows > 2 && H > 512)) {
+  if (!lstm::shape_ok(T, B, H, rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

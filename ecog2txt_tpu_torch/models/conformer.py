@@ -15,6 +15,8 @@ shapes, weights stored (in, out)) and the same functions:
   LayerNorm, projections, rotary and attention in one kernel, K2b in its
   backward).  Under ``'auto'`` up to 256 steps run ``dense``; longer
   sequences run ``flash`` on a CUDA tensor and ``banded`` on a CPU one;
+* every LayerNorm outside K3f runs the Hopper kernels K5f / K5b
+  (``ops.layernorm_kernels.layer_norm``) on a CUDA tensor;
 * the conv module is depthwise-causal (left padding only) with a
   ``kernel-1`` step tail for streaming;
 * :class:`ConformerStream` re-encodes a fixed window that covers the
@@ -39,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..convert import tree_map
 from ..ops.attention_kernels import banded_flash_attention, fused_attention_layer
+from ..ops.layernorm_kernels import layer_norm, layer_norm_fwd_reference
 
 
 @dataclass(frozen=True)
@@ -139,12 +142,12 @@ def _dot(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
 
 def _layernorm(p, x, eps=1e-6):
     """Statistics in f32 whatever the stream dtype; the result is cast
-    back so the products after it stay in the stream dtype."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
-    out = (xf - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
-    return out.to(x.dtype)
+    back so the products after it stay in the stream dtype.  A CUDA
+    tensor goes through the Hopper kernels (forward K5f, backward K5b);
+    a CPU tensor through the plain math."""
+    if x.is_cuda:
+        return layer_norm(x, p["g"], p["b"], eps)
+    return layer_norm_fwd_reference(x, p["g"], p["b"], eps)
 
 
 def _ffn(p, x, cd):

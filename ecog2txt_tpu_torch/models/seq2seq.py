@@ -10,7 +10,9 @@ tree (nested dicts and lists, the same keys and shapes, weights stored
   rows flipped inside each stride group, output reversed at the
   decimated rate);
 * a bidirectional LSTM encoder stack (``ops.lstm``; with
-  ``use_pallas_lstm`` the recurrences run the Hopper kernel), or, with
+  ``use_pallas_lstm=True`` the recurrences run the Hopper kernels K1f /
+  K1b one direction per launch, with ``'bi_grid'`` both directions of a
+  layer run in one launch of K4f / K4b), or, with
   ``encoder_type='conformer'``, the chunked-causal conformer
   (``models.conformer``; its ``attention_impl`` picks the Hopper
   attention kernels) over natural-order steps, bridged to the decoder
@@ -42,6 +44,7 @@ from .. import resolve_device
 from ..convert import tree_map
 from ..ops.lstm import (
     bidirectional_lstm,
+    check_use_pallas,
     dot_f32,
     init_lstm_params,
     lstm_scan,
@@ -78,10 +81,11 @@ class Seq2SeqConfig:
     RNN_dropout: float = 0.5
     temperature: float = 0.0  # 0 → greedy argmax
     BIDIRECTIONAL: bool = True
-    # encoder recurrences as one Hopper kernel launch per direction
-    # (ops/lstm_kernels.py); the field keeps the JAX package's name so
-    # one manifest drives both packages
-    use_pallas_lstm: bool = False
+    # encoder recurrences on the Hopper kernels (ops/lstm_kernels.py):
+    # True, one launch per direction (K1f/K1b); 'bi_grid', both
+    # directions of a layer in one launch (K4f/K4b).  The field keeps the
+    # JAX package's name and values so one manifest drives both packages
+    use_pallas_lstm: bool | str = False
     encoder_type: str = "lstm"  # 'lstm' | 'conformer'
     conformer: ConformerConfig | None = None  # used when encoder_type=conformer
     use_attention: bool = False
@@ -94,6 +98,7 @@ class Seq2SeqConfig:
             raise ValueError(
                 f"encoder_type={self.encoder_type!r}: expected 'lstm' or 'conformer'"
             )
+        check_use_pallas(self.use_pallas_lstm)
         if not isinstance(self.compute_dtype, torch.dtype):
             raise TypeError(
                 f"compute_dtype must be a torch dtype; got {self.compute_dtype!r}"

@@ -1,4 +1,4 @@
-"""Compute ops: step-loop recurrences, banded attention and the
+"""Compute ops: step-loop recurrences, banded attention, LayerNorm and the
 hand-written CUDA kernels."""
 
 from .attention_kernels import (  # noqa: F401
@@ -9,6 +9,13 @@ from .attention_kernels import (  # noqa: F401
     fused_attention_fwd,
     fused_attention_layer,
 )
+from .layernorm_kernels import (  # noqa: F401
+    layer_norm,
+    layer_norm_bwd,
+    layer_norm_bwd_reference,
+    layer_norm_fwd,
+    layer_norm_fwd_reference,
+)
 from .lstm import (  # noqa: F401
     bidirectional_lstm,
     init_lstm_params,
@@ -17,6 +24,11 @@ from .lstm import (  # noqa: F401
     reverse_padded,
 )
 from .lstm_kernels import (  # noqa: F401
+    bilstm_grid_bwd,
+    bilstm_grid_bwd_reference,
+    bilstm_grid_fwd,
+    bilstm_grid_fwd_reference,
+    fused_bilstm_grid,
     fused_lstm_recurrence,
     lstm_recurrence,
     lstm_recurrence_bwd,

@@ -477,12 +477,11 @@ def fused_attention_fwd(x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, s
         return fused_attention_fwd_reference(
             x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, save
         )
-    if _THREADS % Dh:
-        # the kernel's projections give each head column a whole number
-        # of row groups: kThreads / Dh threads per column
+    if Dh > _THREADS:
+        # the kernel's projections give each thread at most one head column
         raise ValueError(
-            f"fused_attention_fwd: the kernel takes a head dim that divides "
-            f"{_THREADS}; got {Dh} (use attention_impl='flash')"
+            f"fused_attention_fwd: the kernel takes a head dim up to {_THREADS}; "
+            f"got {Dh} (use attention_impl='flash')"
         )
     freq = _rope_freq_tensor(H, D, x.device)
     out = torch.empty_like(x)
@@ -632,6 +631,19 @@ class FusedAttentionLayer(torch.autograd.Function):
         )
 
 
+def _fit_query_rows(QB: int, C: int, L: int, Dh: int, device) -> int:
+    """K3f's query block on the card: the largest multiple of ``L·C`` up to
+    ``QB`` whose block fits the card's shared memory (its window rows are
+    staged for q, k and v: a head dim above ~110 does not fit at ~128
+    rows).  The query block tiles the work only; each row sees the same
+    keys whatever it is."""
+    fn = load_library("fused_attention").fused_attention_fit_rows
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        return int(fn(QB, L * C, Dh))
+
+
 def fused_attention_layer(
     wqkv: torch.Tensor,  # (D, 3D) parameter dtype, cast inside
     ln_g: torch.Tensor,  # (D,)
@@ -649,10 +661,13 @@ def fused_attention_layer(
     the attention result before the output projection, ``(B, T, D)``;
     apply ``wo`` and the residual outside.  Differentiable in ``wqkv``,
     ``ln_g``, ``ln_b`` and ``x``.  With no gradient wanted it runs K3f
-    without saving q, k, v or the LSE."""
+    without saving q, k, v or the LSE.  On the card the default query
+    block shrinks where a wide head's block would not fit."""
     B, T, D = x.shape
     C, L, H = chunk_size, left_context, num_heads
     QB = _pick_query_rows(C, L, query_rows)
+    if x.is_cuda and query_rows is None:
+        QB = _fit_query_rows(QB, C, L, D // H, x.device)
     T1 = -(-T // QB) * QB
     x1 = F.pad(x, (0, 0, 0, T1 - T)).contiguous()
     lens = _lengths_or_max(lengths, B, x.device)

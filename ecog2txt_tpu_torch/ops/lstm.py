@@ -15,9 +15,12 @@ The twin of ``ecog2txt_tpu/ops/lstm.py`` with the same semantics:
   f32 with an f32 result (``jnp.dot(..., preferred_element_type=f32)``).
 
 The kernel paths go through :func:`~.lstm_kernels.fused_lstm_recurrence`
-(forward kernel K1f, adjoint kernel K1b); the recurrent weight enters
-it in f32 and is cast to the stream dtype inside, so its gradient stays
-f32.  The step loops are differentiable as they stand.
+(forward kernel K1f, adjoint kernel K1b; ``use_pallas=True``, one
+launch per direction) or, for both directions of a biLSTM layer at
+once, :func:`~.lstm_kernels.fused_bilstm_grid` (K4f, K4b;
+``use_pallas='bi_grid'``); the recurrent weights enter them in f32 and
+are cast to the stream dtype inside, so their gradients stay f32.  The
+step loops are differentiable as they stand.
 
 ``torch.nn.LSTM`` cannot stand in: its gates are (i, f, g, o), it has
 no +1 forget bias and no per-step mask on ``h``.
@@ -28,7 +31,20 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_device
-from .lstm_kernels import fused_lstm_recurrence
+from .lstm_kernels import fused_bilstm_grid, fused_lstm_recurrence
+
+# the kernel paths of use_pallas (use_pallas_lstm in the model config)
+USE_PALLAS_VALUES = (False, True, "bi_grid")
+
+
+def check_use_pallas(use_pallas) -> None:
+    """Raise ``ValueError`` unless ``use_pallas`` is False (step loops),
+    True (K1f/K1b, one launch per direction) or ``'bi_grid'`` (K4f/K4b,
+    both directions of a biLSTM layer in one launch)."""
+    if not (use_pallas is True or use_pallas is False or use_pallas == "bi_grid"):
+        raise ValueError(
+            f"use_pallas={use_pallas!r}: expected one of {USE_PALLAS_VALUES}"
+        )
 
 
 def dot_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -108,14 +124,16 @@ def lstm_scan(
     initial_state: tuple[torch.Tensor, torch.Tensor] | None = None,
     h_dropout_mask: torch.Tensor | None = None,  # (B, H)
     compute_dtype=torch.float32,
-    use_pallas: bool = False,
+    use_pallas: bool | str = False,
 ):
     """Unidirectional LSTM over time: ``(outputs (T, B, H), (h, c))``.
 
-    ``use_pallas`` runs the recurrence as one kernel launch
+    ``use_pallas`` (True, or ``'bi_grid'``, which means the same for one
+    direction) runs the recurrence as one kernel launch
     (:func:`~.lstm_kernels.fused_lstm_recurrence`); outputs then come
     back in the stream dtype.  Otherwise a step loop with f32 outputs.
     """
+    check_use_pallas(use_pallas)
     T, B, _ = xs.shape
     H = params["wh"].shape[0]
     dev = xs.device
@@ -180,15 +198,20 @@ def bidirectional_lstm(
     lengths: torch.Tensor,
     h_dropout_masks: tuple[torch.Tensor, torch.Tensor] | None = None,
     compute_dtype=torch.float32,
-    use_pallas: bool = False,
+    use_pallas: bool | str = False,
 ):
     """Forward scan + backward scan, outputs concatenated on features:
     ``(outputs (T, B, 2H), (h, c) each (B, 2H))``.
 
-    ``use_pallas`` takes the gather-free path: the backward direction
+    ``use_pallas=True`` takes the gather-free path: the backward direction
     runs the kernel reversed in time (zero initial state), so outputs
-    land at their absolute positions and no sequence is reversed.
+    land at their absolute positions and no sequence is reversed; one
+    K1f launch per direction.  ``use_pallas='bi_grid'`` projects both
+    directions' inputs, then runs both chains in ONE launch
+    (:func:`~.lstm_kernels.fused_bilstm_grid`: K4f, adjoint K4b).
+    ``False`` runs the step loops over the valid-prefix-reversed input.
     """
+    check_use_pallas(use_pallas)
     mask_f, mask_b = h_dropout_masks if h_dropout_masks else (None, None)
     if use_pallas:
         T, B, _ = xs.shape
@@ -201,11 +224,21 @@ def bidirectional_lstm(
         zeros = torch.zeros((B, H), dtype=torch.float32, device=dev)
         ones = torch.ones((B, H), dtype=torch.float32, device=dev)
 
+        def unit(mask):
+            return (mask if mask is not None else ones).float().contiguous()
+
+        if use_pallas == "bi_grid":
+            out, h, c = fused_bilstm_grid(
+                _stream_projection(params_fwd, xs, compute_dtype),
+                _stream_projection(params_bwd, xs, compute_dtype),
+                params_fwd["wh"], params_bwd["wh"], lens, unit(mask_f), unit(mask_b),
+            )
+            return out, (h, c)
+
         def run(p, mask, reverse_time):
             xw = _stream_projection(p, xs, compute_dtype)
             return fused_lstm_recurrence(
-                xw, p["wh"], lens, zeros, zeros,
-                (mask if mask is not None else ones).float().contiguous(),
+                xw, p["wh"], lens, zeros, zeros, unit(mask),
                 reverse_time=reverse_time,
             )
 

@@ -1,5 +1,6 @@
-"""LSTM recurrence: the Hopper kernels (forward K1f, adjoint K1b), their
-wrappers, their plain PyTorch versions and the autograd Function.
+"""LSTM recurrence: the Hopper kernels (forward K1f, adjoint K1b; both
+biLSTM directions in one launch, K4f and K4b), their wrappers, their
+plain PyTorch versions and the autograd Functions.
 
 ``lstm_recurrence`` is the port of ``ecog2txt_tpu/ops/pallas_lstm.py::
 _fwd_call`` and ``lstm_recurrence_bwd`` of ``_bwd_call``.  On a CUDA
@@ -11,6 +12,13 @@ a step loop with the same rounding points.  ``<wrapper>.launches`` counts
 kernel launches.  :func:`fused_lstm_recurrence` is the differentiable
 recurrence (the JAX package's custom VJP of the same name): forward K1f,
 backward K1b plus one GEMM for the recurrent weight's gradient.
+
+``bilstm_grid_fwd`` is the port of ``_bi_grid_fwd_call`` and
+``bilstm_grid_bwd`` of ``_bi_grid_bwd_call`` (``csrc/bilstm_grid.cu``:
+one launch whose grid has a direction axis, so the forward and the
+reverse-time chain of a layer run at once on separate SMs);
+:func:`fused_bilstm_grid` is the differentiable layer recurrence, the
+JAX package's function of the same name.
 """
 
 from __future__ import annotations
@@ -101,13 +109,18 @@ def _check(xw, wh, lengths, h0, c0, mask, names=("h0", "c0", "mask")):
         raise ValueError("lstm_recurrence inputs must be contiguous")
 
 
-def _rows_per_block(B: int, H: int, device: torch.device) -> int:
-    """Batch rows per block: the fewest that keep the grid within one
-    wave of SMs (more rows per block means fewer re-reads of ``wh``)."""
+def _rows_per_block(
+    B: int, H: int, device: torch.device, directions: int = 1, waves: int = 1
+) -> int:
+    """Batch rows per block: the fewest that keep the grid (``directions``
+    chains of ``ceil(B / rows)`` blocks) within ``waves`` waves of SMs
+    (more rows per block means fewer re-reads of ``wh``, but more work
+    per thread on the serial chain).  K1f takes two waves: on the H100 its
+    one-row blocks beat two-row blocks at B=256 (PERF.md, section 6)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     cap = 8 if H <= 512 else 2
     for rows in _ROWS_PER_BLOCK:
-        if rows >= cap or -(-B // rows) <= sms:
+        if rows >= cap or directions * -(-B // rows) <= waves * sms:
             return rows
     return cap
 
@@ -171,7 +184,7 @@ def lstm_recurrence(
     B, H = h0.shape
     return _launch(
         xw, wh, lengths, h0, c0, mask, reverse_time, return_c_seq,
-        _rows_per_block(B, H, xw.device),
+        _rows_per_block(B, H, xw.device, waves=2),
     )
 
 
@@ -409,3 +422,280 @@ def fused_lstm_recurrence(
         )
         return h_seq, hT, cT
     return LSTMRecurrence.apply(xw, wh, lengths, h0, c0, mask, reverse_time)
+
+
+# --------------------------------------------------------------------------
+# both directions of a biLSTM layer in one launch (K4f, K4b)
+# --------------------------------------------------------------------------
+
+
+def bilstm_grid_fwd_reference(
+    xwf: torch.Tensor,  # (T, B, 4H) stream dtype: forward chain's projection
+    xwb: torch.Tensor,  # (T, B, 4H) stream dtype: reverse chain's projection
+    whf: torch.Tensor,  # (H, 4H) stream dtype
+    whb: torch.Tensor,  # (H, 4H) stream dtype
+    lengths: torch.Tensor,  # (B,) int32
+    maskf: torch.Tensor,  # (B, H) f32
+    maskb: torch.Tensor,  # (B, H) f32
+    return_c_seq: bool = True,
+):
+    """Plain version of K4f: ``(hf, hb, cf, cb, hT, cT)`` in the order of
+    JAX's ``_bi_grid_fwd_call``.  The forward chain runs t = 0…T-1 and the
+    reverse chain t = T-1…0 (K1f's ``reverse_time``), both from a zero
+    state, each the step loop of :func:`lstm_recurrence_reference`;
+    ``hT``/``cT`` are ``(2, B, H)`` f32, direction first; ``cf``/``cb``
+    are None unless ``return_c_seq``."""
+    zeros = torch.zeros(maskf.shape, dtype=torch.float32, device=xwf.device)
+    hf, cf, hTf, cTf = lstm_recurrence_reference(
+        xwf, whf, lengths, zeros, zeros, maskf, False, return_c_seq
+    )
+    hb, cb, hTb, cTb = lstm_recurrence_reference(
+        xwb, whb, lengths, zeros, zeros, maskb, True, return_c_seq
+    )
+    return hf, hb, cf, cb, torch.stack([hTf, hTb]), torch.stack([cTf, cTb])
+
+
+def _check_grid(xwf, xwb, whf, whb, lengths, maskf, maskb):
+    for xw, wh, mask, d in ((xwf, whf, maskf, "f"), (xwb, whb, maskb, "b")):
+        _check(xw, wh, lengths, mask, mask, mask, names=(f"mask{d}",) * 3)
+    if xwb.shape != xwf.shape or xwb.dtype != xwf.dtype or xwb.device != xwf.device:
+        raise ValueError("xwf and xwb must share one shape, dtype and device")
+
+
+def _launch_grid(fn_name, tensors, T, B, H, dtype, device, rows):
+    fn = getattr(load_library("bilstm_grid"), fn_name)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    ptrs = [None if a is None else a.data_ptr() for a in tensors]
+    array = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(array, T, B, H, int(dtype == torch.bfloat16), rows, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{fn_name} launch failed with CUDA error {err} "
+            f"(T={T}, B={B}, H={H}, rows={rows}, {dtype})"
+        )
+
+
+def _launch_grid_fwd(xwf, xwb, whf, whb, lengths, maskf, maskb, return_c_seq, rows):
+    """One K4f launch; the kernel takes each per-direction tensor stacked
+    direction-major, so the inputs are stacked here (one copy each) and
+    the outputs come back as views of stacked tensors."""
+    T, B, G = xwf.shape
+    H = G // 4
+    seq = lambda: torch.empty((2, T, B, H), dtype=xwf.dtype, device=xwf.device)  # noqa: E731
+    h_seq = seq()
+    c_seq = seq() if return_c_seq else None
+    hT = torch.empty((2, B, H), dtype=torch.float32, device=xwf.device)
+    cT = torch.empty_like(hT)
+    _launch_grid(
+        "bilstm_grid_fwd",
+        (torch.stack([xwf, xwb]), torch.stack([whf, whb]), lengths,
+         torch.stack([maskf, maskb]), h_seq, c_seq, hT, cT),
+        T, B, H, xwf.dtype, xwf.device, rows,
+    )
+    cf, cb = (c_seq[0], c_seq[1]) if return_c_seq else (None, None)
+    return h_seq[0], h_seq[1], cf, cb, hT, cT
+
+
+def bilstm_grid_fwd(
+    xwf: torch.Tensor,
+    xwb: torch.Tensor,
+    whf: torch.Tensor,
+    whb: torch.Tensor,
+    lengths: torch.Tensor,
+    maskf: torch.Tensor,
+    maskb: torch.Tensor,
+    return_c_seq: bool = True,
+):
+    """``(hf, hb, cf, cb, hT, cT)``: both directions of one biLSTM layer
+    in one launch — see :func:`bilstm_grid_fwd_reference`.
+
+    On a CUDA tensor this launches the Hopper kernel K4f (and raises if it
+    cannot be built or launched); on a CPU tensor it runs the reference.
+    """
+    _check_grid(xwf, xwb, whf, whb, lengths, maskf, maskb)
+    if xwf.device.type == "cpu":
+        return bilstm_grid_fwd_reference(
+            xwf, xwb, whf, whb, lengths, maskf, maskb, return_c_seq
+        )
+    if xwf.device.type != "cuda":
+        raise ValueError(f"bilstm_grid_fwd runs on cuda or cpu, not {xwf.device}")
+    B, H = maskf.shape
+    out = _launch_grid_fwd(
+        xwf, xwb, whf, whb, lengths, maskf, maskb, return_c_seq,
+        _rows_per_block(B, H, xwf.device, directions=2),
+    )
+    bilstm_grid_fwd.launches += 1
+    return out
+
+
+bilstm_grid_fwd.launches = 0
+
+
+def bilstm_grid_bwd_reference(
+    xwf, xwb,  # (T, B, 4H) stream dtype
+    whf, whb,  # (H, 4H) stream dtype
+    hpf, hpb,  # (T, B, H) stream dtype: h before each step, in recurrence order
+    cpf, cpb,  # (T, B, H) stream dtype: c before each step
+    csf, csb,  # (T, B, H) stream dtype: c after each step
+    lengths,  # (B,) int32
+    maskf, maskb,  # (B, H) f32
+    dhsf, dhsb,  # (T, B, H) stream dtype: dL/dh_seq per direction
+    dhT, dcT,  # (2, B, H) f32
+):
+    """Plain version of K4b: ``(dgf, dgb, dh0, dc0)`` in the order of
+    JAX's ``_bi_grid_bwd_call``: the forward chain's adjoint walks
+    t = T-1…0 and the reverse chain's t = 0…T-1, each the step loop of
+    :func:`lstm_recurrence_bwd_reference`; ``dh0``/``dc0`` are
+    ``(2, B, H)`` f32, direction first."""
+    dgf, dh0f, dc0f = lstm_recurrence_bwd_reference(
+        xwf, whf, hpf, cpf, csf, lengths, maskf, dhsf, dhT[0], dcT[0], False
+    )
+    dgb, dh0b, dc0b = lstm_recurrence_bwd_reference(
+        xwb, whb, hpb, cpb, csb, lengths, maskb, dhsb, dhT[1], dcT[1], True
+    )
+    return dgf, dgb, torch.stack([dh0f, dh0b]), torch.stack([dc0f, dc0b])
+
+
+def bilstm_grid_bwd(xwf, xwb, whf, whb, hpf, hpb, cpf, cpb, csf, csb, lengths,
+                    maskf, maskb, dhsf, dhsb, dhT, dcT):
+    """``(dgf, dgb, dh0, dc0)``: both adjoint chains of one biLSTM layer
+    in one launch — see :func:`bilstm_grid_bwd_reference`.
+
+    On a CUDA tensor this launches the Hopper kernel K4b (and raises if it
+    cannot be built or launched); on a CPU tensor it runs the reference.
+    """
+    args = (xwf, xwb, whf, whb, hpf, hpb, cpf, cpb, csf, csb, lengths,
+            maskf, maskb, dhsf, dhsb, dhT, dcT)
+    _check_grid(xwf, xwb, whf, whb, lengths, maskf, maskb)
+    T, B, G = xwf.shape
+    H = G // 4
+    for name, a in (("dhT", dhT), ("dcT", dcT)):
+        if tuple(a.shape) != (2, B, H) or a.dtype != torch.float32 or not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (2, {B}, {H}) float32")
+    _check_bwd(xwf, whf, hpf, cpf, csf, lengths, maskf, dhsf, dhT[0], dcT[0])
+    _check_bwd(xwb, whb, hpb, cpb, csb, lengths, maskb, dhsb, dhT[1], dcT[1])
+    if xwf.device.type == "cpu":
+        return bilstm_grid_bwd_reference(*args)
+    if xwf.device.type != "cuda":
+        raise ValueError(f"bilstm_grid_bwd runs on cuda or cpu, not {xwf.device}")
+    # the kernel takes each per-direction tensor stacked direction-major
+    stack = lambda a, b: torch.stack([a, b])  # noqa: E731
+    wh = stack(whf, whb)
+    dgates = torch.empty((2, T, B, G), dtype=xwf.dtype, device=xwf.device)
+    dh0 = torch.empty((2, B, H), dtype=torch.float32, device=xwf.device)
+    dc0 = torch.empty_like(dh0)
+    _launch_grid(
+        "bilstm_grid_bwd",
+        (stack(xwf, xwb), wh, wh.transpose(1, 2).contiguous(), stack(hpf, hpb),
+         stack(cpf, cpb), stack(csf, csb), lengths, stack(maskf, maskb),
+         stack(dhsf, dhsb), dhT, dcT, dgates, dh0, dc0),
+        T, B, H, xwf.dtype, xwf.device, _rows_per_block(B, H, xwf.device, directions=2),
+    )
+    bilstm_grid_bwd.launches += 1
+    return dgates[0], dgates[1], dh0, dc0
+
+
+bilstm_grid_bwd.launches = 0
+
+
+class BiLSTMGrid(torch.autograd.Function):
+    """K4f forward, K4b backward: the port of the custom VJP of
+    ``fused_bilstm_grid`` (``ecog2txt_tpu/ops/pallas_lstm.py``).
+
+    JAX's VJP runs the two adjoint chains as two ``_bwd_call`` launches
+    (K1b); this one runs them as ONE K4b launch, the same function by
+    another kernel: the difference is deliberate, it is the path on which
+    K4b runs.  The recurrent weights' gradients are two f32 GEMMs outside
+    the kernel, ``dwh = S(hprev * mask)^T @ dgates`` per direction.
+    ``whf``/``whb`` arrive in their parameter dtype (f32) and are cast to
+    the stream dtype inside, so their gradients reach the parameters in
+    f32.  ``lengths`` and the masks get no gradient."""
+
+    @staticmethod
+    def forward(ctx, xwf, xwb, whf, whb, lengths, maskf, maskb):
+        stream = xwf.dtype
+        whfs, whbs = whf.to(stream).contiguous(), whb.to(stream).contiguous()
+        hf, hb, cf, cb, hT, cT = bilstm_grid_fwd(
+            xwf, xwb, whfs, whbs, lengths, maskf, maskb
+        )
+        ctx.save_for_backward(xwf, xwb, whfs, whbs, lengths, maskf, maskb, hf, hb, cf, cb)
+        ctx.wh_dtypes = (whf.dtype, whb.dtype)
+        return (
+            torch.cat([hf, hb], dim=-1),
+            torch.cat([hT[0], hT[1]], dim=-1),
+            torch.cat([cT[0], cT[1]], dim=-1),
+        )
+
+    @staticmethod
+    def backward(ctx, dhseq, dhT, dcT):
+        xwf, xwb, whfs, whbs, lengths, maskf, maskb, hf, hb, cf, cb = ctx.saved_tensors
+        stream = xwf.dtype
+        T, B, G = xwf.shape
+        H = G // 4
+        dev = xwf.device
+        if dhseq is None:
+            dhseq = torch.zeros((T, B, 2 * H), dtype=stream, device=dev)
+        dhseq = dhseq.to(stream)
+        dhsf, dhsb = dhseq[..., :H].contiguous(), dhseq[..., H:].contiguous()
+
+        def by_direction(g):  # (B, 2H) → (2, B, H) f32
+            if g is None:
+                return torch.zeros((2, B, H), dtype=torch.float32, device=dev)
+            return torch.stack([g[:, :H], g[:, H:]]).float().contiguous()
+
+        zeros = torch.zeros((B, H), dtype=torch.float32, device=dev)
+        # the forward chain's predecessor is t-1; the reverse chain's t+1
+        hpf, cpf = _shifted(hf, zeros, False), _shifted(cf, zeros, False)
+        hpb, cpb = _shifted(hb, zeros, True), _shifted(cb, zeros, True)
+        dgf, dgb, _, _ = bilstm_grid_bwd(
+            xwf, xwb, whfs, whbs, hpf, hpb, cpf, cpb, cf, cb, lengths, maskf,
+            maskb, dhsf, dhsb, by_direction(dhT), by_direction(dcT),
+        )
+        dwh = []
+        for i, (hp, mask, dg) in enumerate(((hpf, maskf, dgf), (hpb, maskb, dgb))):
+            if not ctx.needs_input_grad[2 + i]:
+                dwh.append(None)
+                continue
+            # S-rounded operands, f32 products and accumulation, f32 result
+            h_in = (hp * mask.to(stream)).reshape(T * B, H)
+            dwh.append((h_in.float().T @ dg.reshape(T * B, G).float()).to(
+                ctx.wh_dtypes[i]
+            ))
+        return dgf, dgb, dwh[0], dwh[1], None, None, None
+
+
+def fused_bilstm_grid(
+    xwf: torch.Tensor,  # (T, B, 4H) stream dtype
+    xwb: torch.Tensor,  # (T, B, 4H) stream dtype
+    whf: torch.Tensor,  # (H, 4H) parameter dtype
+    whb: torch.Tensor,  # (H, 4H) parameter dtype
+    lengths: torch.Tensor,  # (B,) int32
+    maskf: torch.Tensor,  # (B, H) f32
+    maskb: torch.Tensor,  # (B, H) f32
+):
+    """Both directions of a biLSTM layer in one launch from a zero state:
+    ``(h_seq (T, B, 2H), hT (B, 2H), cT (B, 2H))`` as JAX's
+    ``fused_bilstm_grid`` returns them, the reverse chain's outputs at
+    their absolute positions.  Differentiable in ``xwf``, ``xwb``,
+    ``whf`` and ``whb``; when no gradient is wanted it runs K4f alone
+    without storing ``c_seq``."""
+    wants_grad = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (xwf, xwb, whf, whb)
+    )
+    if not wants_grad:
+        stream = xwf.dtype
+        hf, hb, _, _, hT, cT = bilstm_grid_fwd(
+            xwf, xwb, whf.to(stream).contiguous(), whb.to(stream).contiguous(),
+            lengths, maskf, maskb, return_c_seq=False,
+        )
+        return (
+            torch.cat([hf, hb], dim=-1),
+            torch.cat([hT[0], hT[1]], dim=-1),
+            torch.cat([cT[0], cT[1]], dim=-1),
+        )
+    return BiLSTMGrid.apply(xwf, xwb, whf, whb, lengths, maskf, maskb)

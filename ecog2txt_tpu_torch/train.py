@@ -6,7 +6,8 @@ The twin of ``ecog2txt_tpu/train.py`` on the resident path:
   in bf16 under bf16 compute), and each step gathers
   ``data[subject][idx]`` there from a host-made schedule;
 * a training step is ``seq2seq_loss`` with dropout → gradients (through
-  the Hopper kernels K1f/K1b when ``use_pallas_lstm``) → clip by global
+  the Hopper kernels K1f/K1b when ``use_pallas_lstm`` is True, K4f/K4b
+  when it is ``'bi_grid'``) → clip by global
   norm 10 (optax's rule, ``g * 10 / max(|g|, 10)``) → Adam (β 0.9 /
   0.999, eps 1e-8, optax's defaults) → EMA ``d * e + (1 - d) * p``;
 * an assessment interval of epochs is one call of the segment runner,
@@ -404,7 +405,7 @@ class MultiSubjectTrainer:
             conformer=(
                 ConformerConfig(**conformer_kwargs) if conformer_kwargs else None
             ),
-            use_pallas_lstm=bool(self.SN_kwargs.get("use_pallas_lstm", False)),
+            use_pallas_lstm=self.SN_kwargs.get("use_pallas_lstm", False),
             compute_dtype=_COMPUTE_DTYPES[dtype_name],
             pad_id=int(dec_list.index(pad_token)),
             eos_id=(

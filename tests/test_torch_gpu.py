@@ -1,5 +1,5 @@
-"""Tests of the port's CUDA kernels (K1f, K1b, K2f, K2b-dq, K2b-dkv, K3f)
-that need an NVIDIA GPU.
+"""Tests of the port's CUDA kernels (K1f, K1b, K2f, K2b-dq, K2b-dkv, K3f,
+K4f, K4b, K5f, K5b) that need an NVIDIA GPU.
 
 They import torch and the port only (no JAX), so they run on a machine
 with a card and without the JAX package's test setup:
@@ -253,13 +253,15 @@ def test_attention_kernels_match_plain_versions(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_banded_kernels_take_a_head_dim_that_does_not_divide_256(dtype):
-    """K2f, K2b-dq and K2b-dkv at Dh=48 match their plain versions; K3f,
-    whose projections need a head dim dividing 256, refuses it."""
+@pytest.mark.parametrize("Dh", [48, 96])
+def test_banded_kernels_take_a_head_dim_that_does_not_divide_256(dtype, Dh):
+    """K2f, K2b-dq, K2b-dkv and K3f at a head dim that does not divide the
+    256 threads of a block match their plain versions (K3f's spare
+    threads idle in its projections)."""
     _need_cuda()
     from ecog2txt_tpu_torch.ops import attention_kernels as ak
 
-    (q, k, v, gout, x), xw, (ln_g, ln_b), valid, args = _attention_inputs(dtype, Dh=48)
+    (q, k, v, gout, x), xw, (ln_g, ln_b), valid, args = _attention_inputs(dtype, Dh=Dh)
     H = args[-1]
     rows = lambda a: torch.where(valid, a.float(), 0.0)  # noqa: E731
     out, lse = ak.banded_attention_fwd(q, k, v, *args)
@@ -271,8 +273,68 @@ def test_banded_kernels_take_a_head_dim_that_does_not_divide_256(dtype):
                                ak.banded_attention_dq_reference(*bwd).float(), **TOL[dtype])
     for got, want in zip(ak.banded_attention_dkv(*bwd), ak.banded_attention_dkv_reference(*bwd)):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-    with pytest.raises(ValueError, match="divides 256"):
+    before = ak.fused_attention_fwd.launches
+    fused = ak.fused_attention_fwd(x, xw, ln_g, ln_b, *args, True)
+    torch.cuda.synchronize()
+    assert ak.fused_attention_fwd.launches == before + 1
+    want = ak.fused_attention_fwd_reference(x, xw, ln_g, ln_b, *args, True)
+    for name, got, w in zip(("out", "q", "k", "v", "lse"), fused, want):
+        if name in ("out", "lse"):
+            got, w = rows(got), rows(w)
+        tol = TOL[torch.float32] if name == "lse" and dtype == torch.float32 else TOL[dtype]
+        torch.testing.assert_close(got.float(), w.float(), **tol, msg=name)
+
+
+@pytest.mark.gpu
+def test_fused_kernel_refuses_a_head_dim_above_256():
+    """K3f gives each thread at most one head column in its projections:
+    on the card it refuses a head dim above 256 (no number computed, no
+    fallback), where the JAX layer takes any even head dim (ROADMAP,
+    Queue 3)."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    (_, _, _, _, x), xw, (ln_g, ln_b), _, args = _attention_inputs(torch.float32, H=1, Dh=288)
+    before = ak.fused_attention_fwd.launches
+    with pytest.raises(ValueError, match="up to 256"):
         ak.fused_attention_fwd(x, xw, ln_g, ln_b, *args, False)
+    assert ak.fused_attention_fwd.launches == before
+
+
+@pytest.mark.gpu
+def test_fused_attention_layer_fits_a_wide_head():
+    """At head dim 128 the default ~128-row query block would not fit K3f's
+    shared memory; on the card the layer takes a smaller block and its
+    output on valid rows and its gradients match the plain path on the CPU
+    (default block), f32, held normwise (weight gradients sum B·T products
+    in another order).  Rows past a sequence's length whose band holds no
+    valid key are a uniform average over the block's window, so they
+    depend on the block and are not compared."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    B, T, D, H, C, L = 2, 100, 256, 2, 16, 1
+    g = torch.Generator().manual_seed(11)
+    leaves = [torch.randn((D, 3 * D), generator=g) / D ** 0.5,
+              1 + 0.1 * torch.randn((D,), generator=g), 0.1 * torch.randn((D,), generator=g),
+              torch.randn((B, T, D), generator=g)]
+    lengths = torch.tensor([T, 77], dtype=torch.int32)
+    valid = torch.arange(T)[None, :, None] < lengths[:, None, None]
+    cot = torch.randn((B, T, D), generator=g) * valid
+    assert ak._fit_query_rows(128, C, L, D // H, torch.device("cuda")) < 128
+
+    def run(device):
+        ls = [a.to(device).requires_grad_() for a in leaves]
+        out = ak.fused_attention_layer(*ls, 0, lengths.to(device), chunk_size=C,
+                                       left_context=L, num_heads=H)
+        (out * cot.to(device)).sum().backward()
+        return [out.detach().cpu() * valid] + [a.grad.cpu() for a in ls]
+
+    before = ak.fused_attention_fwd.launches
+    got = run("cuda")
+    assert ak.fused_attention_fwd.launches == before + 1
+    for a, b in zip(got, run("cpu")):
+        assert float((a - b).abs().max()) <= float(1e-5 + 1e-4 * b.abs().max())
 
 
 @pytest.mark.gpu
@@ -369,3 +431,177 @@ def test_conformer_training_step_launches_the_kernels(impl):
     fwd = "K2f" if impl == "flash" else "K3f"
     want = {k: 2 if k in (fwd, "dq", "dkv") else 0 for k in wrappers}
     assert {k: w.launches - before[k] for k, w in wrappers.items()} == want
+
+
+# --------------------------------------------------------------------------
+# the one-launch biLSTM grid (K4f, K4b) and LayerNorm (K5f, K5b)
+# --------------------------------------------------------------------------
+
+
+def _grid_inputs(dtype, seed=7):
+    """Both directions' projections and weights, ragged lengths with a
+    zero, 0/2 masks."""
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    xw = [rand(T, B, 4 * H).to(dtype) for _ in "fb"]
+    wh = [(rand(H, 4 * H) / H ** 0.5).to(dtype) for _ in "fb"]
+    lengths = torch.tensor([T, 1, 4, 0, 7], dtype=torch.int32)
+    masks = [(torch.rand((B, H), generator=g) < 0.5).float() * 2.0 for _ in "fb"]
+    return [a.cuda() for a in (*xw, *wh, lengths, *masks)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_kernels_match_plain_versions(dtype):
+    """K4f and K4b each launch once and match their plain versions; K4b
+    runs on the residuals of the plain forward with nonzero upstream
+    gradients."""
+    _need_cuda()
+    args = _grid_inputs(dtype)
+    f0, b0 = lstm_kernels.bilstm_grid_fwd.launches, lstm_kernels.bilstm_grid_bwd.launches
+    got = lstm_kernels.bilstm_grid_fwd(*args)
+    torch.cuda.synchronize()
+    want = lstm_kernels.bilstm_grid_fwd_reference(*args)
+    for name, g, w in zip(("hf", "hb", "cf", "cb", "hT", "cT"), got, want):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype], msg=name)
+    hf, hb, cf, cb, _, _ = want
+    zeros = torch.zeros((B, H), device="cuda")
+    gen = torch.Generator().manual_seed(8)
+    bargs = (*args[:4], lstm_kernels._shifted(hf, zeros, False),
+             lstm_kernels._shifted(hb, zeros, True), lstm_kernels._shifted(cf, zeros, False),
+             lstm_kernels._shifted(cb, zeros, True), cf, cb, *args[4:],
+             *(torch.randn((T, B, H), generator=gen).to(dtype).cuda() for _ in "fb"),
+             *(torch.randn((2, B, H), generator=gen).cuda() for _ in "hc"))
+    got = lstm_kernels.bilstm_grid_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert lstm_kernels.bilstm_grid_fwd.launches == f0 + 1
+    assert lstm_kernels.bilstm_grid_bwd.launches == b0 + 1
+    want = lstm_kernels.bilstm_grid_bwd_reference(*bargs)
+    for name, g, w in zip(("dgf", "dgb", "dh0", "dc0"), got, want):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype], msg=name)
+
+
+@pytest.mark.gpu
+def test_grid_function_gradients_match_plain_autograd():
+    """``fused_bilstm_grid`` (K4f, K4b + two GEMMs) against autograd
+    through the plain forward, f32; the weights' gradients stay f32."""
+    _need_cuda()
+    xwf, xwb, whf, whb, lengths, maskf, maskb = _grid_inputs(torch.float32)
+    w_out = torch.randn((2 * H,), generator=torch.Generator().manual_seed(9)).cuda()
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (xwf, xwb, whf, whb)]
+        out, hT, cT = fn(*leaves)
+        ((out * w_out).sum() + 2.0 * hT.sum() + 0.5 * (cT ** 2).sum()).backward()
+        return [a.grad for a in leaves]
+
+    f0, b0 = lstm_kernels.bilstm_grid_fwd.launches, lstm_kernels.bilstm_grid_bwd.launches
+    got = grads(lambda *a: lstm_kernels.fused_bilstm_grid(*a, lengths, maskf, maskb))
+    assert lstm_kernels.bilstm_grid_fwd.launches == f0 + 1
+    assert lstm_kernels.bilstm_grid_bwd.launches == b0 + 1
+
+    def plain(xf, xb, wf, wb):
+        hf, hb, _, _, hT, cT = lstm_kernels.bilstm_grid_fwd_reference(
+            xf, xb, wf, wb, lengths, maskf, maskb)
+        return torch.cat([hf, hb], -1), torch.cat([hT[0], hT[1]], -1), torch.cat([cT[0], cT[1]], -1)
+
+    for g, w in zip(got, grads(plain)):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, **TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D", [(130, 64), (37, 100), (200, 384)])
+def test_layernorm_kernels_match_plain_versions(dtype, rows, D):
+    """K5f and K5b each launch once and match their plain versions (dg and
+    db as the sums of their per-block partials), at widths that are not
+    multiples of 128 and row counts that fill no whole block."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import layernorm_kernels as ln
+
+    g = torch.Generator().manual_seed(rows + D)
+    x = (torch.randn((rows, D), generator=g) * 3 + 1).to(dtype).cuda()
+    dy = torch.randn((rows, D), generator=g).to(dtype).cuda()
+    lng = (1 + 0.2 * torch.randn((D,), generator=g)).cuda()
+    lnb = (0.1 * torch.randn((D,), generator=g)).cuda()
+    f0, b0 = ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches
+    y = ln.layer_norm_fwd(x, lng, lnb)
+    dx, dg, db = ln.layer_norm_bwd(x, dy, lng)
+    torch.cuda.synchronize()
+    assert (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches) == (f0 + 1, b0 + 1)
+    assert y.dtype == dx.dtype == dtype and dg.dtype == db.dtype == torch.float32
+    torch.testing.assert_close(y.float(), ln.layer_norm_fwd_reference(x, lng, lnb).float(),
+                               **TOL[dtype])
+    rdx, rdg, rdb = ln.layer_norm_bwd_reference(x, dy, lng)
+    torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dtype])
+    for got, want in ((dg.sum(0), rdg.sum(0)), (db.sum(0), rdb.sum(0))):
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_layer_norm_function_gradients_match_plain_autograd():
+    """``layer_norm`` (K5f, K5b + one sum) against autograd through the
+    plain forward, f32; dg and db stay f32."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import layernorm_kernels as ln
+
+    g = torch.Generator().manual_seed(10)
+    leaves = [torch.randn((3, 11, 64), generator=g).cuda(),
+              (1 + 0.2 * torch.randn((64,), generator=g)).cuda(),
+              (0.1 * torch.randn((64,), generator=g)).cuda()]
+
+    def grads(fn):
+        ls = [a.clone().requires_grad_() for a in leaves]
+        fn(*ls).sin().sum().backward()
+        return [a.grad for a in ls]
+
+    for got, want in zip(grads(ln.layer_norm), grads(ln.layer_norm_fwd_reference)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_bi_grid_training_step_launches_the_grid_kernels():
+    """One segment-runner step of a small biLSTM seq2seq under
+    ``use_pallas_lstm='bi_grid'`` (bf16, dropout on): each layer launches
+    K4f and K4b once, K1f and K1b never, and the loss is finite."""
+    _need_cuda()
+    import numpy as np
+
+    from ecog2txt_tpu_torch.convert import tree_map
+    from ecog2txt_tpu_torch.models.seq2seq import AuxHead, Seq2SeqConfig, init_seq2seq
+    from ecog2txt_tpu_torch.train import TrainState, make_optimizer, make_segment_runner
+
+    cfg = Seq2SeqConfig(
+        vocab_size=30, in_channels=7, conv_sizes=(16,), decimation_factor=4,
+        rnn_sizes=(H, H), aux_proj_sizes=(8,),
+        aux_heads=(AuxHead("aux", "categorical", 5),), dec_embedding_size=8,
+        dec_rnn_sizes=(2 * H,), max_dec_len=6, compute_dtype=torch.bfloat16,
+        use_pallas_lstm="bi_grid",
+    )
+    params = init_seq2seq(cfg, torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    N, Traw = 8, 48
+    dec = torch.randint(3, 30, (1, N, 6), generator=g, dtype=torch.int32)
+    dec[..., -1] = 1
+    data = {
+        "encoder_inputs": torch.randn((1, N, Traw, 7), generator=g).bfloat16(),
+        "encoder_lengths": torch.randint(12, Traw + 1, (1, N), generator=g,
+                                         dtype=torch.int32),
+        "decoder_targets": dec,
+        "decoder_lengths": torch.full((1, N), 6, dtype=torch.int32),
+        "aux": torch.randint(0, 5, (1, N, Traw), generator=g, dtype=torch.int32),
+    }
+    data = {k: v.cuda() for k, v in data.items()}
+    state = TrainState(params, tree_map(lambda t: t.detach().clone(), params),
+                       make_optimizer(params, 1e-3), 0)
+    runner = make_segment_runner(cfg, {"aux": 1.0}, 0.99)
+    wrappers = (lstm_kernels.lstm_recurrence, lstm_kernels.lstm_recurrence_bwd,
+                lstm_kernels.bilstm_grid_fwd, lstm_kernels.bilstm_grid_bwd)
+    before = [w.launches for w in wrappers]
+    state, metrics = runner(state, data, np.zeros(1, np.int32),
+                            np.arange(4, dtype=np.int32)[None],
+                            torch.Generator(device="cuda").manual_seed(0), 1)
+    assert np.isfinite(float(metrics["loss_total"]))
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [0, 0, 2, 2]
