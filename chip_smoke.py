@@ -81,6 +81,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
 9. the conformer demo trainer (a main path): ``MultiSubjectTrainer`` on
    the demo experiment with a small flash conformer, bf16: training WER
    must fall, with 2 K2b-dq and 2 K2b-dkv launches per step;
+K1b and K2f have two bodies each, chosen up front by dtype (and shape):
+bf16 runs K1b's cluster body (``csrc/lstm_bwd_cluster.cu``) and K2f's
+tensor-core body (``csrc/banded_attention_tc.cu``), f32 the CUDA-core
+bodies.  Every main path reads ``launches_by_body`` beside its counts and
+fails unless its bf16 launches went through the new body (the f32 stream
+through the old one).  Phase 2 holds K1b at B=1, 16, 17 and 256 (H=400),
+at H=100 and the demo width, bit-identical on repeat; phase 6 holds K3f at
+head dims 288 and 384 too; both bodies of K1b and K2f are timed at bf16,
+in turns.
 Every conformer path also counts its LayerNorm launches: 5 K5f per block
 and encode (4 under 'fused', where K3f normalises inside) and as many K5b
 per training step; the flash training step is timed once more with the
@@ -95,6 +104,7 @@ present.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -162,6 +172,9 @@ WRAPPERS = {
     "K4f": lstm_kernels.bilstm_grid_fwd, "K4b": lstm_kernels.bilstm_grid_bwd,
     "K5f": layernorm_kernels.layer_norm_fwd, "K5b": layernorm_kernels.layer_norm_bwd,
 }
+# the kernels with two bodies, chosen up front by dtype and shape; each
+# wrapper counts its launches by body beside its plain count
+BODIES = {"K1b": lstm_kernels.lstm_recurrence_bwd, "K2f": ATTN.banded_attention_fwd}
 # LayerNorms per conformer block that run K5f/K5b: both FFNs, the
 # attention's (except under 'fused', where K3f normalises inside), the
 # conv module's and the block's output
@@ -173,9 +186,23 @@ class SmokeFailure(RuntimeError):
 
 
 def reset_counts() -> None:
-    """Every kernel wrapper's launch count to 0."""
+    """Every kernel wrapper's launch count to 0, by body too."""
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+    for wrapper in BODIES.values():
+        for body in wrapper.launches_by_body:
+            wrapper.launches_by_body[body] = 0
+
+
+def read_bodies() -> dict:
+    return {name: dict(wrapper.launches_by_body) for name, wrapper in BODIES.items()}
+
+
+def check_bodies(path: str, bodies: dict, kernel: str, body: str, n: int) -> None:
+    """All ``n`` launches of ``kernel`` on ``path`` went through ``body``."""
+    want = {b: (n if b == body else 0) for b in bodies[kernel]}
+    check(bodies[kernel] == want,
+          f"{path}: {kernel} launches by body {bodies[kernel]}, expected {want}")
 
 
 def read_counts() -> dict:
@@ -478,20 +505,29 @@ def kernel_bwd_phase(extra_shapes) -> dict:
     and at ``extra_shapes`` (B, H, T'), the autograd Function against
     autograd through the plain forward, and K1b's timings."""
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    shapes = [(16, H, T_STEPS), (B_TRAIN, H, T_STEPS), *extra_shapes]
+    # B=1 and B=17 pad the cluster body's 16-row tiles, H=100 its unit slices
+    shapes = [(16, H, T_STEPS), (B_TRAIN, H, T_STEPS), (1, H, T_STEPS), (17, H, T_STEPS),
+              (17, 100, T_STEPS), *extra_shapes]
     for seed, (B, h, steps, dtype, reverse_time, variant) in enumerate(_cases(shapes), 101):
         args = _adjoint_inputs(B, dtype, variant, reverse_time, seed, h, steps)
+        before = read_bodies()["K1b"]
         got = lstm_kernels.lstm_recurrence_bwd(*args, reverse_time=reverse_time)
+        again = lstm_kernels.lstm_recurrence_bwd(*args, reverse_time=reverse_time)
         want = lstm_kernels.lstm_recurrence_bwd_reference(*args, reverse_time=reverse_time)
         torch.cuda.synchronize()
         case = _case_name(B, h, steps, dtype, reverse_time, variant)
+        body = "cluster" if dtype == torch.bfloat16 else "rows"
+        check(read_bodies()["K1b"][body] == before[body] + 2,
+              f"K1b {case}: launches by body {read_bodies()['K1b']}, expected the {body} body")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K1b {case}: two launches on the same inputs differ")
         worst = (0.0, 0.0)
         for name, g, w in zip(("dgates", "dh0", "dc0"), got, want):
             a, r = compare(f"{case} {name}", g, w, TOL[dtype])
             worst = (max(worst[0], a), max(worst[1], r))
         errs[dtype] = max(errs[dtype], worst[0])
-        print(f"kernel lstm_recurrence_bwd {case}: max abs err "
-              f"{worst[0]:.3e}, max rel err {worst[1]:.3e}")
+        print(f"kernel lstm_recurrence_bwd {case} ({body} body, bit-identical on repeat): "
+              f"max abs err {worst[0]:.3e}, max rel err {worst[1]:.3e}")
 
     # the autograd Function (K1f forward, K1b backward) at f32; dwh sums
     # T'·B products in another order than autograd's per-step sums, so
@@ -527,20 +563,38 @@ def kernel_bwd_phase(extra_shapes) -> dict:
           f"f32 B=16: max abs err {grad_err:.3e}")
 
     timings = {}
+    sms, smem_limit = lstm_kernels._device_limits(torch.device("cuda"))
+    resident = _build.load_library("lstm_bwd_cluster").lstm_recurrence_bwd_cluster_max_active
+    resident.argtypes, resident.restype = [ctypes.c_int] * 3, ctypes.c_int
     for B in (16, 256):
         args = _adjoint_inputs(B, torch.bfloat16, "serving", False, 1000 + B)
-        kernel_ms = cuda_ms(lambda: lstm_kernels.lstm_recurrence_bwd(*args), reps=20)
+        plan = lstm_kernels.plan_bwd_body(torch.bfloat16, B, H, sms, smem_limit)
+        check(plan["body"] == "cluster", f"K1b at B={B} H={H} bf16 plans {plan}")
+        rows = lstm_kernels._rows_for(B, H, sms)
+        # the rows body (the previous bf16 body) in turns with the cluster body
+        rows_ms, kernel_ms = [], []
+        for _ in range(2):
+            rows_ms.append(cuda_ms(lambda: lstm_kernels._launch_bwd(*args, False, rows), reps=10))
+            kernel_ms.append(cuda_ms(lambda: lstm_kernels.lstm_recurrence_bwd(*args), reps=20))
+        kernel_ms, rows_ms = float(np.mean(kernel_ms)), float(np.mean(rows_ms))
         plain_ms = cuda_ms(
             lambda: lstm_kernels.lstm_recurrence_bwd_reference(*args), reps=3, warmup=1
         )
         library_ms = _library_lstm_bwd_ms(args[0], args[1], args[7])
         bound_ms, bound_by = _bwd_bound(B, torch.bfloat16)
+        # clusters the card keeps resident at once: more run in waves
+        plan["resident_clusters"] = resident(B, H, plan["cluster_size"])
         timings[B] = {
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "ms_rows_body": rows_ms,
+            "rows_per_block": rows, "plan": plan,
         }
         print(f"timing lstm_recurrence_bwd B={B} T'={T_STEPS} H={H} bf16: "
-              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"kernel (cluster body, {plan['clusters']} clusters of {plan['cluster_size']} "
+              f"CTAs x {plan['rows_per_cluster']} rows, {plan['resident_clusters']} resident "
+              f"at once, {plan['smem']} bytes of shared memory a CTA) {kernel_ms:.4f} ms, "
+              f"rows body "
+              f"({rows} rows a block) {rows_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"(cuDNN nn.LSTM backward, with weight gradients) {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"errs": errs, "grad_err": grad_err, "timings": timings}
@@ -968,7 +1022,8 @@ def serving_phase() -> dict:
 
 _KERNEL_CATEGORIES = (
     ("lstm_recurrence_fwd", "K1f"), ("lstm_recurrence_bwd", "K1b"),
-    ("banded_attention_fwd_kernel", "K2f"), ("banded_attention_dq_kernel", "K2b-dq"),
+    ("banded_attention_fwd_kernel", "K2f"), ("banded_attention_fwd_tc_kernel", "K2f"),
+    ("banded_attention_dq_kernel", "K2b-dq"),
     ("banded_attention_dkv_kernel", "K2b-dkv"), ("fused_attention_fwd_kernel", "K3f"),
     ("bilstm_grid_fwd_kernel", "K4f"), ("bilstm_grid_bwd_kernel", "K4b"),
     ("layer_norm_fwd_kernel", "K5f"), ("layer_norm_bwd_kernel", "K5b"),
@@ -1103,11 +1158,13 @@ def training_phase() -> dict:
         losses.append(step())
         step_s.append(time.perf_counter() - t0)
     counts = read_counts()
+    bodies = read_bodies()
     fwd, bwd = counts["K1f"], counts["K1b"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     # ------------------------------------------------------------------
     want = TRAIN_STEPS * LAUNCHES_PER_ENCODE
     check_counts(f"biLSTM training ({TRAIN_STEPS} steps)", counts, {"K1f": want, "K1b": want})
+    check_bodies("biLSTM training (bf16)", bodies, "K1b", "cluster", want)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
     ms = 1e3 * float(np.mean(step_s))
@@ -1121,7 +1178,7 @@ def training_phase() -> dict:
     prof = profile_call(f"training step B={B_TRAIN}", step, need=("K1f", "K1b"))
     f32_err = _f32_kernel_vs_plain(params, data, rng.permutation(N_TRIALS)[:B_TRAIN])
     return {"fwd": fwd, "bwd": bwd, "ms": ms, "losses": losses, "profile": prof,
-            "f32_err": f32_err}
+            "f32_err": f32_err, "bodies": bodies}
 
 
 # --------------------------------------------------------------------------
@@ -1162,10 +1219,12 @@ def trainer_phase(trainer: MultiSubjectTrainer) -> dict:
     history = trainer.parallel_transfer_learn()
     fit_s = time.perf_counter() - t0
     counts = read_counts()
+    bodies = read_bodies()
     fwd, bwd = counts["K1f"], counts["K1b"]
     # ------------------------------------------------------------------
     check(all(v == 0 for k, v in counts.items() if k not in ("K1f", "K1b")),
           f"trainer: launches {counts}")
+    check_bodies("trainer (bf16)", bodies, "K1b", "cluster", bwd)
     per_step = 2 * len(trainer.net_config.rnn_sizes)
     check(bwd == steps * per_step,
           f"trainer: K1b launched {bwd} times in {steps} steps; expected "
@@ -1189,7 +1248,8 @@ def trainer_phase(trainer: MultiSubjectTrainer) -> dict:
           + f"; K1b {bwd} launches ({per_step} per step), K1f {fwd}")
     print(f"served validation trial 0: {out['sequences'][0]!r} "
           f"(reference {' '.join(val.references[0][0])!r})")
-    return {"wers": wers, "steps": steps, "fwd": fwd, "bwd": bwd, "fit_s": fit_s}
+    return {"wers": wers, "steps": steps, "fwd": fwd, "bwd": bwd, "fit_s": fit_s,
+            "bodies": bodies}
 
 
 # --------------------------------------------------------------------------
@@ -1360,8 +1420,12 @@ def _check_attention_case(case: str, c: dict, dtype, errs: dict) -> None:
                        masked(want) if rows else want, t)
         errs[kernel][dtype] = max(errs[kernel][dtype], a)
 
+    before = read_bodies()["K2f"]
     out, lse = ATTN.banded_attention_fwd(c["q"], c["k"], c["v"], *args)
     torch.cuda.synchronize()
+    body = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    check(read_bodies()["K2f"][body] == before[body] + 1,
+          f"{case} K2f: launches by body {read_bodies()['K2f']}, expected the {body} body")
     r_out, r_lse = ATTN.banded_attention_fwd_reference(c["q"], c["k"], c["v"], *args)
     hold("K2f", "out", out, r_out)
     hold("K2f", "lse", lse, r_lse, t=TOL[torch.float32])
@@ -1382,6 +1446,38 @@ def _check_attention_case(case: str, c: dict, dtype, errs: dict) -> None:
         hold("K3f", name, a, b, rows=name in ("out", "lse"),
              t=TOL[torch.float32] if name == "lse" and dtype == torch.float32 else tol)
     check(torch.equal(unsaved, got[0]), f"{case} K3f: out without residuals differs")
+
+
+def _check_fused_wide_head(Dh: int, dtype, seed: int) -> float:
+    """K3f at a head dim above 256 (one head of width ``Dh``; the
+    projections take two head columns a thread) at the query block
+    ``fused_attention_layer`` picks on the card, B=16, T'=104, ragged
+    lengths, against its plain version; returns the largest error."""
+    B, T, C, L = 16, 104, 16, 1
+    QB = ATTN._fit_query_rows(128, C, L, Dh, torch.device("cuda"))
+    T1 = -(-T // QB) * QB
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, T1, Dh), generator=g, device="cuda").to(dtype)
+    xw = ATTN._split_rot_weights(
+        torch.randn((Dh, 3 * Dh), generator=g, device="cuda") / Dh ** 0.5, 1, dtype)
+    ln_g = 1.0 + 0.1 * torch.randn((Dh,), generator=g, device="cuda")
+    ln_b = 0.1 * torch.randn((Dh,), generator=g, device="cuda")
+    lengths = torch.randint(T // 2, T + 1, (B,), generator=g, device="cuda").to(torch.int32)
+    valid = (torch.arange(T1, device="cuda")[None] < lengths[:, None])[..., None]
+    args = (0, lengths, C, L, T, QB, 1)
+    got = ATTN.fused_attention_fwd(x, xw, ln_g, ln_b, *args, True)
+    torch.cuda.synchronize()
+    want = ATTN.fused_attention_fwd_reference(x, xw, ln_g, ln_b, *args, True)
+    err = 0.0
+    for name, a, b in zip(("out", "q", "k", "v", "lse"), got, want):
+        if name in ("out", "lse"):
+            a, b = torch.where(valid, a.float(), 0.0), torch.where(valid, b.float(), 0.0)
+        tol = TOL[torch.float32] if name == "lse" and dtype == torch.float32 else TOL[dtype]
+        e, _ = compare(f"K3f head dim {Dh} {str(dtype)[6:]} {name}", a, b, tol)
+        err = max(err, e)
+    print(f"attention kernels K3f head dim {Dh} (one head, query block {QB}) "
+          f"{str(dtype)[6:]}: max abs err {err:.3e}")
+    return err
 
 
 def _function_grads() -> float:
@@ -1520,6 +1616,13 @@ def _attention_timings(label: str, B: int, T: int) -> dict:
     }
     bounds = _attention_bounds(c, B, D, H, dtype)
     lib = _sdpa_ms(c, B, D, H)
+    # K2f's CUDA-core body (the previous bf16 body) in turns with the tensor-core body
+    cuda_core, tensor_core = [], []
+    for _ in range(2):
+        cuda_core.append(cuda_ms(lambda: ATTN._launch_k2f(
+            "cuda_core", c["q"], c["k"], c["v"], *args), reps=20))
+        tensor_core.append(cuda_ms(lambda: ATTN.banded_attention_fwd(
+            c["q"], c["k"], c["v"], *args), reps=20))
     timings = {}
     for name, (kernel, plain) in calls.items():
         t = {"ms": cuda_ms(kernel, reps=20), "plain_ms": cuda_ms(plain, reps=3, warmup=1),
@@ -1527,6 +1630,8 @@ def _attention_timings(label: str, B: int, T: int) -> dict:
              "library_ms": None}  # K3f: no one library call computes it
         if name == "K2f":
             t["library_ms"] = lib["fwd_ms"]
+            t["ms_cuda_core_body"] = float(np.mean(cuda_core))
+            t["ms_tensor_core_in_turns"] = float(np.mean(tensor_core))
         elif name.startswith("K2b"):
             t["library_ms"] = lib["bwd_ms"]  # one backward computes dq, dk and dv
         timings[name] = t
@@ -1537,7 +1642,9 @@ def _attention_timings(label: str, B: int, T: int) -> dict:
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
               + (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None else "none")
               + f", bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
-              + (f", with residuals {t['ms_with_residuals']:.4f} ms" if name == "K3f" else ""))
+              + (f", with residuals {t['ms_with_residuals']:.4f} ms" if name == "K3f" else "")
+              + (f"; tensor-core body (in turns) {t['ms_tensor_core_in_turns']:.4f} ms, "
+                 f"CUDA-core body {t['ms_cuda_core_body']:.4f} ms" if name == "K2f" else ""))
     print(f"library yardstick (SDPA, boolean band mask) at {label}: forward "
           f"{lib['fwd_ms']:.4f} ms, backward {lib['bwd_ms']:.4f} ms, max abs diff to "
           f"K2f on valid rows {lib['max_abs_diff_to_K2f']:.3e}")
@@ -1576,10 +1683,18 @@ def attention_kernel_phase(demo_shape) -> dict:
                 print(f"attention kernels {case}: max abs err "
                       + ", ".join(f"{k} {v[dtype]:.3e}" for k, v in errs.items()))
                 del c
+    # K3f above head dim 256, next to 48, 96 and 64 above
+    wide = {}
+    for Dh in (288, 384):
+        for dtype in (torch.float32, torch.bfloat16):
+            seed += 1
+            e = _check_fused_wide_head(Dh, dtype, seed)
+            errs["K3f"][dtype] = max(errs["K3f"][dtype], e)
+            wide[f"{Dh} {str(dtype)[6:]}"] = e
     grad_err = _function_grads()
     timings = {"headline": _attention_timings("headline", 256, 104),
                "long": _attention_timings("long", LONG_B, LONG_T)}
-    return {"errs": errs, "grad_err": grad_err, "timings": timings}
+    return {"errs": errs, "grad_err": grad_err, "timings": timings, "k3f_wide_head": wide}
 
 
 # --------------------------------------------------------------------------
@@ -1622,8 +1737,11 @@ def conformer_serving_phase(params) -> dict:
         batch_s = time.perf_counter() - t0
         calls += 2
         counts = read_counts()
+        bodies = read_bodies()
         # --------------------------------------------------------------
         encodes = calls * ENCODES_PER_CALL
+        check_bodies(f"conformer serving ({impl}, bf16)", bodies, "K2f", "tensor_core",
+                     counts["K2f"])
         check_counts(f"conformer serving ({impl})", counts,
                      {kernel: encodes * nb, "K5f": encodes * nb * LN_PER_BLOCK[impl]})
         _check_response(out, 1, f"conformer {impl} single")
@@ -1667,7 +1785,7 @@ def conformer_serving_phase(params) -> dict:
                              need=(kernel, "K5f"))
         prof256 = profile_call(f"conformer {impl} B=256", lambda: predictor(batch),
                                need=(kernel, "K5f"))
-        results[impl] = {"counts": counts, "calls": calls, "latency_s": latency,
+        results[impl] = {"counts": counts, "bodies": bodies, "calls": calls, "latency_s": latency,
                          "latencies_s": latencies, "batch_s": batch_s,
                          "enc_err_bf16": enc_err, "enc_err_f32": f32_err,
                          "profile_b1": prof1, "profile_b256": prof256}
@@ -1689,7 +1807,9 @@ def conformer_stream_phase(params) -> dict:
     outs = [stream.push(x[:, i * C:(i + 1) * C], n_valid - i * C if i == n_chunks - 1 else None)
             for i in range(n_chunks)]
     counts = read_counts()
+    bodies = read_bodies()
     # ------------------------------------------------------------------
+    check_bodies("conformer stream (f32)", bodies, "K2f", "cuda_core", counts["K2f"])
     check_counts("conformer stream", counts,
                  {"K2f": n_chunks * ccfg.num_blocks,
                   "K5f": n_chunks * ccfg.num_blocks * LN_PER_BLOCK["flash"]})
@@ -1705,7 +1825,7 @@ def conformer_stream_phase(params) -> dict:
     print(f"conformer stream (flash, f32, window {stream.window_steps} steps): {n_chunks} chunks "
           f"(last {n_valid - (n_chunks - 1) * C} valid) == offline encode, max abs err {err:.3e}; "
           f"{counts['K2f']} K2f and {counts['K5f']} K5f launches")
-    return {"counts": counts, "err": err}
+    return {"counts": counts, "bodies": bodies, "err": err}
 
 
 # --------------------------------------------------------------------------
@@ -1778,9 +1898,12 @@ def conformer_training_phase(params) -> dict:
             losses.append(step())
             step_s.append(time.perf_counter() - t0)
         counts = read_counts()
+        bodies = read_bodies()
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         # ------------------------------------------------------------------
         want = TRAIN_STEPS * nb
+        check_bodies(f"conformer training ({impl}, bf16)", bodies, "K2f", "tensor_core",
+                     counts["K2f"])
         ln = want * LN_PER_BLOCK[impl]
         check_counts(f"conformer training ({impl})", counts,
                      {kernel: want, "K2b-dq": want, "K2b-dkv": want, "K5f": ln, "K5b": ln})
@@ -1797,7 +1920,8 @@ def conformer_training_phase(params) -> dict:
               f"memory {peak_gib:.2f} GiB (corpus included)")
         prof = profile_call(f"conformer training step ({impl}) B={B_TRAIN}", step,
                             need=(kernel, "K2b-dq", "K2b-dkv", "K5f", "K5b"))
-        results[impl] = {"counts": counts, "ms": ms, "losses": losses, "profile": prof}
+        results[impl] = {"counts": counts, "bodies": bodies, "ms": ms, "losses": losses,
+                         "profile": prof}
         if impl == "flash":
             results["plain_layernorm"] = _steps_with_plain_layernorm(step)
         del data, state
@@ -1874,9 +1998,11 @@ def long_recording_phase(params) -> dict:
     torch.cuda.synchronize()
     fwd_s = (time.perf_counter() - t0) / iters
     counts = read_counts()
+    bodies = read_bodies()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     # ------------------------------------------------------------------
     nb = ccfg.num_blocks
+    check_bodies("long recording (bf16)", bodies, "K2f", "tensor_core", counts["K2f"])
     ln = nb * LN_PER_BLOCK["flash"]
     check_counts("long recording", counts,
                  {"K2f": 2 * iters * nb, "K2b-dq": iters * nb, "K2b-dkv": iters * nb,
@@ -1889,7 +2015,7 @@ def long_recording_phase(params) -> dict:
           f"{peak_gib:.2f} GiB")
     prof = profile_call(f"long recording forward+backward B={LONG_B} T'={LONG_T}", fwd_bwd,
                         need=("K2f", "K2b-dq", "K2b-dkv", "K5f", "K5b"))
-    return {"counts": counts, "train_s": train_s, "fwd_s": fwd_s,
+    return {"counts": counts, "bodies": bodies, "train_s": train_s, "fwd_s": fwd_s,
             "train_tokens_per_s": tokens / train_s, "fwd_tokens_per_s": tokens / fwd_s,
             "profile": prof, "peak_gib": peak_gib}
 
@@ -1933,7 +2059,9 @@ def conformer_trainer_phase(trainer: MultiSubjectTrainer) -> dict:
     history = trainer.parallel_transfer_learn()
     fit_s = time.perf_counter() - t0
     counts = read_counts()
+    bodies = read_bodies()
     # ------------------------------------------------------------------
+    check_bodies("conformer trainer (bf16)", bodies, "K2f", "tensor_core", counts["K2f"])
     check(counts["K2b-dq"] == counts["K2b-dkv"] == steps * nb,
           f"conformer trainer: K2b launched {counts} in {steps} steps; expected "
           f"{steps * nb} of each")
@@ -1959,7 +2087,7 @@ def conformer_trainer_phase(trainer: MultiSubjectTrainer) -> dict:
           f"{nb * LN_PER_BLOCK['flash']} K5b per step)")
     print(f"served validation trial 0: {out['sequences'][0]!r} "
           f"(reference {' '.join(val.references[0][0])!r})")
-    return {"wers": wers, "steps": steps, "counts": counts, "fit_s": fit_s}
+    return {"wers": wers, "steps": steps, "counts": counts, "bodies": bodies, "fit_s": fit_s}
 
 
 # --------------------------------------------------------------------------
@@ -1984,7 +2112,7 @@ def main() -> int:
         attn = attention_kernel_phase(conf_shape)
         serve = serving_phase()
         train = training_phase()
-        trainer_phase(trainer)
+        trainer_out = trainer_phase(trainer)
         gserve = grid_serving_phase()
         gtrain = grid_training_phase()
         conf_params = init_seq2seq(conformer_config(), torch.Generator().manual_seed(0),
@@ -2095,6 +2223,16 @@ def main() -> int:
                             "launches_training": ctrain["flash"]["counts"]["K2f"],
                             "launches_long": clong["counts"]["K2f"],
                             "launches_demo_trainer": ctrainer["counts"]["K2f"],
+                            "body": "tensor_core for bf16 (csrc/banded_attention_tc.cu), "
+                                    "cuda_core for f32",
+                            "launches_by_body": {
+                                "flash_serving": cserve["flash"]["bodies"]["K2f"],
+                                "stream_f32": cstream["bodies"]["K2f"],
+                                "flash_training": ctrain["flash"]["bodies"]["K2f"],
+                                "long": clong["bodies"]["K2f"],
+                                "demo_trainer": ctrainer["bodies"]["K2f"]},
+                            "ms_cuda_core_body": attn["timings"]["headline"]["K2f"][
+                                "ms_cuda_core_body"],
                             "library": f"{sdpa}, forward"}),
         attention_entry("banded_attention_dq", "K2b-dq", source, f"{pallas}:290",
                         ctrain["flash"]["counts"]["K2b-dq"], {
@@ -2119,6 +2257,7 @@ def main() -> int:
                             "launches_training": ctrain["fused"]["counts"]["K3f"],
                             "ms_with_residuals": attn["timings"]["headline"]["K3f"][
                                 "ms_with_residuals"],
+                            "max_abs_err_head_dim_above_256": attn["k3f_wide_head"],
                             "library": "none: no single library call computes LayerNorm, "
                                        "the rotary projections and the banded attention"}),
     ]
@@ -2158,6 +2297,11 @@ def main() -> int:
         "library_ms": b256["library_ms"],
         "library": "cuDNN nn.LSTM backward, (forward+backward)-forward; also "
                    "computes the weight gradients",
+        "body": "cluster for bf16 where the weight slice fits "
+                "(csrc/lstm_bwd_cluster.cu), rows otherwise",
+        "launches_by_body": {"training": train["bodies"]["K1b"],
+                             "demo_trainer": trainer_out["bodies"]["K1b"]},
+        "ms_rows_body": b256["ms_rows_body"], "plan": b256["plan"],
         "build_s": env["build_s"],
         "at_batch_16": kern_b["timings"][16],
     }, *attention_entries, *new_entries], "training_step_ms": train["ms"],

@@ -22,8 +22,15 @@
 // moves each input once, so by the H100's peaks it is bound by bytes
 // (q, k, v, out: ~100 MB at B=256, T1=128, D=384, bf16).  This simple
 // kernel runs its products on the CUDA cores from shared memory, so in
-// practice shared-memory bandwidth and latency bound it; wgmma and TMA
-// are later work.
+// practice shared-memory bandwidth and latency bound it.
+//
+// Since the tensor-core body of K2f (banded_attention_tc.cu) took over
+// bf16 streams, the forward here runs f32 streams (the tensor cores have
+// no f32 product, and TF32 would break the f32 tolerance) and bf16 blocks
+// too large for that body's shared memory; the wrapper picks the body by
+// dtype and shape before the launch (ops/attention_kernels.py::
+// plan_k2f_body).  K2b-dq and K2b-dkv are still this design; their
+// redesign as K2f's is the next step.
 
 #include "attention_common.cuh"
 

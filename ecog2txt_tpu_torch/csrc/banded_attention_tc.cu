@@ -1,0 +1,431 @@
+// Chunk-causal ("banded") attention forward for Hopper (sm_90a) on the
+// tensor cores: the bf16 body of K2f.
+//
+// Replaces ecog2txt_tpu/ops/pallas_attention.py::_fwd_call (the
+// pallas_call at :329) for bf16 streams; f32 streams keep the CUDA-core
+// body of banded_attention.cu (the tensor cores have no f32 product, and
+// TF32 would break the f32 tolerance), and so do K2b and K3f, which share
+// that body's attend_row.  Semantics are _fwd_kernel's
+// (pallas_attention.py:100-139): s = f32(q.k^T) * scale, -1e30 where the
+// band masks (_band_mask), the row max, e = exp(s - m), the denominator,
+// lse = m + log(denom), p = S(e / denom), out = S(f32(p.v)), all over the
+// block's QB + L*C key window.  A row with no valid key gets the uniform
+// average of its window and a finite lse, as the Pallas kernel and the
+// CUDA-core body give it.
+//
+// Bound on the card.  At the headline shape (B=256, T1=128, QB=128, window
+// W=144, Dh=64, H=6) a block does 2*(128*144*64)*2 ~ 4.7 MFLOP over ~52 KB
+// of bf16 in and 16 KB out, about 90 FLOP per byte: below the H100's
+// ~295 FLOP/byte bf16 ridge, so the bound is bytes (q, k, v read once,
+// out written once: ~100 MB, 0.03 ms).  The chunk-causal band admits only
+// L+1 chunks of keys per query row (32 of 144 at the headline), so the
+// products that matter are a fraction of even that.
+//
+// Design.
+// - One block per (query block n, head h, batch row b), as the CUDA-core
+//   body; min(8, ceil(QB/16)) warps, a warp owning 16 query rows at a time.
+// - Staging in bf16, not f32: Q (QB x Dh), K and V (W x Dh) go to shared
+//   memory with cp.async in 16-byte chunks, rows padded to Dhp + 8
+//   elements (Dhp = Dh rounded up to 16): the row stride is an odd number
+//   of 16-byte units, so ldmatrix reads 8 rows without a bank conflict.
+//   Window rows outside [0, T1) (block 0's L*C previous rows, the clamped
+//   tail) are never read: cp.async is given src-size 0 and zero-fills
+//   them; pad rows and columns are zeros too.  Q and K are one cp.async
+//   group and V a second one, so V lands while pass 1 runs.  At the
+//   headline shape that is 60 KB of shared memory a block (was 75 KB of
+//   f32 plus per-warp buffers).  A head dim that is not a multiple of 8
+//   (or unaligned tensors) stages by scalar copies.
+// - Both products on the tensor cores with mma.sync.m16n8k16 (bf16 in,
+//   f32 accumulate): q.k^T with A = Q (ldmatrix) and B = K rows
+//   (ldmatrix, non-transposed), p.v with A = p and B = V (ldmatrix.trans).
+//   The score fragment (16 rows x 16 keys, two n8 tiles) stays in
+//   registers; its C layout is repacked as the A operand of p.v, as
+//   FlashAttention-2 does.  K2f is bound by bytes, so wgmma's higher rate
+//   would buy nothing here.
+// - The band as chunk ids: each block writes the chunk id of its window's
+//   keys to shared memory once (a sentinel for keys masked whatever the
+//   query: outside [0, t_real), at negative absolute positions, at/past
+//   the length), so a score's mask is two integer compares, not two floor
+//   divisions.
+// - Two passes over the key tiles the band can admit for the warp's 16
+//   rows (L+1 chunks: 2 of 9 tiles at the headline): pass 1 the row max and
+//   denominator (per-thread running max and sum, merged across the quad by
+//   shuffles), pass 2 recomputes s and takes p = S(exp(s - m) / denom)
+//   exactly where Pallas rounds, then p.v.  No online rescaling of the
+//   output, so the rounding points are Pallas's; only the order of the sums
+//   differs, which the bf16 tolerance covers.  A row with no admitted key
+//   (padding rows past t_real, rows before the sequence) has m = -1e30 and
+//   denom = W exactly, and its output is the window's uniform average
+//   S(sum_j S(1/W) v_j), computed once per block on the CUDA cores only
+//   when such a row exists, so those rows do not walk the whole window.
+//   Keys past W (padding to a multiple of 16) are -inf: they add nothing.
+// - The output accumulator covers 64 head columns (8 n8 tiles, 32 f32
+//   registers a thread); a wider head runs pass 2 once per 64 columns.
+// - Occupancy at the headline shape: 61 KB of shared memory and at most
+//   85 registers a thread (__launch_bounds__(256, 3)): three blocks, 24
+//   warps, an SM; 1536 blocks over 132 SMs.
+
+#include <stdint.h>
+
+#include "attention_common.cuh"
+
+using namespace attn;
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTcWarps = 8;  // warps a block, at most
+constexpr int kChunk = 64;   // output head columns a pass 2 accumulates
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a . b for one m16n8k16 tile: bf16 operands, f32 accumulator
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Rows [row0, row0 + nrows) of the (T1, D) matrix `src` (one batch row),
+// columns [col0, col0 + Dh), into dst (nrows_p x Dhp, row stride ST);
+// rows outside [0, T1) or past nrows and columns past Dh are zeros and
+// never read.  With `vec` (Dh and D multiples of 8, 16-byte aligned
+// tensors) by cp.async in 16-byte chunks, else by scalar copies.
+__device__ void stage(bf16* dst, int ST, const bf16* src, int row0, int nrows, int nrows_p,
+                      int T1, int D, int col0, int Dh, int Dhp, bool vec) {
+  if (vec) {
+    const int cpr = Dhp / 8;
+    for (int idx = threadIdx.x; idx < nrows_p * cpr; idx += blockDim.x) {
+      const int r = idx / cpr, c = (idx - r * cpr) * 8, g = row0 + r;
+      const bool ok = r < nrows && g >= 0 && g < T1 && c < Dh;
+      const bf16* s = ok ? src + (size_t)g * D + col0 + c : src;
+      cp_async16(smem_addr(dst + r * ST + c), s, ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < nrows_p * Dhp; idx += blockDim.x) {
+      const int r = idx / Dhp, c = idx - r * Dhp, g = row0 + r;
+      const bool ok = r < nrows && g >= 0 && g < T1 && c < Dh;
+      dst[r * ST + c] = ok ? src[(size_t)g * D + col0 + c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// The band of _band_mask as chunk ids: key j of the window is admitted
+// for query row i iff kc[j] <= qc[i] <= kc[j] + L, where kc[j] is the
+// key's chunk (kNoKey where the key is masked whatever the query: outside
+// [0, t_real) locally, at a negative absolute position or at/past the
+// valid length) and qc[i] the query's chunk (kNoRow past t_real).
+constexpr int kNoKey = 1 << 29;
+constexpr int kNoRow = -(1 << 29);
+
+struct Tile {
+  const bf16 *qs, *ks, *vs;
+  const int* kc;  // [W] key chunk ids (shared memory)
+  int ST, KS, W, L;
+  float scale;
+};
+
+// The masked, scaled scores of the warp's rows r0..r0+15 against keys
+// kt*16..kt*16+15: s[nt][e] is row r0 + g + 8*(e >= 2), key kt*16 + nt*8 +
+// 2*(lane%4) + (e & 1).  Masked keys are -1e30, keys past W are -inf.
+__device__ __forceinline__ void scores(float (&s)[2][4], const Tile& T, int r0, int kt,
+                                       int lane, const int (&qc)[2]) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+  const int mi = lane >> 3, lr = lane & 7;
+  const uint32_t qa = smem_addr(T.qs + (r0 + (mi & 1) * 8 + lr) * T.ST + (mi >> 1) * 8);
+  const uint32_t ka = smem_addr(T.ks + (kt * 16 + (mi >> 1) * 8 + lr) * T.ST + (mi & 1) * 8);
+  for (int kk = 0; kk < T.KS; ++kk) {
+    uint32_t a[4], b[4];
+    ldsm_x4(a, qa + kk * 32);
+    ldsm_x4(b, ka + kk * 32);
+    mma16816(s[0], a, b[0], b[1]);
+    mma16816(s[1], a, b[2], b[3]);
+  }
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = kt * 16 + nt * 8 + 2 * t4 + (e & 1), q = qc[e >> 1];
+      float v;
+      if (j >= T.W) {
+        v = __int_as_float(0xff800000);  // -inf: padding, not a key
+      } else {
+        const int kc = T.kc[j];
+        v = kc <= q && kc + T.L >= q ? s[nt][e] * T.scale : kNeg;
+      }
+      s[nt][e] = v;
+    }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Pass 1 over key tiles [k0, k1]: m[h] and den[h] of row r0 + g + 8h.
+__device__ __forceinline__ void row_stats(float (&m)[2], float (&den)[2], const Tile& T, int r0,
+                                          int k0, int k1, int lane, const int (&qc)[2]) {
+  const float ninf = __int_as_float(0xff800000);
+  float mt[2] = {ninf, ninf}, lt[2] = {0.f, 0.f};
+  for (int kt = k0; kt <= k1; ++kt) {
+    float s[2][4];
+    scores(s, T, r0, kt, lane, qc);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float tmax = fmaxf(fmaxf(s[0][2 * hr], s[0][2 * hr + 1]),
+                               fmaxf(s[1][2 * hr], s[1][2 * hr + 1]));
+      const float mn = fmaxf(mt[hr], tmax);
+      if (mn == ninf) continue;  // only padding so far
+      float l = mt[hr] == mn ? lt[hr] : lt[hr] * expf(mt[hr] - mn);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = s[nt][2 * hr + e];
+          l += v == ninf ? 0.f : expf(v - mn);
+        }
+      mt[hr] = mn;
+      lt[hr] = l;
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    m[hr] = quad_max(mt[hr]);
+    den[hr] = quad_sum(mt[hr] == ninf ? 0.f : lt[hr] * expf(mt[hr] - m[hr]));
+  }
+}
+
+__global__ void __launch_bounds__(kTcWarps * 32, 3)
+    banded_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                   const bf16* __restrict__ v, const int* __restrict__ lengths,
+                                   bf16* __restrict__ out, float* __restrict__ lse, int T1,
+                                   int H, int Dh, int C, int L, int t_real, int QB, int offset,
+                                   float scale, int vec) {
+  const int n = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int PREV = L * C, W = QB + PREV, D = H * Dh;
+  const int Dhp = (Dh + 15) & ~15, ST = Dhp + 8;
+  const int QBp = (QB + 15) & ~15, Wp = (W + 15) & ~15;
+  const int base = n * QB, k0row = base - PREV;  // local rows of query 0 and key 0
+  const size_t boff = (size_t)b * T1 * D;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + QBp * ST;
+  bf16* vs = ks + Wp * ST;
+  int* kcs = reinterpret_cast<int*>(vs + Wp * ST);  // [Wp] key chunk ids
+  float* mean = reinterpret_cast<float*>(kcs + Wp);  // [Dhp] the window's uniform average
+  int* any_empty = reinterpret_cast<int*>(mean + Dhp);
+
+  // group 0: Q and K, which pass 1 needs; group 1: V, for pass 2
+  stage(qs, ST, q + boff, base, QB, QBp, T1, D, h * Dh, Dh, Dhp, vec);
+  stage(ks, ST, k + boff, k0row, W, Wp, T1, D, h * Dh, Dh, Dhp, vec);
+  cp_async_commit();
+  stage(vs, ST, v + boff, k0row, W, Wp, T1, D, h * Dh, Dh, Dhp, vec);
+  cp_async_commit();
+  const int length = lengths[b];
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    const int gk = k0row + j;
+    const long long ak = (long long)gk + offset;
+    kcs[j] = gk >= 0 && gk < t_real && ak >= 0 && ak < length ? floordiv(gk, C) : kNoKey;
+  }
+  if (threadIdx.x == 0) *any_empty = 0;
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const Tile T{qs, ks, vs, kcs, ST, Dhp / 16, W, L, scale};
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int nwarps = blockDim.x / 32, groups = QBp / 16;
+  const bool pairs = (Dh & 1) == 0;  // bf16x2 stores of the output
+  const float ninf = __int_as_float(0xff800000);
+  // every warp runs the same number of rounds, so the barriers below are uniform
+  const int rounds = (groups + nwarps - 1) / nwarps;
+  for (int round = 0; round < rounds; ++round) {
+    const int rg = round * nwarps + warp;
+    const bool active = rg < groups;
+    const int r0 = rg * 16;
+    float m[2] = {0.f, 0.f}, den[2] = {1.f, 1.f};
+    bool empty[2] = {false, false};
+    int qc[2], k0 = 0, k1 = -1;
+    if (active) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int gq = base + r0 + g + 8 * hr;  // >= 0
+        qc[hr] = gq < t_real ? gq / C : kNoRow;
+      }
+      // key tiles the band can admit for query rows base + r0 .. + 15
+      const int j0 = max(((base + r0) / C - L) * C - k0row, 0);
+      const int j1 = min(((base + r0 + 15) / C + 1) * C - 1 - k0row, W - 1);
+      if (j0 <= j1) {
+        k0 = j0 / 16;
+        k1 = j1 / 16;
+      }
+      row_stats(m, den, T, r0, k0, k1, lane, qc);
+      // A row with no admitted key (none in the window at all: the band is
+      // inside the tile range) is the uniform average of the window:
+      // m = -1e30, each of the W keys weighs exp(0) = 1, denom = W.
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        empty[hr] = k1 < k0 || m[hr] == kNeg;
+        if (empty[hr]) {
+          m[hr] = kNeg;
+          den[hr] = (float)W;
+        }
+      }
+      if (__any_sync(0xffffffffu, empty[0] || empty[1]) && lane == 0) *any_empty = 1;
+      if (t4 == 0) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = r0 + g + 8 * hr;
+          if (i < QB) lse[((size_t)b * T1 + base + i) * H + h] = m[hr] + logf(den[hr]);
+        }
+      }
+    }
+    if (round == 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // V staged; every warp of round 0 has flagged its empty rows
+      if (rounds > 1 || *any_empty) {
+        // the uniform average S(sum_j S(1/W) v_j), once for the block
+        const float p = __bfloat162float(__float2bfloat16_rn(1.f / (float)W));
+        for (int d = threadIdx.x; d < Dhp; d += blockDim.x) {
+          float acc = 0.f;
+          for (int j = 0; j < W; ++j) acc = fmaf(p, __bfloat162float(vs[j * ST + d]), acc);
+          mean[d] = acc;
+        }
+        __syncthreads();
+      }
+    }
+    if (!active) continue;
+    const int mi = lane >> 3, lr = lane & 7;
+    for (int c0 = 0; c0 < Dhp; c0 += kChunk) {
+      float o[kChunk / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kChunk / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+      for (int kt = k0; kt <= k1; ++kt) {
+        float s[2][4];
+        scores(s, T, r0, kt, lane, qc);
+        float p[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = s[nt][e];
+            p[nt][e] = x == ninf ? 0.f : expf(x - m[e >> 1]) / den[e >> 1];
+          }
+        // the score tile's C fragment, repacked as the A fragment of p.v
+        const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                               pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+        const uint32_t va =
+            smem_addr(vs + (kt * 16 + (mi & 1) * 8 + lr) * ST + c0 + (mi >> 1) * 8);
+#pragma unroll
+        for (int np = 0; np < kChunk / 16; ++np) {
+          if (c0 + np * 16 < Dhp) {
+            uint32_t bv[4];
+            ldsm_x4_trans(bv, va + np * 32);
+            mma16816(o[2 * np], a, bv[0], bv[1]);
+            mma16816(o[2 * np + 1], a, bv[2], bv[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < kChunk / 8; ++nt) {
+        const int col = c0 + nt * 8 + 2 * t4;
+        if (col >= Dh) continue;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = r0 + g + 8 * hr;
+          if (i >= QB) continue;
+          const float y0 = empty[hr] ? mean[col] : o[nt][2 * hr];
+          const float y1 = empty[hr] ? mean[col + 1] : o[nt][2 * hr + 1];
+          bf16* dst = out + boff + (size_t)(base + i) * D + h * Dh + col;
+          if (pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(y0, y1);
+          } else {
+            dst[0] = __float2bfloat16_rn(y0);
+            if (col + 1 < Dh) dst[1] = __float2bfloat16_rn(y1);
+          }
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory (bytes) of one block of the tensor-core K2f;
+// ops/attention_kernels.py::_k2f_tc_smem computes the same sum.
+int banded_attention_fwd_tc_smem(int QB, int W, int Dh) {
+  const int Dhp = (Dh + 15) & ~15, Wp = (W + 15) & ~15;
+  return 2 * (((QB + 15) & ~15) + 2 * Wp) * (Dhp + 8) + 4 * Wp + 4 * Dhp + 16;
+}
+
+// Launches the tensor-core K2f (bf16 streams only) on `stream` over the
+// grid (T1/QB, H, B) and returns the CUDA error code (0 on success).
+int banded_attention_fwd_tc(const void* q, const void* k, const void* v, const int* lengths,
+                            void* out, float* lse, int B, int T1, int H, int Dh, int C, int L,
+                            int t_real, int QB, int offset, float scale, void* stream) {
+  const int W = QB + L * C;
+  const size_t smem = banded_attention_fwd_tc_smem(QB, W, Dh);
+  const int warps = min(kTcWarps, (QB + 15) / 16);
+  const int vec = Dh % 8 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+  cudaError_t err = cudaFuncSetAttribute(banded_attention_fwd_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  banded_attention_fwd_tc_kernel<<<dim3(T1 / QB, H, B), warps * 32, smem,
+                                   (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, lengths, (bf16*)out, lse, T1, H, Dh, C, L,
+      t_real, QB, offset, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

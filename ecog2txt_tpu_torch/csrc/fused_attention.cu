@@ -17,8 +17,14 @@
 // keeping a column strip of the result in registers.  Results are
 // rounded to the stream dtype where the Pallas kernel rounds: the
 // LayerNorm output, each product, cos and sin, and each step of
-// S(x*cos) + S(xr*sin).  q, k and v of the window stay in shared memory
-// as f32 and feed the attention of K2f (attention_common.cuh).
+// S(x*cos) + S(xr*sin).  A thread takes NC head columns of a projection,
+// a template parameter the host picks from the head dim: NC = 1 up to
+// 256 (the common head dims run the same code as before), NC =
+// ceil(Dh / 256) above, so any even head dim up to 512 runs; the query
+// block shrinks until the window fits shared memory (32 rows at head dim
+// 288, 16 at 384; ops/attention_kernels.py::plan_fused_query_rows).
+// q, k and v of the window stay in shared memory as f32 and feed the
+// attention of K2f's CUDA-core body (attention_common.cuh).
 //
 // Bound on the card: at the conformer's shapes the projections dominate
 // (~2*(2*QB + 3*W)*D*Dh operations per block and head, recomputing the
@@ -47,24 +53,33 @@ struct Layer {
 // `w`, rounded to the stream dtype.  With `rot` (the second product of a
 // rotary pair), dst already holds S(lnx . W) and becomes
 // S(S(dst * cos) + S(S(lnx . W@R) * sin)); else dst = S(lnx . W).
-// dst row w - lo, stride Dh + 1.  Thread (ty, col) takes column col and
-// rows ty, ty + RG, ... with RG = kThreads / Dh row groups; a head dim
-// that does not divide kThreads leaves kThreads - RG * Dh threads over
-// (ty >= RG): they stage tiles and reach every barrier but own no result.
-template <typename T>
+// dst row w - lo, stride Dh + 1.  NC is the number of head columns a
+// thread takes: the head's columns form Dc = ceil(Dh / NC) column groups,
+// and thread (ty, col) takes columns col, col + Dc, ... (NC of them, those
+// below Dh) for rows ty, ty + RG, ... with RG = kThreads / Dc row groups.
+// A head dim up to kThreads runs NC = 1, one column a thread; a wider
+// head runs NC = ceil(Dh / kThreads) (the host picks the instantiation),
+// keeping kMaxAcc results a thread in all.  Where Dc does not divide
+// kThreads, kThreads - RG * Dc threads are over (ty >= RG): they stage
+// tiles and reach every barrier but own no result.
+template <typename T, int NC>
 __device__ void project(float* dst, int lo, int hi, bool rot, const T* xb, const float* mu,
                         const float* rs, const float* lng, const float* lnb, const T* w,
                         const float* freq, int h, int base, const Layer& P, float* ltile,
                         float* wtile) {
+  constexpr int kAcc = kMaxAcc / NC;  // results a thread keeps per column and pass
   const int Dh = P.Dh, D = P.H * Dh, PREV = P.L * P.C, stride = Dh + 1;
-  const int RG = kThreads / Dh, ty = threadIdx.x / Dh, col = threadIdx.x % Dh;
-  // rows per pass: at most kMaxAcc results a thread (ceil(PR / RG) <= kMaxAcc)
-  const int PR = min(kPassRows, kMaxAcc * RG), nacc = ty < RG ? (PR + RG - 1) / RG : 0;
+  const int Dc = (Dh + NC - 1) / NC;
+  const int RG = kThreads / Dc, ty = threadIdx.x / Dc, col = threadIdx.x % Dc;
+  // rows per pass: at most kAcc results a thread and column (ceil(PR / RG) <= kAcc)
+  const int PR = min(kPassRows, kAcc * RG), nacc = ty < RG ? (PR + RG - 1) / RG : 0;
   for (int p0 = lo; p0 < hi; p0 += PR) {
     const int prow = min(PR, hi - p0);
-    float acc[kMaxAcc];
+    float acc[NC][kAcc];
 #pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int a = 0; a < kAcc; ++a) acc[c][a] = 0.f;
     for (int d0 = 0; d0 < D; d0 += kTile) {
       const int tk = min(kTile, D - d0);
       __syncthreads();  // the previous tiles are consumed
@@ -85,34 +100,49 @@ __device__ void project(float* dst, int lo, int hi, bool rot, const T* xb, const
       }
       __syncthreads();
       // four contraction columns per step: one 16-byte load of the
-      // LayerNorm row per result element (columns past tk are zeros in
-      // both tiles, so they add exact zeros)
+      // LayerNorm row per result row (columns past tk are zeros in both
+      // tiles, so they add exact zeros)
       for (int kk = 0; kk < tk; kk += 4) {
-        const float w0 = wtile[kk * Dh + col], w1 = wtile[(kk + 1) * Dh + col];
-        const float w2 = wtile[(kk + 2) * Dh + col], w3 = wtile[(kk + 3) * Dh + col];
+        float wv[NC][4];
 #pragma unroll
-        for (int a = 0; a < kMaxAcc; ++a) {
+        for (int c = 0; c < NC; ++c) {
+          const int cc = col + c * Dc;
+          const bool own = NC == 1 || cc < Dh;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) wv[c][j] = own ? wtile[(kk + j) * Dh + cc] : 0.f;
+        }
+#pragma unroll
+        for (int a = 0; a < kAcc; ++a) {
           const int r = ty + a * RG;
           if (a < nacc && r < prow) {
             const float4 l = *reinterpret_cast<const float4*>(ltile + r * kLStride + kk);
-            acc[a] = fmaf(l.w, w3, fmaf(l.z, w2, fmaf(l.y, w1, fmaf(l.x, w0, acc[a]))));
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+              acc[c][a] = fmaf(l.w, wv[c][3],
+                               fmaf(l.z, wv[c][2], fmaf(l.y, wv[c][1], fmaf(l.x, wv[c][0], acc[c][a]))));
           }
         }
       }
     }
 #pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) {
+    for (int a = 0; a < kAcc; ++a) {
       const int r = ty + a * RG;
       if (a < nacc && r < prow) {
         const int wr = p0 + r;
-        float* o = dst + (wr - lo) * stride + col;
-        const float y = rnd<T>(acc[a]);
-        if (rot) {
-          const float ang = __fmul_rn((float)(base - PREV + P.offset + wr), freq[h * Dh + col]);
-          const float cs = rnd<T>(cosf(ang)), sn = rnd<T>(sinf(ang));
-          *o = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(*o, cs)), rnd<T>(__fmul_rn(y, sn))));
-        } else {
-          *o = y;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int cc = col + c * Dc;
+          if (NC > 1 && cc >= Dh) continue;
+          float* o = dst + (wr - lo) * stride + cc;
+          const float y = rnd<T>(acc[c][a]);
+          if (rot) {
+            const float ang =
+                __fmul_rn((float)(base - PREV + P.offset + wr), freq[h * Dh + cc]);
+            const float cs = rnd<T>(cosf(ang)), sn = rnd<T>(sinf(ang));
+            *o = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(*o, cs)), rnd<T>(__fmul_rn(y, sn))));
+          } else {
+            *o = y;
+          }
         }
       }
     }
@@ -120,7 +150,7 @@ __device__ void project(float* dst, int lo, int hi, bool rot, const T* xb, const
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
     fused_attention_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wq,
                                const T* __restrict__ wqr, const T* __restrict__ wk,
@@ -171,11 +201,11 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  project<T>(qsm, PREV, W, false, xb, mu, rs, lng, lnb, wq, freq, h, base, P, ltile, wtile);
-  project<T>(qsm, PREV, W, true, xb, mu, rs, lng, lnb, wqr, freq, h, base, P, ltile, wtile);
-  project<T>(ksm, 0, W, false, xb, mu, rs, lng, lnb, wk, freq, h, base, P, ltile, wtile);
-  project<T>(ksm, 0, W, true, xb, mu, rs, lng, lnb, wkr, freq, h, base, P, ltile, wtile);
-  project<T>(vsm, 0, W, false, xb, mu, rs, lng, lnb, wv, freq, h, base, P, ltile, wtile);
+  project<T, NC>(qsm, PREV, W, false, xb, mu, rs, lng, lnb, wq, freq, h, base, P, ltile, wtile);
+  project<T, NC>(qsm, PREV, W, true, xb, mu, rs, lng, lnb, wqr, freq, h, base, P, ltile, wtile);
+  project<T, NC>(ksm, 0, W, false, xb, mu, rs, lng, lnb, wk, freq, h, base, P, ltile, wtile);
+  project<T, NC>(ksm, 0, W, true, xb, mu, rs, lng, lnb, wkr, freq, h, base, P, ltile, wtile);
+  project<T, NC>(vsm, 0, W, false, xb, mu, rs, lng, lnb, wv, freq, h, base, P, ltile, wtile);
 
   const Band band{P.C, P.L, P.t_real, P.offset, lengths[b]};
   for (int i = warp; i < QB; i += kWarps) {
@@ -196,32 +226,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Shared memory of one block, in bytes; ops/attention_kernels.py::
+// _fused_smem computes the same sum to pick the query block.
 size_t fused_smem(int QB, int W, int Dh) {
   return sizeof(float) * ((size_t)(QB + 2 * W) * (Dh + 1) + 2 * (size_t)W +
                           (size_t)kPassRows * kLStride + (size_t)kTile * Dh +
                           (size_t)kWarps * W);
 }
 
+template <typename T, int NC>
+int launch_fused(const void* x, const void* wq, const void* wqr, const void* wk,
+                 const void* wkr, const void* wv, const float* lng, const float* lnb,
+                 const float* freq, const int* lengths, void* out, void* qs, void* ks,
+                 void* vs, float* lse, dim3 grid, size_t smem, cudaStream_t s, const Layer& P,
+                 int save) {
+  return launch(fused_attention_fwd_kernel<T, NC>, grid, smem, s, (const T*)x, (const T*)wq,
+                (const T*)wqr, (const T*)wk, (const T*)wkr, (const T*)wv, lng, lnb, freq,
+                lengths, (T*)out, (T*)qs, (T*)ks, (T*)vs, lse, P, save);
+}
+
+template <typename T>
+int dispatch_columns(int NC, const void* x, const void* wq, const void* wqr, const void* wk,
+                     const void* wkr, const void* wv, const float* lng, const float* lnb,
+                     const float* freq, const int* lengths, void* out, void* qs, void* ks,
+                     void* vs, float* lse, dim3 grid, size_t smem, cudaStream_t s,
+                     const Layer& P, int save) {
+  switch (NC) {
+    case 1:
+      return launch_fused<T, 1>(x, wq, wqr, wk, wkr, wv, lng, lnb, freq, lengths, out, qs, ks,
+                                vs, lse, grid, smem, s, P, save);
+    case 2:
+      return launch_fused<T, 2>(x, wq, wqr, wk, wkr, wv, lng, lnb, freq, lengths, out, qs, ks,
+                                vs, lse, grid, smem, s, P, save);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// The largest query block QB' <= QB, a multiple of step = L * C, whose K3f
-// block (window QB' + step rows) fits the current device's shared memory.
-int fused_attention_fit_rows(int QB, int step, int Dh) {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-          cudaSuccess) {
-    return QB;
-  }
-  while (QB > step && fused_smem(QB, QB + step, Dh) > static_cast<size_t>(limit)) QB -= step;
-  return QB;
-}
-
 // Launches K3f on `stream` over the grid (T1/QB, H, B) and returns the
 // CUDA error code (0 on success).  bf16 != 0 selects bfloat16 streams.
-// With save == 0, qs, ks, vs and lse may be null.
+// With save == 0, qs, ks, vs and lse may be null.  The projections take
+// NC = ceil(Dh / kThreads) head columns a thread: 1 up to a head dim of
+// 256, 2 up to 512 (wider heads do not fit shared memory anyway).
 int fused_attention_fwd(const void* x, const void* wq, const void* wqr, const void* wk,
                         const void* wkr, const void* wv, const float* lng, const float* lnb,
                         const float* freq, const int* lengths, void* out, void* qs, void* ks,
@@ -232,17 +282,14 @@ int fused_attention_fwd(const void* x, const void* wq, const void* wqr, const vo
   const dim3 grid(T1 / QB, H, B);
   const size_t smem = fused_smem(QB, W, Dh);
   const Layer P{T1, H, Dh, C, L, t_real, QB, offset, scale, eps};
+  const int NC = (Dh + kThreads - 1) / kThreads;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    using T = __nv_bfloat16;
-    return launch(fused_attention_fwd_kernel<T>, grid, smem, s, (const T*)x, (const T*)wq,
-                  (const T*)wqr, (const T*)wk, (const T*)wkr, (const T*)wv, lng, lnb, freq,
-                  lengths, (T*)out, (T*)qs, (T*)ks, (T*)vs, lse, P, save);
+    return dispatch_columns<__nv_bfloat16>(NC, x, wq, wqr, wk, wkr, wv, lng, lnb, freq, lengths,
+                                           out, qs, ks, vs, lse, grid, smem, s, P, save);
   }
-  using T = float;
-  return launch(fused_attention_fwd_kernel<T>, grid, smem, s, (const T*)x, (const T*)wq,
-                (const T*)wqr, (const T*)wk, (const T*)wkr, (const T*)wv, lng, lnb, freq,
-                lengths, (T*)out, (T*)qs, (T*)ks, (T*)vs, lse, P, save);
+  return dispatch_columns<float>(NC, x, wq, wqr, wk, wkr, wv, lng, lnb, freq, lengths, out, qs,
+                                 ks, vs, lse, grid, smem, s, P, save);
 }
 
 }  // extern "C"

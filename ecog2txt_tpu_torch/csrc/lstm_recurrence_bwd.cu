@@ -50,8 +50,16 @@
 // the first product, S(dgates) before the second), so at f32 the kernel
 // differs from the plain version by summation order only.  As in K1f,
 // every block re-reads wh and whT from L2 every step, which makes L2
-// bandwidth the limit at large B; keeping wh in distributed shared
-// memory of a thread-block cluster and using wgmma is later work.
+// bandwidth the limit at large B.
+//
+// This is the "rows" body.  bf16 streams at widths whose slice of wh
+// fits a thread-block cluster run the "cluster" body instead
+// (lstm_bwd_cluster.cu: wh resident in shared memory across the cluster,
+// only the dh chain serial, both products on the tensor cores); the
+// wrapper picks the body before the launch (ops/lstm_kernels.py::
+// plan_bwd_body).  This body stays for f32 streams (the tensor cores have
+// no f32 product, and TF32 would break the f32 tolerance) and for wider
+// layers, and its bwd_rows is also K4b's body (bilstm_grid.cu).
 //
 // Plain C interface, loaded with ctypes; the launch goes on the caller's
 // stream and the function returns cudaGetLastError().

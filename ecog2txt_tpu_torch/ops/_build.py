@@ -82,3 +82,16 @@ def build_all() -> list[str]:
     with ThreadPoolExecutor(max(len(names), 1)) as pool:
         list(pool.map(load_library, names))
     return names
+
+
+@functools.cache
+def device_smem_optin(index: int) -> int:
+    """The shared memory (bytes) one block may opt in to on CUDA device
+    ``index`` (227 KB on an H100); raises when the runtime cannot say."""
+    fn = load_library("device_info").device_smem_optin
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    limit = int(fn(index))
+    if limit <= 0:
+        raise RuntimeError(f"cannot read the shared memory limit of CUDA device {index}")
+    return limit

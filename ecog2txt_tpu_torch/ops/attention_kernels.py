@@ -21,7 +21,8 @@ The port of ``ecog2txt_tpu/ops/pallas_attention.py``:
   optionally it saves q, k, v and the LSE for the backward.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/
-banded_attention.cu``, ``csrc/fused_attention.cu``) or raises; on a CPU
+banded_attention.cu``, ``csrc/banded_attention_tc.cu`` for bf16 K2f,
+``csrc/fused_attention.cu``) or raises; on a CPU
 tensor it runs its plain version (``*_reference``), which computes what
 the kernel computes at the same rounding points.  ``<wrapper>.launches``
 counts kernel launches.  Tensors are ``(B, T1, D)`` with ``D = H·Dh``
@@ -40,13 +41,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ._build import load_library
+from ._build import device_smem_optin, load_library
 
 _NEG = -1e30  # finite mask fill: -inf would make (-inf) - (-inf) = NaN
 _INT32_MAX = int(np.iinfo(np.int32).max)
 _LN_EPS = 1e-6
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
-_THREADS = 256  # threads per block of every attention kernel (8 warps)
+_THREADS = 256  # threads per block of the CUDA-core attention kernels (8 warps)
+_FUSED_MAX_HEAD_DIM = 2 * _THREADS  # K3f's projections take 1 or 2 head columns a thread
 
 
 def _pick_query_rows(C: int, L: int, query_rows: int | None) -> int:
@@ -136,6 +138,90 @@ def _lengths_or_max(lengths, B: int, device) -> torch.Tensor:
     if lengths is None:
         return torch.full((B,), _INT32_MAX, dtype=torch.int32, device=device)
     return lengths.to(device=device, dtype=torch.int32).reshape(B).contiguous()
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _k2f_tc_smem(QB: int, W: int, Dh: int) -> int:
+    """Shared memory (bytes) of one block of K2f's tensor-core body: Q,
+    and K and V of the window, in bf16, rows and head dim padded to 16 and
+    rows strided by ``Dhp + 8``; the keys' chunk ids, the window's uniform
+    average and a flag (``csrc/banded_attention_tc.cu``)."""
+    Dhp, Wp = _r16(Dh), _r16(W)
+    return 2 * (_r16(QB) + 2 * Wp) * (Dhp + 8) + 4 * Wp + 4 * Dhp + 16
+
+
+def plan_k2f_body(dtype: torch.dtype, QB: int, W: int, Dh: int, smem_limit: int) -> str:
+    """K2f's body, chosen up front: ``"tensor_core"`` for bf16 streams
+    whose block fits ``smem_limit`` bytes of shared memory (every shape the
+    conformer paths use), else ``"cuda_core"`` (f32 streams: the tensor
+    cores have no f32 product)."""
+    if dtype == torch.bfloat16 and _k2f_tc_smem(QB, W, Dh) <= smem_limit:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _cuda_core_smem(kernel: str, W: int, Dh: int) -> int:
+    """Shared memory (bytes) of one block of the CUDA-core bodies of
+    ``csrc/banded_attention.cu`` (``fwd_smem``, ``dq_smem``,
+    ``dkv_smem``): the window's two staged operands in f32 at row stride
+    ``Dh + 1`` and per-warp rows."""
+    warps = _THREADS // 32
+    staged = 2 * W * (Dh + 1)
+    per_warp = {"K2f": Dh + W, "K2b-dq": 2 * Dh + W, "K2b-dkv": 2 * Dh + 2 * W}[kernel]
+    return 4 * (staged + (2 * W if kernel == "K2b-dkv" else 0) + warps * per_warp)
+
+
+def _check_cuda_core_fits(kernel: str, QB: int, W: int, Dh: int, device) -> None:
+    """Refuse, naming the shape, a CUDA-core block that does not fit the
+    card's shared memory (no number computed, no fallback)."""
+    need, limit = _cuda_core_smem(kernel, W, Dh), _smem_limit(device)
+    if need > limit:
+        raise ValueError(
+            f"{kernel}: a block of {QB} query rows (window {W}) at head dim {Dh} needs "
+            f"{need} bytes of shared memory in the CUDA-core body, {limit} available"
+        )
+
+
+def _fused_smem(QB: int, W: int, Dh: int) -> int:
+    """Shared memory (bytes) of one K3f block (``csrc/fused_attention.cu::
+    fused_smem``): q, k, v of the window in f32, LayerNorm statistics, the
+    streamed LayerNorm and weight tiles, per-warp score rows."""
+    pass_rows, l_stride, tile, warps = 192, 36, 32, _THREADS // 32
+    return 4 * ((QB + 2 * W) * (Dh + 1) + 2 * W + pass_rows * l_stride + tile * Dh + warps * W)
+
+
+def plan_fused_query_rows(QB: int, C: int, L: int, Dh: int, smem_limit: int) -> int:
+    """K3f's query block on the card: the largest multiple of ``L·C`` up to
+    ``QB`` whose block fits ``smem_limit`` bytes (the window rows are staged
+    for q, k and v: a head dim above ~110 does not fit ~128 rows).  The
+    query block tiles the work only; each row sees the same keys whatever
+    it is.  Raises ``ValueError`` where not even ``L·C`` rows fit, or the
+    head dim is above what the kernel's projections take."""
+    step = L * C
+    if Dh > _FUSED_MAX_HEAD_DIM:
+        raise ValueError(
+            f"fused attention: head dim {Dh} is above the kernel's {_FUSED_MAX_HEAD_DIM} "
+            "(use attention_impl='flash')"
+        )
+    rows = QB
+    while rows > step and _fused_smem(rows, rows + step, Dh) > smem_limit:
+        rows -= step
+    if _fused_smem(rows, rows + step, Dh) > smem_limit:
+        raise ValueError(
+            f"fused attention: no query block fits {smem_limit} bytes of shared memory "
+            f"at head dim {Dh}, chunk {C}, left context {L} (one block of {step} rows "
+            f"needs {_fused_smem(step, 2 * step, Dh)}; use attention_impl='flash')"
+        )
+    return rows
+
+
+def _smem_limit(device) -> int:
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return device_smem_optin(index)
 
 
 # --------------------------------------------------------------------------
@@ -365,6 +451,25 @@ def _ptr(a):
     return None if a is None else a.data_ptr()
 
 
+def _launch_k2f(body, q, k, v, offset, lengths, C, L, t_real, QB, H):
+    """One K2f launch of ``body`` ("tensor_core": bf16 only, or
+    "cuda_core"); checked inputs, no count."""
+    B, T1, D = q.shape
+    Dh = D // H
+    out = torch.empty_like(q)
+    lse = torch.empty((B, T1, H), dtype=torch.float32, device=q.device)
+    what = f"B={B} T1={T1} D={D} H={H} QB={QB} {q.dtype} {body} body"
+    ptrs = [_ptr(a) for a in (q, k, v, lengths, out, lse)]
+    if body == "tensor_core":
+        _call("banded_attention_tc", "banded_attention_fwd_tc", 6, 9, ptrs,
+              [B, T1, H, Dh, C, L, t_real, QB, offset], [_scale(Dh)], q.device, what)
+    else:
+        _call("banded_attention", "banded_attention_fwd", 6, 10, ptrs,
+              [B, T1, H, Dh, C, L, t_real, QB, offset, int(q.dtype == torch.bfloat16)],
+              [_scale(Dh)], q.device, what)
+    return out, lse
+
+
 def banded_attention_fwd(q, k, v, offset, lengths, C, L, t_real, QB, H):
     """``(out, lse)`` of the chunk-causal attention (K2f) — see
     :func:`banded_attention_fwd_reference` for the semantics.  ``offset``
@@ -372,28 +477,28 @@ def banded_attention_fwd(q, k, v, offset, lengths, C, L, t_real, QB, H):
     lengths (INT32_MAX for no limit).
 
     On a CUDA tensor this launches the Hopper kernel (and raises if it
-    cannot be built or launched); on a CPU tensor it runs the plain
-    version."""
+    cannot be built or launched): the tensor-core body
+    (``csrc/banded_attention_tc.cu``) for bf16, the CUDA-core body
+    (``csrc/banded_attention.cu``) for f32, as :func:`plan_k2f_body`
+    picks; ``banded_attention_fwd.launches_by_body`` counts each.  On a
+    CPU tensor it runs the plain version."""
     offset = int(offset)
     _check("banded_attention_fwd", (q, k, v), H, QB, C, L, t_real, lengths)
     if q.device.type == "cpu":
         return banded_attention_fwd_reference(
             q, k, v, offset, lengths, C, L, t_real, QB, H
         )
-    B, T1, D = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((B, T1, H), dtype=torch.float32, device=q.device)
-    _call(
-        "banded_attention", "banded_attention_fwd", 6, 10,
-        [_ptr(a) for a in (q, k, v, lengths, out, lse)],
-        [B, T1, H, D // H, C, L, t_real, QB, offset, int(q.dtype == torch.bfloat16)],
-        [_scale(D // H)], q.device, f"B={B} T1={T1} D={D} H={H} QB={QB} {q.dtype}",
-    )
+    body = plan_k2f_body(q.dtype, QB, QB + L * C, q.shape[2] // H, _smem_limit(q.device))
+    if body == "cuda_core":
+        _check_cuda_core_fits("K2f", QB, QB + L * C, q.shape[2] // H, q.device)
+    out, lse = _launch_k2f(body, q, k, v, offset, lengths, C, L, t_real, QB, H)
     banded_attention_fwd.launches += 1
+    banded_attention_fwd.launches_by_body[body] += 1
     return out, lse
 
 
 banded_attention_fwd.launches = 0
+banded_attention_fwd.launches_by_body = {"tensor_core": 0, "cuda_core": 0}
 
 
 def banded_attention_dq(q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H):
@@ -408,6 +513,7 @@ def banded_attention_dq(q, k, v, g, lse, delta, offset, lengths, C, L, t_real, Q
         return banded_attention_dq_reference(
             q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H
         )
+    _check_cuda_core_fits("K2b-dq", QB, QB + L * C, D // H, q.device)
     dq = torch.empty_like(q)
     _call(
         "banded_attention", "banded_attention_dq", 8, 10,
@@ -435,6 +541,7 @@ def banded_attention_dkv(q, k, v, g, lse, delta, offset, lengths, C, L, t_real, 
         return banded_attention_dkv_reference(
             q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H
         )
+    _check_cuda_core_fits("K2b-dkv", QB, QB + L * C, D // H, q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _call(
@@ -477,11 +584,13 @@ def fused_attention_fwd(x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, s
         return fused_attention_fwd_reference(
             x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, save
         )
-    if Dh > _THREADS:
-        # the kernel's projections give each thread at most one head column
+    limit = _smem_limit(x.device)
+    if Dh > _FUSED_MAX_HEAD_DIM or _fused_smem(QB, QB + L * C, Dh) > limit:
         raise ValueError(
-            f"fused_attention_fwd: the kernel takes a head dim up to {_THREADS}; "
-            f"got {Dh} (use attention_impl='flash')"
+            f"fused_attention_fwd: a query block of {QB} rows at head dim {Dh} does not "
+            f"fit the kernel ({_fused_smem(QB, QB + L * C, Dh)} bytes of shared memory, "
+            f"{limit} available; head dims up to {_FUSED_MAX_HEAD_DIM}); "
+            "fused_attention_layer picks a query block that fits"
         )
     freq = _rope_freq_tensor(H, D, x.device)
     out = torch.empty_like(x)
@@ -632,16 +741,8 @@ class FusedAttentionLayer(torch.autograd.Function):
 
 
 def _fit_query_rows(QB: int, C: int, L: int, Dh: int, device) -> int:
-    """K3f's query block on the card: the largest multiple of ``L·C`` up to
-    ``QB`` whose block fits the card's shared memory (its window rows are
-    staged for q, k and v: a head dim above ~110 does not fit at ~128
-    rows).  The query block tiles the work only; each row sees the same
-    keys whatever it is."""
-    fn = load_library("fused_attention").fused_attention_fit_rows
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        return int(fn(QB, L * C, Dh))
+    """:func:`plan_fused_query_rows` against the shared memory of ``device``."""
+    return plan_fused_query_rows(QB, C, L, Dh, _smem_limit(device))
 
 
 def fused_attention_layer(

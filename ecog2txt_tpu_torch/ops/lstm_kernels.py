@@ -4,9 +4,10 @@ plain PyTorch versions and the autograd Functions.
 
 ``lstm_recurrence`` is the port of ``ecog2txt_tpu/ops/pallas_lstm.py::
 _fwd_call`` and ``lstm_recurrence_bwd`` of ``_bwd_call``.  On a CUDA
-tensor each launches its kernel (``csrc/lstm_recurrence.cu``,
-``csrc/lstm_recurrence_bwd.cu``; one launch for the whole sequence) or
-raises; on a CPU tensor each runs its plain version
+tensor each launches its kernel (``csrc/lstm_recurrence.cu``; for the
+adjoint ``csrc/lstm_bwd_cluster.cu`` at bf16 where a cluster holds
+``wh``, else ``csrc/lstm_recurrence_bwd.cu``, as :func:`plan_bwd_body`
+picks; one launch for the whole sequence) or raises; on a CPU tensor each runs its plain version
 (:func:`lstm_recurrence_reference`, :func:`lstm_recurrence_bwd_reference`),
 a step loop with the same rounding points.  ``<wrapper>.launches`` counts
 kernel launches.  :func:`fused_lstm_recurrence` is the differentiable
@@ -27,7 +28,7 @@ import ctypes
 
 import torch
 
-from ._build import load_library
+from ._build import device_smem_optin, load_library
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _ROWS_PER_BLOCK = (1, 2, 4, 8)
@@ -109,20 +110,32 @@ def _check(xw, wh, lengths, h0, c0, mask, names=("h0", "c0", "mask")):
         raise ValueError("lstm_recurrence inputs must be contiguous")
 
 
-def _rows_per_block(
-    B: int, H: int, device: torch.device, directions: int = 1, waves: int = 1
-) -> int:
+def _rows_for(B: int, H: int, sms: int, directions: int = 1, waves: int = 1) -> int:
     """Batch rows per block: the fewest that keep the grid (``directions``
-    chains of ``ceil(B / rows)`` blocks) within ``waves`` waves of SMs
-    (more rows per block means fewer re-reads of ``wh``, but more work
+    chains of ``ceil(B / rows)`` blocks) within ``waves`` waves of ``sms``
+    SMs (more rows per block means fewer re-reads of ``wh``, but more work
     per thread on the serial chain).  K1f takes two waves: on the H100 its
     one-row blocks beat two-row blocks at B=256 (PERF.md, section 6)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     cap = 8 if H <= 512 else 2
     for rows in _ROWS_PER_BLOCK:
         if rows >= cap or directions * -(-B // rows) <= waves * sms:
             return rows
     return cap
+
+
+def _device_limits(device: torch.device) -> tuple[int, int]:
+    """``(SMs, per-block shared memory opt-in in bytes)`` of a CUDA device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms, device_smem_optin(index)
+
+
+def _rows_per_block(
+    B: int, H: int, device: torch.device, directions: int = 1, waves: int = 1
+) -> int:
+    """:func:`_rows_for` on the SMs of ``device``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _rows_for(B, H, sms, directions, waves)
 
 
 def _launch(xw, wh, lengths, h0, c0, mask, reverse_time, return_c_seq, rows):
@@ -292,7 +305,82 @@ def _launch_bwd(xw, wh, hprev, cprev, cseq, lengths, mask, dhseq, dhT, dcT,
             f"lstm_recurrence_bwd launch failed with CUDA error {err} "
             f"(T={T}, B={B}, H={H}, rows={rows}, {xw.dtype})"
         )
-    lstm_recurrence_bwd.launches += 1
+    return dgates, dh0, dc0
+
+
+_CLUSTER_SIZES = (1, 2, 4, 8)  # CTAs a cluster of the bf16 K1b body (8: the portable maximum)
+_CLUSTER_ROWS = 16  # batch rows a cluster owns: one tensor-core tile (M)
+_CLUSTER_MAX_GATE_COLS = 256  # 4 * units a CTA: one gate n8-tile pair a warp, 16 warps
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _cluster_units(H: int, cs: int) -> int:
+    """Hidden units a CTA owns: ``ceil(H / cs)`` rounded up to a multiple of
+    4, so a 16-byte push of partials lands in one CTA (the last CTA of a
+    cluster may own fewer)."""
+    per_cta = -(-H // cs)
+    return -(-per_cta // 4) * 4
+
+
+def _cluster_smem(H: int, cs: int) -> int:
+    """Shared memory (bytes) of one CTA of the cluster body at width ``H``
+    and ``cs`` CTAs a cluster: the f32 partials pushed to it (cs × 16 ×
+    Uc), the resident weight slice (Hp × 4Uc), the step's ``S(hprev·mask)``
+    rows, the dgates slice and the step's seven inputs of its (row, unit)
+    pairs (16 × 7 × Uc), rows padded as ``csrc/lstm_bwd_cluster.cu::Dims``."""
+    R, Hp, Uc = _CLUSTER_ROWS, _r16(H), _cluster_units(H, cs)
+    SW, SH = _r16(4 * Uc) + 8, Hp + 8
+    return cs * R * Uc * 4 + Hp * SW * 2 + R * SH * 2 + R * SW * 2 + R * 7 * Uc * 2
+
+
+def plan_bwd_body(dtype: torch.dtype, B: int, H: int, sms: int, smem_limit: int) -> dict:
+    """Which K1b body runs, chosen up front from the dtype and the shape:
+    ``{"body": "cluster", "cluster_size": cs, "rows_per_cluster": 16,
+    "clusters": n, "smem": bytes}`` for bf16 where a cluster of ``cs`` in
+    (1, 2, 4, 8) CTAs holds ``wh`` (the fewest CTAs whose slice of at most
+    256 gate columns fits ``smem_limit``; 8 at H=400, 1 at H=64), else
+    ``{"body": "rows", "rows_per_block": r}``, the CUDA-core body (f32: the
+    tensor cores have no f32 product; H whose slice fits no cluster,
+    ~H > 420).  ``sms`` and ``smem_limit`` are the card's SM count and
+    per-block shared-memory opt-in, passed in so the plan runs without a
+    card."""
+    if dtype == torch.bfloat16:
+        for cs in _CLUSTER_SIZES:
+            smem = _cluster_smem(H, cs)
+            if 4 * _cluster_units(H, cs) <= _CLUSTER_MAX_GATE_COLS and smem <= smem_limit:
+                return {"body": "cluster", "cluster_size": cs,
+                        "rows_per_cluster": _CLUSTER_ROWS,
+                        "clusters": -(-B // _CLUSTER_ROWS), "smem": smem}
+    return {"body": "rows", "rows_per_block": _rows_for(B, H, sms)}
+
+
+def _launch_bwd_cluster(xw, wh, hprev, cprev, cseq, lengths, mask, dhseq,
+                        dhT, dcT, reverse_time, cs):
+    T, B, G = xw.shape
+    H = G // 4
+    fn = load_library("lstm_bwd_cluster").lstm_recurrence_bwd_cluster
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dgates = torch.empty_like(xw)
+    dh0 = torch.empty((B, H), dtype=torch.float32, device=xw.device)
+    dc0 = torch.empty_like(dh0)
+    with torch.cuda.device(xw.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            xw.data_ptr(), wh.data_ptr(), hprev.data_ptr(), cprev.data_ptr(),
+            cseq.data_ptr(), lengths.data_ptr(), mask.data_ptr(),
+            dhseq.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+            dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            T, B, H, int(reverse_time), cs, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"lstm_recurrence_bwd_cluster launch failed with CUDA error {err} "
+            f"(T={T}, B={B}, H={H}, cluster size {cs})"
+        )
     return dgates, dh0, dc0
 
 
@@ -313,7 +401,11 @@ def lstm_recurrence_bwd(
     see :func:`lstm_recurrence_bwd_reference` for the semantics.
 
     On a CUDA tensor this launches the Hopper kernel (and raises if it
-    cannot be built or launched); on a CPU tensor it runs the reference.
+    cannot be built or launched): the cluster body
+    (``csrc/lstm_bwd_cluster.cu``) where :func:`plan_bwd_body` picks it,
+    else the rows body (``csrc/lstm_recurrence_bwd.cu``);
+    ``lstm_recurrence_bwd.launches_by_body`` counts each.  On a CPU tensor
+    it runs the reference.
     """
     args = (xw, wh, hprev, cprev, cseq, lengths, mask, dhseq, dhT, dcT)
     _check_bwd(*args)
@@ -324,12 +416,18 @@ def lstm_recurrence_bwd(
             f"lstm_recurrence_bwd runs on cuda or cpu, not {xw.device}"
         )
     B, H = dhT.shape
-    return _launch_bwd(
-        *args, reverse_time, _rows_per_block(B, H, xw.device)
-    )
+    plan = plan_bwd_body(xw.dtype, B, H, *_device_limits(xw.device))
+    if plan["body"] == "cluster":
+        out = _launch_bwd_cluster(*args, reverse_time, plan["cluster_size"])
+    else:
+        out = _launch_bwd(*args, reverse_time, plan["rows_per_block"])
+    lstm_recurrence_bwd.launches += 1
+    lstm_recurrence_bwd.launches_by_body[plan["body"]] += 1
+    return out
 
 
 lstm_recurrence_bwd.launches = 0
+lstm_recurrence_bwd.launches_by_body = {"cluster": 0, "rows": 0}
 
 
 # --------------------------------------------------------------------------

@@ -27,12 +27,14 @@ TOL = {
 # (B, T, H, Dh, C, L, query_rows, offset, dtype): multi-block with a
 # trailing pad and L=2 (K2b-dkv's next-block rows past T1), negative and
 # positive chunk-aligned offsets, QB != 128, a head dim (48) that does
-# not divide 256
+# not divide 256, and one (288) above 256, where the kernel's projections
+# take two head columns a thread
 CASES = [
     (2, 72, 2, 8, 8, 1, 16, 0, "float32"),
     (2, 100, 2, 16, 8, 2, 32, -16, "float32"),
     (2, 40, 2, 8, 8, 1, None, 16, "bfloat16"),
     (2, 40, 2, 48, 8, 1, 16, 0, "float32"),
+    (2, 40, 1, 288, 8, 1, 16, 0, "float32"),
 ]
 
 

@@ -286,19 +286,38 @@ def test_banded_kernels_take_a_head_dim_that_does_not_divide_256(dtype, Dh):
 
 
 @pytest.mark.gpu
-def test_fused_kernel_refuses_a_head_dim_above_256():
-    """K3f gives each thread at most one head column in its projections:
-    on the card it refuses a head dim above 256 (no number computed, no
-    fallback), where the JAX layer takes any even head dim (ROADMAP,
-    Queue 3)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [288, 384])
+def test_fused_kernel_matches_plain_version_above_head_dim_256(dtype, Dh):
+    """K3f at a head dim above 256 (one head: model width 288 or 384):
+    its projections take two head columns a thread, at the largest query
+    block that fits shared memory, and it matches its plain version."""
     _need_cuda()
     from ecog2txt_tpu_torch.ops import attention_kernels as ak
 
-    (_, _, _, _, x), xw, (ln_g, ln_b), _, args = _attention_inputs(torch.float32, H=1, Dh=288)
+    C, L = 16, 1
+    QB = ak._fit_query_rows(128, C, L, Dh, torch.device("cuda"))
+    g = torch.Generator().manual_seed(Dh)
+    B, T = 2, 100
+    T1 = -(-T // QB) * QB
+    x = torch.randn((B, T1, Dh), generator=g).to(dtype).cuda()
+    xw = ak._split_rot_weights((torch.randn((Dh, 3 * Dh), generator=g) / Dh ** 0.5).cuda(),
+                               1, dtype)
+    ln_g, ln_b = (1 + 0.1 * torch.randn((Dh,), generator=g)).cuda(), torch.zeros(Dh).cuda()
+    lengths = torch.tensor([T, 61], dtype=torch.int32).cuda()
+    valid = (torch.arange(T1).cuda()[None] < lengths[:, None])[..., None]
+    args = (0, lengths, C, L, T, QB, 1)
     before = ak.fused_attention_fwd.launches
-    with pytest.raises(ValueError, match="up to 256"):
-        ak.fused_attention_fwd(x, xw, ln_g, ln_b, *args, False)
-    assert ak.fused_attention_fwd.launches == before
+    got = ak.fused_attention_fwd(x, xw, ln_g, ln_b, *args, True)
+    torch.cuda.synchronize()
+    assert ak.fused_attention_fwd.launches == before + 1
+    want = ak.fused_attention_fwd_reference(x, xw, ln_g, ln_b, *args, True)
+    rows = lambda a: torch.where(valid, a.float(), 0.0)  # noqa: E731
+    for name, a, w in zip(("out", "q", "k", "v", "lse"), got, want):
+        if name in ("out", "lse"):
+            a, w = rows(a), rows(w)
+        tol = TOL[torch.float32] if name == "lse" and dtype == torch.float32 else TOL[dtype]
+        torch.testing.assert_close(a.float(), w.float(), **tol, msg=name)
 
 
 @pytest.mark.gpu
@@ -431,6 +450,190 @@ def test_conformer_training_step_launches_the_kernels(impl):
     fwd = "K2f" if impl == "flash" else "K3f"
     want = {k: 2 if k in (fwd, "dq", "dkv") else 0 for k in wrappers}
     assert {k: w.launches - before[k] for k, w in wrappers.items()} == want
+
+
+# --------------------------------------------------------------------------
+# the redesigned bodies: K2f on the tensor cores, K1b on a cluster
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "Dh, C, L, QB, offset",
+    [(16, 4, 1, 128, 0), (48, 8, 2, 32, -16), (96, 8, 1, 40, 0),
+     (64, 16, 1, 48, -64), (64, 16, 1, 48, 256)],
+)
+def test_k2f_tensor_core_body_matches_plain_version(Dh, C, L, QB, offset):
+    """The bf16 body of K2f at padded shapes (head dims 16, 48 and 96; query
+    blocks of 32, 40 and 48 rows; offsets -64 and 256), ragged lengths:
+    every row, including rows with no valid key (before the sequence at
+    offset -64, past its end), matches the plain version, out within the
+    bf16 tolerance and lse within f32's."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    H, B, T = 2, 3, 100
+    T1 = -(-T // QB) * QB
+    g = torch.Generator().manual_seed(Dh + QB)
+    q, k, v = (torch.randn((B, T1, H * Dh), generator=g).bfloat16().cuda() for _ in range(3))
+    lengths = torch.tensor([T + offset, T + offset - 13, offset + 3], dtype=torch.int32).cuda()
+    args = (offset, lengths, C, L, T, QB, H)
+    before = dict(ak.banded_attention_fwd.launches_by_body)
+    out, lse = ak.banded_attention_fwd(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert ak.banded_attention_fwd.launches_by_body["tensor_core"] == before["tensor_core"] + 1
+    r_out, r_lse = ak.banded_attention_fwd_reference(q, k, v, *args)
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(out.float(), r_out.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, r_lse, **TOL[torch.float32])
+
+
+def _cluster_case(B, H, T, reverse_time, seed):
+    """K1b inputs from a real forward pass (the plain recurrence), ragged
+    lengths with a zero, a 0/2 mask, nonzero upstream gradients, bf16."""
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    xw = rand(T, B, 4 * H).bfloat16().cuda()
+    wh = (rand(H, 4 * H) / H ** 0.5).bfloat16().cuda()
+    lengths = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    lengths[0] = T if B == 1 else 0
+    lengths = lengths.cuda()
+    mask = ((torch.rand((B, H), generator=g) < 0.5).float() * 2.0).cuda()
+    zeros = torch.zeros((B, H), device="cuda")
+    h_seq, c_seq, _, _ = lstm_kernels.lstm_recurrence_reference(
+        xw, wh, lengths, zeros, zeros, mask, reverse_time, return_c_seq=True)
+    hprev = lstm_kernels._shifted(h_seq, zeros, reverse_time)
+    cprev = lstm_kernels._shifted(c_seq, zeros, reverse_time)
+    return (xw, wh, hprev, cprev, c_seq, lengths, mask, rand(T, B, H).bfloat16().cuda(),
+            rand(B, H).cuda(), rand(B, H).cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse_time", [False, True])
+@pytest.mark.parametrize("H", [64, 100, 400])
+@pytest.mark.parametrize("B", [1, 17, 256])
+def test_k1b_cluster_body_matches_plain_version(B, H, reverse_time):
+    """The bf16 body of K1b (a cluster of CTAs holding wh in shared memory)
+    against its plain version, padded B (1, 17) and H (100), both time
+    directions; two launches on the same inputs are bit-identical (the
+    partials are summed in a fixed rank order, no atomics)."""
+    _need_cuda()
+    args = _cluster_case(B, H, 24, reverse_time, seed=B * 1000 + H)
+    before = dict(lstm_kernels.lstm_recurrence_bwd.launches_by_body)
+    got = lstm_kernels.lstm_recurrence_bwd(*args, reverse_time=reverse_time)
+    again = lstm_kernels.lstm_recurrence_bwd(*args, reverse_time=reverse_time)
+    torch.cuda.synchronize()
+    assert lstm_kernels.lstm_recurrence_bwd.launches_by_body["cluster"] == before["cluster"] + 2
+    want = lstm_kernels.lstm_recurrence_bwd_reference(*args, reverse_time=reverse_time)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse_time", [False, True])
+@pytest.mark.parametrize("H, cs", [(400, 8), (100, 2), (100, 4), (64, 1), (64, 2)])
+def test_k1b_cluster_sizes_match_plain_version(H, cs, reverse_time):
+    """The cluster body at cluster sizes the planner may pick, and at more
+    CTAs than it picks (100 at 4, 64 at 2), at B=40 (the last cluster
+    padded), against the plain version; bit-identical on repeat."""
+    _need_cuda()
+    args = _cluster_case(40, H, 24, reverse_time, seed=H + cs)
+    got = lstm_kernels._launch_bwd_cluster(*args, reverse_time, cs)
+    again = lstm_kernels._launch_bwd_cluster(*args, reverse_time, cs)
+    torch.cuda.synchronize()
+    want = lstm_kernels.lstm_recurrence_bwd_reference(*args, reverse_time=reverse_time)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_banded_kernels_refuse_a_block_beyond_shared_memory():
+    """At head dim 256 (one head) the CUDA-core bodies' f32 window does not
+    fit shared memory: f32 K2f, and K2b-dq and K2b-dkv in either dtype,
+    refuse with ValueError (no number, no launch), where JAX's banded
+    attention takes any head dim (ROADMAP, Queue 3).  bf16 K2f runs its
+    tensor-core body there and matches its plain version."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    B, T, Dh, C, L = 2, 40, 256, 16, 1
+    QB = ak._pick_query_rows(C, L, None)
+    g = torch.Generator().manual_seed(9)
+    lengths = torch.tensor([T, 29], dtype=torch.int32).cuda()
+    args = (0, lengths, C, L, T, QB, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, gout = (torch.randn((B, QB, Dh), generator=g).to(dtype).cuda() for _ in range(4))
+        counts = [w.launches for w in (ak.banded_attention_fwd, ak.banded_attention_dq,
+                                       ak.banded_attention_dkv)]
+        r_out, r_lse = ak.banded_attention_fwd_reference(q, k, v, *args)
+        if dtype == torch.float32:
+            with pytest.raises(ValueError, match="shared memory"):
+                ak.banded_attention_fwd(q, k, v, *args)
+        else:
+            out, _ = ak.banded_attention_fwd(q, k, v, *args)
+            torch.testing.assert_close(out.float(), r_out.float(), **TOL[dtype])
+            counts[0] += 1
+        bwd = (q, k, v, gout, r_lse, ak._delta(gout, r_out, 1), *args)
+        with pytest.raises(ValueError, match="shared memory"):
+            ak.banded_attention_dq(*bwd)
+        with pytest.raises(ValueError, match="shared memory"):
+            ak.banded_attention_dkv(*bwd)
+        assert [w.launches for w in (ak.banded_attention_fwd, ak.banded_attention_dq,
+                                     ak.banded_attention_dkv)] == counts
+
+
+@pytest.mark.gpu
+def test_planners_agree_with_the_kernels_shared_memory():
+    """The Python planners' shared-memory sums equal the CUDA sources'."""
+    _need_cuda()
+    import ctypes
+
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    tc = _build.load_library("banded_attention_tc").banded_attention_fwd_tc_smem
+    tc.argtypes, tc.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for QB, W, Dh in ((128, 144, 64), (40, 48, 20), (32, 64, 96)):
+        assert tc(QB, W, Dh) == ak._k2f_tc_smem(QB, W, Dh)
+    cl = _build.load_library("lstm_bwd_cluster").lstm_recurrence_bwd_cluster_smem
+    cl.argtypes, cl.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    for H, cs in ((400, 8), (100, 2), (64, 1), (17, 4)):
+        assert cl(H, cs) == lstm_kernels._cluster_smem(H, cs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_main_paths_select_the_body_by_dtype(dtype):
+    """A biLSTM training step and a flash conformer call: bf16 launches
+    the cluster K1b and the tensor-core K2f, f32 the rows K1b and the
+    CUDA-core K2f, every launch counted once in ``launches_by_body``."""
+    _need_cuda()
+    import numpy as np
+
+    from ecog2txt_tpu_torch.models.conformer import ConformerConfig, conformer_encode, init_conformer
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    bf16 = dtype == torch.bfloat16
+    K1b, K2f = lstm_kernels.lstm_recurrence_bwd, ak.banded_attention_fwd
+    b0, f0 = dict(K1b.launches_by_body), dict(K2f.launches_by_body)
+    xw, wh, lengths, h0, c0, mask = _inputs(dtype, False)
+    leaves = [xw.clone().requires_grad_(), wh.float().clone().requires_grad_()]
+    out, _, _ = lstm_kernels.fused_lstm_recurrence(leaves[0], leaves[1], lengths, h0, c0, mask)
+    out.float().sum().backward()
+    ccfg = ConformerConfig(num_blocks=1, model_dim=32, num_heads=2, ffn_dim=64, conv_kernel=4,
+                           chunk_size=4, attention_impl="flash")
+    params = init_conformer(torch.Generator().manual_seed(0), ccfg, 7, "cuda")
+    x = torch.randn((2, 40, 7), generator=torch.Generator().manual_seed(1)).cuda()
+    with torch.inference_mode():
+        y, _ = conformer_encode(params, ccfg, x, torch.tensor([40, 23], dtype=torch.int32,
+                                                               device="cuda"), compute_dtype=dtype)
+    assert np.isfinite(y.float().cpu().numpy()).all()
+    k1b = {k: K1b.launches_by_body[k] - b0[k] for k in b0}
+    k2f = {k: K2f.launches_by_body[k] - f0[k] for k in f0}
+    assert k1b == ({"cluster": 1, "rows": 0} if bf16 else {"cluster": 0, "rows": 1})
+    assert k2f == ({"tensor_core": 1, "cuda_core": 0} if bf16 else
+                   {"tensor_core": 0, "cuda_core": 1})
 
 
 # --------------------------------------------------------------------------
