@@ -81,15 +81,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
 9. the conformer demo trainer (a main path): ``MultiSubjectTrainer`` on
    the demo experiment with a small flash conformer, bf16: training WER
    must fall, with 2 K2b-dq and 2 K2b-dkv launches per step;
-K1b and K2f have two bodies each, chosen up front by dtype (and shape):
-bf16 runs K1b's cluster body (``csrc/lstm_bwd_cluster.cu``) and K2f's
-tensor-core body (``csrc/banded_attention_tc.cu``), f32 the CUDA-core
-bodies.  Every main path reads ``launches_by_body`` beside its counts and
-fails unless its bf16 launches went through the new body (the f32 stream
-through the old one).  Phase 2 holds K1b at B=1, 16, 17 and 256 (H=400),
-at H=100 and the demo width, bit-identical on repeat; phase 6 holds K3f at
-head dims 288 and 384 too; both bodies of K1b and K2f are timed at bf16,
-in turns.
+K1b, K4b, K2f, K2b-dq and K2b-dkv have two bodies each, chosen up front by
+dtype (and shape): bf16 runs the cluster body of the LSTM adjoint
+(``csrc/lstm_bwd_cluster.cuh``: K1b one direction a launch, K4b both with
+a direction axis) and the attention kernels' tensor-core bodies
+(``csrc/banded_attention_tc.cu``, ``csrc/banded_attention_bwd_tc.cu``),
+f32 the CUDA-core bodies.  Every main path reads ``launches_by_body``
+beside its counts and fails unless its bf16 launches went through the new
+body (the f32 cases through the old one).  Phase 2 holds K1b at B=1, 16,
+17 and 256 (H=400), at H=100 and the demo width, and K4b at the same
+batches at H=400 and H=100, bit-identical on repeat (K4b's cluster body
+equal to two K1b launches bit for bit); phase 6 holds K3f at head dims 288
+and 384 too, and ``banded_flash_attention`` at head dim 256 in both dtypes
+at the query block it plans; both bodies of K1b, K4b, K2f and K2b are
+timed at bf16, in turns.
 Every conformer path also counts its LayerNorm launches: 5 K5f per block
 and encode (4 under 'fused', where K3f normalises inside) and as many K5b
 per training step; the flash training step is timed once more with the
@@ -174,7 +179,9 @@ WRAPPERS = {
 }
 # the kernels with two bodies, chosen up front by dtype and shape; each
 # wrapper counts its launches by body beside its plain count
-BODIES = {"K1b": lstm_kernels.lstm_recurrence_bwd, "K2f": ATTN.banded_attention_fwd}
+BODIES = {"K1b": lstm_kernels.lstm_recurrence_bwd, "K2f": ATTN.banded_attention_fwd,
+          "K4b": lstm_kernels.bilstm_grid_bwd, "K2b-dq": ATTN.banded_attention_dq,
+          "K2b-dkv": ATTN.banded_attention_dkv}
 # LayerNorms per conformer block that run K5f/K5b: both FFNs, the
 # attention's (except under 'fused', where K3f normalises inside), the
 # conv module's and the block's output
@@ -647,8 +654,23 @@ def _library_bilstm(whf: torch.Tensor, whb: torch.Tensor):
     return lstm
 
 
+def _two_k1b(args):
+    """K4b's two chains as two K1b launches (the forward chain's adjoint,
+    then the reverse chain's) on K4b's inputs: ``(dgf, dgb, dh0, dc0)``."""
+    (xwf, xwb, whf, whb, hpf, hpb, cpf, cpb, csf, csb, lengths, maskf, maskb,
+     dhsf, dhsb, dhT, dcT) = args
+    dgf, dh0f, dc0f = lstm_kernels.lstm_recurrence_bwd(
+        xwf, whf, hpf, cpf, csf, lengths, maskf, dhsf, dhT[0], dcT[0])
+    dgb, dh0b, dc0b = lstm_kernels.lstm_recurrence_bwd(
+        xwb, whb, hpb, cpb, csb, lengths, maskb, dhsb, dhT[1], dcT[1], True)
+    return dgf, dgb, torch.stack([dh0f, dh0b]), torch.stack([dc0f, dc0b])
+
+
 def _grid_case_check(kind, B, h, steps, dtype, variant, seed, errs):
-    """One K4f or K4b case against its plain version."""
+    """One K4f or K4b case against its plain version.  K4b also runs twice
+    (the two launches bit-identical) and its body must be the one planned
+    for the dtype (bf16: the cluster body, which must then equal two K1b
+    cluster launches bit for bit: the same body per direction)."""
     case = f"B={B} H={h} T'={steps} {str(dtype)[6:]} {variant}"
     if kind == "K4f":
         args = _grid_inputs(B, dtype, variant, seed, h, steps)
@@ -657,9 +679,23 @@ def _grid_case_check(kind, B, h, steps, dtype, variant, seed, errs):
         names = ("hf", "hb", "cf", "cb", "hT", "cT")
     else:
         args = _grid_adjoint_inputs(B, dtype, variant, seed, h, steps)
+        before = read_bodies()["K4b"]
         got = lstm_kernels.bilstm_grid_bwd(*args)
+        again = lstm_kernels.bilstm_grid_bwd(*args)
         want = lstm_kernels.bilstm_grid_bwd_reference(*args)
         names = ("dgf", "dgb", "dh0", "dc0")
+        torch.cuda.synchronize()
+        body = "cluster" if dtype == torch.bfloat16 else "rows"
+        check(read_bodies()["K4b"][body] == before[body] + 2,
+              f"K4b {case}: launches by body {read_bodies()['K4b']}, expected the {body} body")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K4b {case}: two launches on the same inputs differ")
+        if body == "cluster":
+            two = _two_k1b(args)
+            check(all(torch.equal(a, b) for a, b in zip(got, two)),
+                  f"K4b {case}: the cluster body differs from two K1b launches")
+        case += f" ({body} body, bit-identical on repeat"
+        case += ", == two K1b launches)" if body == "cluster" else ")"
     torch.cuda.synchronize()
     worst = 0.0
     for name, g, w in zip(names, got, want):
@@ -728,15 +764,10 @@ def _grid_timings(B: int) -> dict:
             for rows in lstm_kernels._ROWS_PER_BLOCK
         }
     bargs = _grid_adjoint_inputs(B, dtype, "serving", 1200 + B)
-    bwd = {"ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_bwd(*bargs), 20),
-           "plain_ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_bwd_reference(*bargs),
+    bwd = {"plain_ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_bwd_reference(*bargs),
                                reps=3, warmup=1)}
-    bwd["two_k1b_ms"] = cuda_ms(lambda: (
-        lstm_kernels.lstm_recurrence_bwd(xwf, whf, bargs[4], bargs[6], bargs[8], lengths,
-                                         maskf, bargs[13], bargs[15][0], bargs[16][0]),
-        lstm_kernels.lstm_recurrence_bwd(xwb, whb, bargs[5], bargs[7], bargs[9], lengths,
-                                         maskb, bargs[14], bargs[15][1], bargs[16][1], True)),
-        20)
+    bwd.update(_k4b_bodies_in_turns(bargs))
+    bwd["two_k1b_ms"] = cuda_ms(lambda: _two_k1b(bargs), 20)
     x = xwf.detach().clone().requires_grad_()
     dy = torch.cat([bargs[13], bargs[14]], dim=-1)
 
@@ -756,10 +787,54 @@ def _grid_timings(B: int) -> dict:
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               + (f"two K1f launches {t['two_k1f_ms']:.4f} ms, rows/block "
                  f"{t['rows_per_block']}" if name == "K4f" else
-                 f"two K1b launches {t['two_k1b_ms']:.4f} ms")
+                 f"two K1b launches {t['two_k1b_ms']:.4f} ms; cluster body "
+                 f"({t['plan']['clusters']} clusters of {t['plan']['cluster_size']} CTAs, "
+                 f"{t['plan']['resident_clusters']} resident at once: {t['plan']['waves']} "
+                 f"waves) launch alone {t['ms_launch_only']:.4f} ms in turns with the rows "
+                 f"body ({t['rows_per_block']} rows a block) {t['ms_rows_body']:.4f} ms")
               + (f", rows/block sweep {t['rows_per_block_ms']}" if "rows_per_block_ms" in t
                  else ""))
     return {"K4f": fwd, "K4b": bwd}
+
+
+def _k4b_bodies_in_turns(bargs) -> dict:
+    """K4b's wrapper (the cluster body, with the wrapper's stacking of the
+    two directions' inputs), then its cluster launch alone and the rows
+    body (the previous bf16 body) on the same stacked inputs, in turns
+    (rows, cluster, cluster, rows); the plan, with how many clusters the
+    card keeps resident at once and so the waves."""
+    (xwf, xwb, whf, whb, hpf, hpb, cpf, cpb, csf, csb, lengths, maskf, maskb,
+     dhsf, dhsb, dhT, dcT) = bargs
+    T, B, G = xwf.shape
+    h = G // 4
+    sms, smem_limit = lstm_kernels._device_limits(xwf.device)
+    plan = lstm_kernels.plan_bwd_body(xwf.dtype, B, h, sms, smem_limit, directions=2)
+    check(plan["body"] == "cluster", f"K4b at B={B} H={h} bf16 plans {plan}")
+    resident = _build.load_library("bilstm_grid").bilstm_grid_bwd_cluster_max_active
+    resident.argtypes, resident.restype = [ctypes.c_int] * 3, ctypes.c_int
+    plan["resident_clusters"] = resident(B, h, plan["cluster_size"])
+    check(plan["resident_clusters"] > 0, f"K4b residency query failed: {plan}")
+    plan["waves"] = -(-plan["clusters"] // plan["resident_clusters"])
+    st = lambda a, b: torch.stack([a, b])  # noqa: E731
+    wh = st(whf, whb)
+    outs = (torch.empty((2, T, B, G), dtype=xwf.dtype, device=xwf.device),
+            torch.empty((2, B, h), device=xwf.device), torch.empty((2, B, h), device=xwf.device))
+    seqs = (st(hpf, hpb), st(cpf, cpb), st(csf, csb), lengths, st(maskf, maskb), st(dhsf, dhsb),
+            dhT, dcT, *outs)
+    cluster = (st(xwf, xwb), wh, *seqs)
+    rows_in = (cluster[0], wh, wh.transpose(1, 2).contiguous(), *seqs)
+    rows = lstm_kernels._rows_for(B, h, sms, directions=2)
+    ms = {"rows": [], "cluster": []}
+    for which in ("rows", "cluster", "cluster", "rows"):
+        ms[which].append(cuda_ms(
+            (lambda: lstm_kernels._launch_grid("bilstm_grid_bwd", rows_in, T, B, h, xwf.dtype,
+                                               xwf.device, rows)) if which == "rows" else
+            (lambda: lstm_kernels._launch_grid("bilstm_grid_bwd_cluster", cluster, T, B, h,
+                                               xwf.dtype, xwf.device, plan["cluster_size"])),
+            reps=10))
+    return {"ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_bwd(*bargs), 20),
+            "ms_launch_only": float(np.mean(ms["cluster"])),
+            "ms_rows_body": float(np.mean(ms["rows"])), "rows_per_block": rows, "plan": plan}
 
 
 def _ln_bounds(rows: int, D: int, dtype) -> dict:
@@ -847,16 +922,20 @@ def _ln_function_grads() -> float:
 
 def grid_and_layernorm_kernel_phase(demo_shapes) -> dict:
     """K4f and K4b against their plain versions at the full-width shapes
-    (H=400, T'=104, B in {1, 256}) and the demo trainer's own (B=16,
-    H=64); K5f and K5b at the headline conformer rows (B=256 x T'=104,
+    (H=400, T'=104; K4f at B in {1, 256}, K4b at B in {1, 16, 17, 256}
+    and at H=100 too) and the demo trainer's own (B=16, H=64); K5f and K5b at the headline conformer rows (B=256 x T'=104,
     D=384), the long recording's (B=16 x T'=8192) and at D=64; f32 and
     bf16, ragged lengths and 0/2 masks or odd row counts; the two
     Functions' gradients; the timings."""
     errs = {k: {torch.float32: 0.0, torch.bfloat16: 0.0} for k in ("K4f", "K4b", "K5f", "K5b")}
-    shapes = [(1, H, T_STEPS), (256, H, T_STEPS), *demo_shapes]
+    shapes = {
+        "K4f": [(1, H, T_STEPS), (256, H, T_STEPS), *demo_shapes],
+        # B=1 and 17 pad the cluster body's 16-row tiles, H=100 its unit slices
+        "K4b": [(B, h, T_STEPS) for h in (H, 100) for B in (1, 16, 17, 256)] + list(demo_shapes),
+    }
     seed = 500
     for kind in ("K4f", "K4b"):
-        for B, h, steps in shapes:
+        for B, h, steps in shapes[kind]:
             for dtype in (torch.float32, torch.bfloat16):
                 for variant in ("serving", "ragged_mask_state"):
                     seed += 1
@@ -1023,9 +1102,11 @@ def serving_phase() -> dict:
 _KERNEL_CATEGORIES = (
     ("lstm_recurrence_fwd", "K1f"), ("lstm_recurrence_bwd", "K1b"),
     ("banded_attention_fwd_kernel", "K2f"), ("banded_attention_fwd_tc_kernel", "K2f"),
-    ("banded_attention_dq_kernel", "K2b-dq"),
-    ("banded_attention_dkv_kernel", "K2b-dkv"), ("fused_attention_fwd_kernel", "K3f"),
+    ("banded_attention_dq_kernel", "K2b-dq"), ("banded_attention_dq_tc_kernel", "K2b-dq"),
+    ("banded_attention_dkv_kernel", "K2b-dkv"), ("banded_attention_dkv_tc_kernel", "K2b-dkv"),
+    ("fused_attention_fwd_kernel", "K3f"),
     ("bilstm_grid_fwd_kernel", "K4f"), ("bilstm_grid_bwd_kernel", "K4b"),
+    ("bilstm_grid_bwd_cluster_kernel", "K4b"),
     ("layer_norm_fwd_kernel", "K5f"), ("layer_norm_bwd_kernel", "K5b"),
 )
 
@@ -1108,6 +1189,7 @@ def _f32_kernel_vs_plain(params, data, idx, kernel_path=True) -> float:
     batch = {k: v[0][torch.as_tensor(idx, device="cuda")] for k, v in data.items()}
     batch["subject_idx"] = 0
     out = {}
+    before = read_bodies()
     for use_pallas in (kernel_path, False):
         cfg = serving_config(torch.float32, use_pallas_lstm=use_pallas)
         p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
@@ -1117,6 +1199,10 @@ def _f32_kernel_vs_plain(params, data, idx, kernel_path=True) -> float:
         out[use_pallas] = (loss.detach(), [t.grad for t in tree_leaves(p)])
     (lk, gk), (lp, gp) = out[kernel_path], out[False]
     path = f"use_pallas_lstm={kernel_path!r}"
+    kernel = "K4b" if kernel_path == "bi_grid" else "K1b"
+    f32_bodies = {b: n - before[kernel][b] for b, n in read_bodies()[kernel].items()}
+    check(f32_bodies["cluster"] == 0 and f32_bodies["rows"] > 0,
+          f"f32 training, {path}: {kernel} launches by body {f32_bodies}, expected the rows body")
     err, _ = compare(f"f32 training loss, {path} vs plain path", lk, lp, TOL[torch.float32])
     for i, (a, b) in enumerate(zip(gk, gp)):
         e, _ = compare(f"f32 gradient leaf {i}, {path} vs plain path", a, b,
@@ -1358,21 +1444,25 @@ def grid_training_phase() -> dict:
         losses.append(step())
         step_s.append(time.perf_counter() - t0)
     counts = read_counts()
+    bodies = read_bodies()
     # ------------------------------------------------------------------
     want = TRAIN_STEPS * len(config.rnn_sizes)
     check_counts("biLSTM 'bi_grid' training", counts, {"K4f": want, "K4b": want})
+    check_bodies("biLSTM 'bi_grid' training (bf16)", bodies, "K4b", "cluster", want)
     check(all(np.isfinite(losses)), f"'bi_grid' training: non-finite loss {losses}")
     check(losses[-1] < losses[0], f"'bi_grid' training loss did not fall: {losses}")
     ms = 1e3 * float(np.mean(step_s))
     print(f"biLSTM 'bi_grid' training B={B_TRAIN} x {T_RAW} samples, bf16, dropout on: losses "
           + ", ".join(f"{x:.4f}" for x in losses)
-          + f"; {counts['K4f']} K4f + {counts['K4b']} K4b launches in {TRAIN_STEPS} steps; step "
+          + f"; {counts['K4f']} K4f + {counts['K4b']} K4b launches in {TRAIN_STEPS} steps "
+          f"(K4b by body {bodies['K4b']}); step "
           + ", ".join(f"{1e3 * x:.2f}" for x in step_s)
           + f" ms, mean {ms:.2f} ms = {B_TRAIN / (ms / 1e3):.2f} sentences/s")
     prof = profile_call(f"'bi_grid' training step B={B_TRAIN}", step, need=("K4f", "K4b"))
     f32_err = _f32_kernel_vs_plain(params, data, rng.permutation(N_TRIALS)[:B_TRAIN],
                                    kernel_path="bi_grid")
-    return {"counts": counts, "ms": ms, "losses": losses, "profile": prof, "f32_err": f32_err}
+    return {"counts": counts, "bodies": bodies, "ms": ms, "losses": losses, "profile": prof,
+            "f32_err": f32_err}
 
 
 # --------------------------------------------------------------------------
@@ -1430,9 +1520,13 @@ def _check_attention_case(case: str, c: dict, dtype, errs: dict) -> None:
     hold("K2f", "out", out, r_out)
     hold("K2f", "lse", lse, r_lse, t=TOL[torch.float32])
     bwd = (c["q"], c["k"], c["v"], c["g"], r_lse, ATTN._delta(c["g"], r_out, args[-1]), *args)
+    before = read_bodies()
     dq = ATTN.banded_attention_dq(*bwd)
     dk, dv = ATTN.banded_attention_dkv(*bwd)
     torch.cuda.synchronize()
+    for k in ("K2b-dq", "K2b-dkv"):
+        check(read_bodies()[k][body] == before[k][body] + 1,
+              f"{case} {k}: launches by body {read_bodies()[k]}, expected the {body} body")
     hold("K2b-dq", "dq", dq, ATTN.banded_attention_dq_reference(*bwd), rows=False)
     r_dk, r_dv = ATTN.banded_attention_dkv_reference(*bwd)
     hold("K2b-dkv", "dk", dk, r_dk, rows=False)
@@ -1477,6 +1571,61 @@ def _check_fused_wide_head(Dh: int, dtype, seed: int) -> float:
         err = max(err, e)
     print(f"attention kernels K3f head dim {Dh} (one head, query block {QB}) "
           f"{str(dtype)[6:]}: max abs err {err:.3e}")
+    return err
+
+
+def _check_flash_wide_head(dtype, seed: int) -> float:
+    """``banded_flash_attention`` at head dim 256 (one head: ``model_dim=
+    256, num_heads=1``), B=2, T'=104, ragged lengths, at the query block
+    it plans on the card: K2f, K2b-dq and K2b-dkv launch in the body of
+    the dtype (bf16 tensor cores, f32 CUDA cores) and match their plain
+    versions at that block (forward on valid rows; the kernels' gradients
+    on the plain forward's lse and delta elementwise; the Function's
+    gradients against autograd through the plain forward, normwise).
+    Returns the largest error."""
+    B, T, Dh, C, L = 2, 104, 256, 16, 1
+    QB = ATTN.plan_banded_query_rows(dtype, 128, C, L, Dh, ATTN._smem_limit("cuda"))
+    check(QB < 128, f"head dim {Dh} {dtype}: planned query block {QB}")
+    T1 = -(-T // QB) * QB
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, cot = (torch.randn((B, T, 1, Dh), generator=g, device="cuda").to(dtype)
+                    for _ in range(4))
+    lengths = torch.tensor([T, 61], dtype=torch.int32, device="cuda")
+    valid = (torch.arange(T, device="cuda")[None] < lengths[:, None])[..., None, None]
+    cot = torch.where(valid, cot, 0.0).to(dtype)
+    body = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    before = read_bodies()
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    out = ATTN.banded_flash_attention(*leaves, 0, lengths, chunk_size=C, left_context=L)
+    (out.float() * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    for kernel in ("K2f", "K2b-dq", "K2b-dkv"):
+        check(read_bodies()[kernel][body] == before[kernel][body] + 1,
+              f"head dim {Dh} {dtype}: {kernel} launches by body {read_bodies()[kernel]}")
+    tol = TOL[dtype]
+    pad = lambda a: torch.nn.functional.pad(a.reshape(B, T, Dh), (0, 0, 0, T1 - T))  # noqa: E731
+    q3, k3, v3, g3 = (pad(a).contiguous() for a in (q, k, v, cot))
+    args = (0, lengths, C, L, T, QB, 1)
+    r_out, r_lse = ATTN.banded_attention_fwd_reference(q3, k3, v3, *args)
+    name = f"flash head dim {Dh} {str(dtype)[6:]} (query block {QB})"
+    err, _ = compare(f"{name} out", torch.where(valid, out.detach().float(), 0.0),
+                     torch.where(valid, r_out[:, :T].reshape(B, T, 1, Dh).float(), 0.0), tol)
+    bwd = (q3, k3, v3, g3, r_lse, ATTN._delta(g3, r_out, 1), *args)
+    dq = ATTN.banded_attention_dq(*bwd)
+    dk, dv = ATTN.banded_attention_dkv(*bwd)
+    r_dk, r_dv = ATTN.banded_attention_dkv_reference(*bwd)
+    for label, a, b in (("dq", dq, ATTN.banded_attention_dq_reference(*bwd)),
+                        ("dk", dk, r_dk), ("dv", dv, r_dv)):
+        err = max(err, compare(f"{name} kernel {label}", a, b, tol)[0])
+    plain = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    p_out, _ = ATTN.banded_attention_fwd_reference(*(pad(a) for a in plain), *args)
+    (p_out[:, :T].reshape(B, T, 1, Dh).float() * cot.float()).sum().backward()
+    for label, a, b in zip(("dq", "dk", "dv"), leaves, plain):
+        err = max(err, compare(f"{name} Function grad {label}", a.grad, b.grad, tol,
+                               normwise=True)[0])
+    print(f"banded_flash_attention head dim {Dh} (one head) {str(dtype)[6:]}: planned query "
+          f"block {QB}, {body} bodies, forward and backward match the plain versions: max abs "
+          f"err {err:.3e}")
     return err
 
 
@@ -1616,22 +1765,30 @@ def _attention_timings(label: str, B: int, T: int) -> dict:
     }
     bounds = _attention_bounds(c, B, D, H, dtype)
     lib = _sdpa_ms(c, B, D, H)
-    # K2f's CUDA-core body (the previous bf16 body) in turns with the tensor-core body
-    cuda_core, tensor_core = [], []
-    for _ in range(2):
-        cuda_core.append(cuda_ms(lambda: ATTN._launch_k2f(
-            "cuda_core", c["q"], c["k"], c["v"], *args), reps=20))
-        tensor_core.append(cuda_ms(lambda: ATTN.banded_attention_fwd(
-            c["q"], c["k"], c["v"], *args), reps=20))
+    # the CUDA-core bodies (the previous bf16 bodies of K2f and K2b) in turns
+    # with the tensor-core bodies: old, new, new, old
+    old_new = {
+        "K2f": (lambda: ATTN._launch_k2f("cuda_core", c["q"], c["k"], c["v"], *args),
+                calls["K2f"][0]),
+        "K2b-dq": (lambda: ATTN._launch_k2b("dq", "cuda_core", *bwd), calls["K2b-dq"][0]),
+        "K2b-dkv": (lambda: ATTN._launch_k2b("dkv", "cuda_core", *bwd), calls["K2b-dkv"][0]),
+    }
+    in_turns = {}
+    for name, (old, new) in old_new.items():
+        t = {"cuda_core": [], "tensor_core": []}
+        for which in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+            t[which].append(cuda_ms(old if which == "cuda_core" else new, reps=20))
+        in_turns[name] = {k: float(np.mean(v)) for k, v in t.items()}
     timings = {}
     for name, (kernel, plain) in calls.items():
         t = {"ms": cuda_ms(kernel, reps=20), "plain_ms": cuda_ms(plain, reps=3, warmup=1),
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
              "library_ms": None}  # K3f: no one library call computes it
+        if name in in_turns:
+            t["ms_cuda_core_body"] = in_turns[name]["cuda_core"]
+            t["ms_tensor_core_in_turns"] = in_turns[name]["tensor_core"]
         if name == "K2f":
             t["library_ms"] = lib["fwd_ms"]
-            t["ms_cuda_core_body"] = float(np.mean(cuda_core))
-            t["ms_tensor_core_in_turns"] = float(np.mean(tensor_core))
         elif name.startswith("K2b"):
             t["library_ms"] = lib["bwd_ms"]  # one backward computes dq, dk and dv
         timings[name] = t
@@ -1644,7 +1801,14 @@ def _attention_timings(label: str, B: int, T: int) -> dict:
               + f", bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
               + (f", with residuals {t['ms_with_residuals']:.4f} ms" if name == "K3f" else "")
               + (f"; tensor-core body (in turns) {t['ms_tensor_core_in_turns']:.4f} ms, "
-                 f"CUDA-core body {t['ms_cuda_core_body']:.4f} ms" if name == "K2f" else ""))
+                 f"CUDA-core body {t['ms_cuda_core_body']:.4f} ms" if name in in_turns else ""))
+    dq_dkv = timings["K2b-dq"]["ms"] + timings["K2b-dkv"]["ms"]
+    timings["K2b_sum"] = {"ms": dq_dkv, "library_ms": lib["bwd_ms"],
+                          "ms_cuda_core_bodies": in_turns["K2b-dq"]["cuda_core"]
+                          + in_turns["K2b-dkv"]["cuda_core"]}
+    print(f"timing K2b-dq + K2b-dkv {label}: {dq_dkv:.4f} ms (CUDA-core bodies "
+          f"{timings['K2b_sum']['ms_cuda_core_bodies']:.4f} ms) against SDPA's one backward "
+          f"{lib['bwd_ms']:.4f} ms")
     print(f"library yardstick (SDPA, boolean band mask) at {label}: forward "
           f"{lib['fwd_ms']:.4f} ms, backward {lib['bwd_ms']:.4f} ms, max abs diff to "
           f"K2f on valid rows {lib['max_abs_diff_to_K2f']:.3e}")
@@ -1691,10 +1855,16 @@ def attention_kernel_phase(demo_shape) -> dict:
             e = _check_fused_wide_head(Dh, dtype, seed)
             errs["K3f"][dtype] = max(errs["K3f"][dtype], e)
             wide[f"{Dh} {str(dtype)[6:]}"] = e
+    flash_wide = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        seed += 1
+        e = _check_flash_wide_head(dtype, seed)
+        flash_wide[str(dtype)[6:]] = e
     grad_err = _function_grads()
     timings = {"headline": _attention_timings("headline", 256, 104),
                "long": _attention_timings("long", LONG_B, LONG_T)}
-    return {"errs": errs, "grad_err": grad_err, "timings": timings, "k3f_wide_head": wide}
+    return {"errs": errs, "grad_err": grad_err, "timings": timings, "k3f_wide_head": wide,
+            "flash_head_dim_256": flash_wide}
 
 
 # --------------------------------------------------------------------------
@@ -1840,6 +2010,7 @@ def _conformer_f32_kernel_vs_plain(params, data, idx) -> float:
     batch = {k: v[0][torch.as_tensor(idx, device="cuda")] for k, v in data.items()}
     batch["subject_idx"] = 0
     out = {}
+    before = read_bodies()
     for impl in ("flash", "fused", "banded"):
         cfg = conformer_config(torch.float32, impl)
         p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
@@ -1847,6 +2018,11 @@ def _conformer_f32_kernel_vs_plain(params, data, idx) -> float:
         loss, _ = seq2seq_loss(p, cfg, batch, gen, train=True, penalty_scales=PENALTIES)
         loss.backward()
         out[impl] = (loss.detach(), [t.grad for t in tree_leaves(p)])
+    for kernel in ("K2b-dq", "K2b-dkv"):
+        f32_bodies = {b: n - before[kernel][b] for b, n in read_bodies()[kernel].items()}
+        check(f32_bodies["tensor_core"] == 0 and f32_bodies["cuda_core"] > 0,
+              f"conformer f32 training: {kernel} launches by body {f32_bodies}, expected the "
+              "CUDA-core body")
     err = 0.0
     lp, gp = out["banded"]
     for impl in ("flash", "fused"):
@@ -1902,8 +2078,9 @@ def conformer_training_phase(params) -> dict:
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         # ------------------------------------------------------------------
         want = TRAIN_STEPS * nb
-        check_bodies(f"conformer training ({impl}, bf16)", bodies, "K2f", "tensor_core",
-                     counts["K2f"])
+        for k in ("K2f", "K2b-dq", "K2b-dkv"):
+            check_bodies(f"conformer training ({impl}, bf16)", bodies, k, "tensor_core",
+                         counts[k])
         ln = want * LN_PER_BLOCK[impl]
         check_counts(f"conformer training ({impl})", counts,
                      {kernel: want, "K2b-dq": want, "K2b-dkv": want, "K5f": ln, "K5b": ln})
@@ -2002,7 +2179,8 @@ def long_recording_phase(params) -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     # ------------------------------------------------------------------
     nb = ccfg.num_blocks
-    check_bodies("long recording (bf16)", bodies, "K2f", "tensor_core", counts["K2f"])
+    for kernel in ("K2f", "K2b-dq", "K2b-dkv"):
+        check_bodies("long recording (bf16)", bodies, kernel, "tensor_core", counts[kernel])
     ln = nb * LN_PER_BLOCK["flash"]
     check_counts("long recording", counts,
                  {"K2f": 2 * iters * nb, "K2b-dq": iters * nb, "K2b-dkv": iters * nb,
@@ -2061,7 +2239,8 @@ def conformer_trainer_phase(trainer: MultiSubjectTrainer) -> dict:
     counts = read_counts()
     bodies = read_bodies()
     # ------------------------------------------------------------------
-    check_bodies("conformer trainer (bf16)", bodies, "K2f", "tensor_core", counts["K2f"])
+    for kernel in ("K2f", "K2b-dq", "K2b-dkv"):
+        check_bodies("conformer trainer (bf16)", bodies, kernel, "tensor_core", counts[kernel])
     check(counts["K2b-dq"] == counts["K2b-dkv"] == steps * nb,
           f"conformer trainer: K2b launched {counts} in {steps} steps; expected "
           f"{steps * nb} of each")
@@ -2127,6 +2306,7 @@ def main() -> int:
     nb = HEADLINE_CONFORMER["num_blocks"]
     headline = "B=256 T'=104 (T1=128) D=384 H=6 C=16 L=1 bf16"
     source = "ecog2txt_tpu_torch/csrc/banded_attention.cu"
+    bwd_source = "ecog2txt_tpu_torch/csrc/banded_attention_bwd_tc.cu"
     pallas = "ecog2txt_tpu/ops/pallas_attention.py"
 
     def attention_entry(name, key, src, replaces, launches, extra):
@@ -2190,6 +2370,12 @@ def main() -> int:
         grid_entry("bilstm_grid_bwd", "K4b", f"{pallas_lstm}:805", gtrain["counts"]["K4b"], {
             "launches_per_step": layers,
             "two_k1b_ms": gridk["timings"][256]["K4b"]["two_k1b_ms"],
+            "body": "cluster for bf16 where the weight slice fits (K1b's body, "
+                    "csrc/lstm_bwd_cluster.cuh, with a direction axis), rows otherwise",
+            "launches_by_body": {"bi_grid_training": gtrain["bodies"]["K4b"]},
+            "ms_launch_only": gridk["timings"][256]["K4b"]["ms_launch_only"],
+            "ms_rows_body": gridk["timings"][256]["K4b"]["ms_rows_body"],
+            "plan": gridk["timings"][256]["K4b"]["plan"],
             "library": "cuDNN bidirectional nn.LSTM backward, (forward+backward)-forward; "
                        "also computes the weight gradients"}),
         ln_entry("layer_norm_fwd", "K5f", f"{pallas_ln}:100",
@@ -2216,7 +2402,8 @@ def main() -> int:
     ]
     sdpa = "scaled_dot_product_attention with a boolean band mask"
     attention_entries = [
-        attention_entry("banded_attention_fwd", "K2f", source, f"{pallas}:321",
+        attention_entry("banded_attention_fwd", "K2f",
+                        "ecog2txt_tpu_torch/csrc/banded_attention_tc.cu", f"{pallas}:321",
                         cserve["flash"]["counts"]["K2f"], {
                             "launches_per_request": ENCODES_PER_CALL * nb,
                             "launches_stream": cstream["counts"]["K2f"],
@@ -2234,22 +2421,26 @@ def main() -> int:
                             "ms_cuda_core_body": attn["timings"]["headline"]["K2f"][
                                 "ms_cuda_core_body"],
                             "library": f"{sdpa}, forward"}),
-        attention_entry("banded_attention_dq", "K2b-dq", source, f"{pallas}:290",
-                        ctrain["flash"]["counts"]["K2b-dq"], {
-                            "launches_per_step": nb,
-                            "launches_training_fused": ctrain["fused"]["counts"]["K2b-dq"],
-                            "launches_long": clong["counts"]["K2b-dq"],
-                            "launches_demo_trainer": ctrainer["counts"]["K2b-dq"],
-                            "library": f"{sdpa}, (forward+backward)-forward; one backward "
-                                       "computes dq, dk and dv together"}),
-        attention_entry("banded_attention_dkv", "K2b-dkv", source, f"{pallas}:302",
-                        ctrain["flash"]["counts"]["K2b-dkv"], {
-                            "launches_per_step": nb,
-                            "launches_training_fused": ctrain["fused"]["counts"]["K2b-dkv"],
-                            "launches_long": clong["counts"]["K2b-dkv"],
-                            "launches_demo_trainer": ctrainer["counts"]["K2b-dkv"],
-                            "library": f"{sdpa}, (forward+backward)-forward; one backward "
-                                       "computes dq, dk and dv together"}),
+        *(attention_entry(f"banded_attention_{key[4:]}", key, bwd_source, f"{pallas}:{line}",
+                          ctrain["flash"]["counts"][key], {
+                              "launches_per_step": nb,
+                              "launches_training_fused": ctrain["fused"]["counts"][key],
+                              "launches_long": clong["counts"][key],
+                              "launches_demo_trainer": ctrainer["counts"][key],
+                              "body": "tensor_core for bf16 (csrc/banded_attention_bwd_tc.cu), "
+                                      "cuda_core for f32 (csrc/banded_attention.cu)",
+                              "launches_by_body": {
+                                  "flash_training": ctrain["flash"]["bodies"][key],
+                                  "fused_training": ctrain["fused"]["bodies"][key],
+                                  "long": clong["bodies"][key],
+                                  "demo_trainer": ctrainer["bodies"][key]},
+                              "ms_cuda_core_body": attn["timings"]["headline"][key][
+                                  "ms_cuda_core_body"],
+                              "dq_plus_dkv_ms": attn["timings"]["headline"]["K2b_sum"]["ms"],
+                              "max_abs_err_flash_head_dim_256": attn["flash_head_dim_256"],
+                              "library": f"{sdpa}, (forward+backward)-forward; one backward "
+                                         "computes dq, dk and dv together"})
+          for key, line in (("K2b-dq", 290), ("K2b-dkv", 302))),
         attention_entry("fused_attention_fwd", "K3f",
                         "ecog2txt_tpu_torch/csrc/fused_attention.cu", f"{pallas}:550",
                         cserve["fused"]["counts"]["K3f"], {
@@ -2283,7 +2474,7 @@ def main() -> int:
     }, {
         "name": "lstm_recurrence_bwd",
         "route": "cuda",
-        "source": "ecog2txt_tpu_torch/csrc/lstm_recurrence_bwd.cu",
+        "source": "ecog2txt_tpu_torch/csrc/lstm_bwd_cluster.cu",
         "replaces": "ecog2txt_tpu/ops/pallas_lstm.py:380",
         "launches": train["bwd"],
         "launches_per_step": LAUNCHES_PER_ENCODE,

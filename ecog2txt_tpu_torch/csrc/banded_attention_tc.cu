@@ -4,8 +4,8 @@
 // Replaces ecog2txt_tpu/ops/pallas_attention.py::_fwd_call (the
 // pallas_call at :329) for bf16 streams; f32 streams keep the CUDA-core
 // body of banded_attention.cu (the tensor cores have no f32 product, and
-// TF32 would break the f32 tolerance), and so do K2b and K3f, which share
-// that body's attend_row.  Semantics are _fwd_kernel's
+// TF32 would break the f32 tolerance), and so does K3f, which shares that
+// body's attend_row.  Semantics are _fwd_kernel's
 // (pallas_attention.py:100-139): s = f32(q.k^T) * scale, -1e30 where the
 // band masks (_band_mask), the row max, e = exp(s - m), the denominator,
 // lse = m + log(denom), p = S(e / denom), out = S(f32(p.v)), all over the
@@ -64,96 +64,23 @@
 // - Occupancy at the headline shape: 61 KB of shared memory and at most
 //   85 registers a thread (__launch_bounds__(256, 3)): three blocks, 24
 //   warps, an SM; 1536 blocks over 132 SMs.
+//
+// The tensor-core pieces (staging, ldmatrix, mma.sync, the chunk-id
+// sentinels) live in attention_tc.cuh, which K2b's tensor-core bodies
+// (banded_attention_bwd_tc.cu) share.
 
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 using namespace attn;
+using namespace attn_tc;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kTcWarps = 8;  // warps a block, at most
 constexpr int kChunk = 64;   // output head columns a pass 2 accumulates
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a . b for one m16n8k16 tile: bf16 operands, f32 accumulator
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + nrows) of the (T1, D) matrix `src` (one batch row),
-// columns [col0, col0 + Dh), into dst (nrows_p x Dhp, row stride ST);
-// rows outside [0, T1) or past nrows and columns past Dh are zeros and
-// never read.  With `vec` (Dh and D multiples of 8, 16-byte aligned
-// tensors) by cp.async in 16-byte chunks, else by scalar copies.
-__device__ void stage(bf16* dst, int ST, const bf16* src, int row0, int nrows, int nrows_p,
-                      int T1, int D, int col0, int Dh, int Dhp, bool vec) {
-  if (vec) {
-    const int cpr = Dhp / 8;
-    for (int idx = threadIdx.x; idx < nrows_p * cpr; idx += blockDim.x) {
-      const int r = idx / cpr, c = (idx - r * cpr) * 8, g = row0 + r;
-      const bool ok = r < nrows && g >= 0 && g < T1 && c < Dh;
-      const bf16* s = ok ? src + (size_t)g * D + col0 + c : src;
-      cp_async16(smem_addr(dst + r * ST + c), s, ok ? 16 : 0);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < nrows_p * Dhp; idx += blockDim.x) {
-      const int r = idx / Dhp, c = idx - r * Dhp, g = row0 + r;
-      const bool ok = r < nrows && g >= 0 && g < T1 && c < Dh;
-      dst[r * ST + c] = ok ? src[(size_t)g * D + col0 + c] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// The band of _band_mask as chunk ids: key j of the window is admitted
-// for query row i iff kc[j] <= qc[i] <= kc[j] + L, where kc[j] is the
-// key's chunk (kNoKey where the key is masked whatever the query: outside
-// [0, t_real) locally, at a negative absolute position or at/past the
-// valid length) and qc[i] the query's chunk (kNoRow past t_real).
-constexpr int kNoKey = 1 << 29;
-constexpr int kNoRow = -(1 << 29);
 
 struct Tile {
   const bf16 *qs, *ks, *vs;
@@ -196,16 +123,6 @@ __device__ __forceinline__ void scores(float (&s)[2][4], const Tile& T, int r0, 
       }
       s[nt][e] = v;
     }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Pass 1 over key tiles [k0, k1]: m[h] and den[h] of row r0 + g + 8h.

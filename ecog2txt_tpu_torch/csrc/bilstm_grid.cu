@@ -37,9 +37,25 @@
 // block, one-row blocks ran several times slower on the H100.  The
 // wrapper picks R so that the doubled grid stays within one wave of SMs.
 //
+// K4b's bf16 body is K1b's cluster body (lstm_bwd_cluster.cuh:
+// the weight slice resident across a thread-block cluster, only
+// dgates @ wh^T on the serial chain), launched over a grid of
+// (cs * ceil(B / 16), 2) CTAs in clusters of (cs, 1, 1): blockIdx.y picks
+// the direction, whose tensors lie at the direction-major offsets of the
+// stacked inputs, exactly as for the rows body.  Direction 0 walks
+// t = T-1..0, direction 1 t = 0..T-1 (its predecessor is t+1).  The
+// directions' clusters share the card: at B=256, H=400 that is 32
+// clusters of 8 CTAs, of which the H100 keeps 15 resident, so 3 waves
+// where two K1b launches take 2 each.  It reads the resident slice
+// transposed by ldmatrix.trans, so it needs no whT.  f32 streams, and
+// widths whose slice fits no cluster, keep the rows body
+// (lstm_common.cuh::bwd_rows) below; ops/lstm_kernels.py::plan_bwd_body
+// picks the body before the launch.
+//
 // Plain C interface, loaded with ctypes; launches go on the caller's
 // stream and each function returns cudaGetLastError().
 
+#include "lstm_bwd_cluster.cuh"
 #include "lstm_common.cuh"
 
 namespace {
@@ -86,6 +102,27 @@ bilstm_grid_bwd_kernel(const S* __restrict__ xw,         // (2, T, B, 4H)
                        dhT + d * st, dcT + d * st, dgates + d * 4 * seq, dh0 + d * st,
                        dc0 + d * st, T, B, H, /*reverse_time=*/static_cast<int>(blockIdx.y),
                        blockIdx.x * R);
+}
+
+// K4b's bf16 cluster body: CTA (blockIdx.x, d) runs K1b's cluster body on
+// direction d's slice of the stacked tensors.
+__global__ void __launch_bounds__(lstm_cluster::kThreads, 1)
+    bilstm_grid_bwd_cluster_kernel(lstm_cluster::Args a) {
+  const size_t d = blockIdx.y, st = static_cast<size_t>(a.B) * a.H, seq = a.T * st;
+  a.xw += d * 4 * seq;
+  a.wh += d * 4 * a.H * static_cast<size_t>(a.H);
+  a.hprev += d * seq;
+  a.cprev += d * seq;
+  a.cseq += d * seq;
+  a.mask += d * st;
+  a.dhseq += d * seq;
+  a.dhT += d * st;
+  a.dcT += d * st;
+  a.dgates += d * 4 * seq;
+  a.dh0 += d * st;
+  a.dc0 += d * st;
+  a.reverse_time = static_cast<int>(blockIdx.y);
+  lstm_cluster::bwd_body(a);
 }
 
 template <typename S, int R, int MaxThreads>
@@ -160,6 +197,26 @@ int bilstm_grid_fwd(void* const* p, int T, int B, int H, int is_bf16, int rows, 
 // dcT, dgates, dh0, dc0, stacked as above.
 int bilstm_grid_bwd(void* const* p, int T, int B, int H, int is_bf16, int rows, void* stream) {
   return run(true, p, T, B, H, is_bf16, rows, stream);
+}
+
+// K4b's cluster body (bf16 only: is_bf16 must be 1).  p: xw, wh, hprev,
+// cprev, cseq, lengths, mask, dhseq, dhT, dcT, dgates, dh0, dc0, stacked
+// as above (no whT); cs in {1, 2, 4, 8} CTAs a cluster, as the wrapper
+// plans it.
+int bilstm_grid_bwd_cluster(void* const* p, int T, int B, int H, int is_bf16, int cs,
+                            void* stream) {
+  if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  const lstm_cluster::Args a = lstm_cluster::make_args(
+      p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12], T, B, H,
+      /*reverse_time=*/0, cs);
+  return lstm_cluster::launch(bilstm_grid_bwd_cluster_kernel, a, 2, (cudaStream_t)stream);
+}
+
+// How many clusters of cs CTAs the card keeps resident at once for K4b's
+// cluster launch (both directions' clusters share them); negative on a
+// CUDA error.
+int bilstm_grid_bwd_cluster_max_active(int B, int H, int cs) {
+  return lstm_cluster::max_active(bilstm_grid_bwd_cluster_kernel, B, 2, H, cs);
 }
 
 }  // extern "C"

@@ -59,7 +59,7 @@
 // wrapper picks the body before the launch (ops/lstm_kernels.py::
 // plan_bwd_body).  This body stays for f32 streams (the tensor cores have
 // no f32 product, and TF32 would break the f32 tolerance) and for wider
-// layers, and its bwd_rows is also K4b's body (bilstm_grid.cu).
+// layers, and its bwd_rows is also K4b's body for those (bilstm_grid.cu).
 //
 // Plain C interface, loaded with ctypes; the launch goes on the caller's
 // stream and the function returns cudaGetLastError().

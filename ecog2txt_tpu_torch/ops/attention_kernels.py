@@ -21,8 +21,9 @@ The port of ``ecog2txt_tpu/ops/pallas_attention.py``:
   optionally it saves q, k, v and the LSE for the backward.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/
-banded_attention.cu``, ``csrc/banded_attention_tc.cu`` for bf16 K2f,
-``csrc/fused_attention.cu``) or raises; on a CPU
+banded_attention.cu``; for bf16 the tensor-core bodies ``csrc/
+banded_attention_tc.cu`` of K2f and ``csrc/banded_attention_bwd_tc.cu``
+of K2b; ``csrc/fused_attention.cu``) or raises; on a CPU
 tensor it runs its plain version (``*_reference``), which computes what
 the kernel computes at the same rounding points.  ``<wrapper>.launches``
 counts kernel launches.  Tensors are ``(B, T1, D)`` with ``D = H·Dh``
@@ -161,6 +162,57 @@ def plan_k2f_body(dtype: torch.dtype, QB: int, W: int, Dh: int, smem_limit: int)
     if dtype == torch.bfloat16 and _k2f_tc_smem(QB, W, Dh) <= smem_limit:
         return "tensor_core"
     return "cuda_core"
+
+
+def _k2b_tc_smem(kernel: str, QB: int, W: int, Dh: int) -> int:
+    """Shared memory (bytes) of one block of K2b's tensor-core bodies
+    (``csrc/banded_attention_bwd_tc.cu``): K2b-dq stages Q and G of the
+    block and K and V of its window, in bf16 at K2f's padded row stride,
+    and the window keys' chunk ids; K2b-dkv stages K and V of the block and
+    Q and G of its attending rows, with their chunk ids, lse and delta."""
+    Dhp, QBp, Wp = _r16(Dh), _r16(QB), _r16(W)
+    per_row = {"K2b-dq": 4, "K2b-dkv": 12}[kernel]
+    return 2 * (2 * QBp + 2 * Wp) * (Dhp + 8) + per_row * Wp
+
+
+def plan_k2b_body(dtype: torch.dtype, QB: int, W: int, Dh: int, smem_limit: int) -> str:
+    """K2b-dq's and K2b-dkv's body, chosen up front: ``"tensor_core"`` for
+    bf16 streams whose blocks fit ``smem_limit`` bytes of shared memory,
+    else ``"cuda_core"`` (f32 streams: the tensor cores have no f32
+    product, and TF32 would break the f32 tolerance)."""
+    fits = all(_k2b_tc_smem(k, QB, W, Dh) <= smem_limit for k in ("K2b-dq", "K2b-dkv"))
+    return "tensor_core" if dtype == torch.bfloat16 and fits else "cuda_core"
+
+
+def _banded_blocks_fit(dtype: torch.dtype, QB: int, W: int, Dh: int, smem_limit: int) -> bool:
+    """K2f, K2b-dq and K2b-dkv all fit ``smem_limit`` in the bodies that
+    run them: the tensor-core bodies for bf16, the CUDA-core ones for f32."""
+    if dtype == torch.bfloat16:
+        return (_k2f_tc_smem(QB, W, Dh) <= smem_limit
+                and plan_k2b_body(dtype, QB, W, Dh, smem_limit) == "tensor_core")
+    return all(_cuda_core_smem(k, W, Dh) <= smem_limit for k in ("K2f", "K2b-dq", "K2b-dkv"))
+
+
+def plan_banded_query_rows(dtype: torch.dtype, QB: int, C: int, L: int, Dh: int,
+                           smem_limit: int) -> int:
+    """The query block of ``banded_flash_attention`` on the card: the
+    largest multiple of ``L·C`` up to ``QB`` at which K2f, K2b-dq and
+    K2b-dkv all fit ``smem_limit`` bytes in the bodies that run them
+    (bf16: the tensor-core bodies; f32: the CUDA-core bodies, which stage
+    the window in f32, so a head dim above ~180 does not fit ~128 rows).
+    The forward and the backward take the same block.  Raises
+    ``ValueError`` where not even ``L·C`` rows fit."""
+    step = L * C
+    rows = QB
+    while rows > step and not _banded_blocks_fit(dtype, rows, rows + step, Dh, smem_limit):
+        rows -= step
+    if not _banded_blocks_fit(dtype, rows, rows + step, Dh, smem_limit):
+        raise ValueError(
+            f"banded attention: no query block fits {smem_limit} bytes of shared memory "
+            f"at head dim {Dh}, chunk {C}, left context {L} ({dtype}; not even "
+            f"{step} rows)"
+        )
+    return rows
 
 
 def _cuda_core_smem(kernel: str, W: int, Dh: int) -> int:
@@ -501,60 +553,73 @@ banded_attention_fwd.launches = 0
 banded_attention_fwd.launches_by_body = {"tensor_core": 0, "cuda_core": 0}
 
 
+def _launch_k2b(kernel, body, q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H):
+    """One K2b-dq (``kernel="dq"``) or K2b-dkv (``"dkv"``) launch of
+    ``body`` ("tensor_core": bf16 only, or "cuda_core"); checked inputs, no
+    count.  Returns ``dq`` or ``(dk, dv)``."""
+    B, T1, D = q.shape
+    Dh = D // H
+    outs = [torch.empty_like(q)] if kernel == "dq" else [torch.empty_like(k), torch.empty_like(v)]
+    ptrs = [_ptr(a) for a in (q, k, v, g, lse, delta, lengths, *outs)]
+    ints = [B, T1, H, Dh, C, L, t_real, QB, offset]
+    what = f"B={B} T1={T1} D={D} H={H} QB={QB} {q.dtype} {body} body"
+    if body == "tensor_core":
+        _call("banded_attention_bwd_tc", f"banded_attention_{kernel}_tc", len(ptrs), 9, ptrs,
+              ints, [_scale(Dh)], q.device, what)
+    else:
+        _call("banded_attention", f"banded_attention_{kernel}", len(ptrs), 10, ptrs,
+              [*ints, int(q.dtype == torch.bfloat16)], [_scale(Dh)], q.device, what)
+    return outs[0] if kernel == "dq" else tuple(outs)
+
+
+def _k2b(kernel, wrapper, q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H):
+    """The body of both K2b wrappers: checks, then the plain version on a
+    CPU tensor, else one launch of the body :func:`plan_k2b_body` picks."""
+    offset = int(offset)
+    name = f"banded_attention_{kernel}"
+    _check(name, (q, k, v, g), H, QB, C, L, t_real, lengths)
+    B, T1, D = q.shape
+    _check_rows(name, B, T1, H, (lse, delta))
+    args = (q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H)
+    if q.device.type == "cpu":
+        plain = banded_attention_dq_reference if kernel == "dq" else banded_attention_dkv_reference
+        return plain(*args)
+    W, Dh = QB + L * C, D // H
+    body = plan_k2b_body(q.dtype, QB, W, Dh, _smem_limit(q.device))
+    if body == "cuda_core":
+        _check_cuda_core_fits(f"K2b-{kernel}", QB, W, Dh, q.device)
+    out = _launch_k2b(kernel, body, *args)
+    wrapper.launches += 1
+    wrapper.launches_by_body[body] += 1
+    return out
+
+
 def banded_attention_dq(q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H):
     """``dq`` of the chunk-causal attention (K2b-dq) — see
-    :func:`banded_attention_dq_reference`.  Launches the Hopper kernel on
-    a CUDA tensor (or raises), runs the plain version on a CPU tensor."""
-    offset = int(offset)
-    _check("banded_attention_dq", (q, k, v, g), H, QB, C, L, t_real, lengths)
-    B, T1, D = q.shape
-    _check_rows("banded_attention_dq", B, T1, H, (lse, delta))
-    if q.device.type == "cpu":
-        return banded_attention_dq_reference(
-            q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H
-        )
-    _check_cuda_core_fits("K2b-dq", QB, QB + L * C, D // H, q.device)
-    dq = torch.empty_like(q)
-    _call(
-        "banded_attention", "banded_attention_dq", 8, 10,
-        [_ptr(a) for a in (q, k, v, g, lse, delta, lengths, dq)],
-        [B, T1, H, D // H, C, L, t_real, QB, offset, int(q.dtype == torch.bfloat16)],
-        [_scale(D // H)], q.device, f"B={B} T1={T1} D={D} H={H} QB={QB} {q.dtype}",
-    )
-    banded_attention_dq.launches += 1
-    return dq
+    :func:`banded_attention_dq_reference`.  On a CUDA tensor this launches
+    the Hopper kernel (or raises): the tensor-core body
+    (``csrc/banded_attention_bwd_tc.cu``) for bf16, the CUDA-core body
+    (``csrc/banded_attention.cu``) for f32, as :func:`plan_k2b_body` picks;
+    ``banded_attention_dq.launches_by_body`` counts each.  On a CPU tensor
+    it runs the plain version."""
+    return _k2b("dq", banded_attention_dq, q, k, v, g, lse, delta, offset, lengths, C, L,
+                t_real, QB, H)
 
 
 banded_attention_dq.launches = 0
+banded_attention_dq.launches_by_body = {"tensor_core": 0, "cuda_core": 0}
 
 
 def banded_attention_dkv(q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H):
     """``(dk, dv)`` of the chunk-causal attention (K2b-dkv) — see
-    :func:`banded_attention_dkv_reference`.  Launches the Hopper kernel
-    on a CUDA tensor (or raises), runs the plain version on a CPU
-    tensor."""
-    offset = int(offset)
-    _check("banded_attention_dkv", (q, k, v, g), H, QB, C, L, t_real, lengths)
-    B, T1, D = q.shape
-    _check_rows("banded_attention_dkv", B, T1, H, (lse, delta))
-    if q.device.type == "cpu":
-        return banded_attention_dkv_reference(
-            q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H
-        )
-    _check_cuda_core_fits("K2b-dkv", QB, QB + L * C, D // H, q.device)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _call(
-        "banded_attention", "banded_attention_dkv", 9, 10,
-        [_ptr(a) for a in (q, k, v, g, lse, delta, lengths, dk, dv)],
-        [B, T1, H, D // H, C, L, t_real, QB, offset, int(q.dtype == torch.bfloat16)],
-        [_scale(D // H)], q.device, f"B={B} T1={T1} D={D} H={H} QB={QB} {q.dtype}",
-    )
-    banded_attention_dkv.launches += 1
-    return dk, dv
+    :func:`banded_attention_dkv_reference`.  Bodies, counts and the CPU
+    path as :func:`banded_attention_dq`."""
+    return _k2b("dkv", banded_attention_dkv, q, k, v, g, lse, delta, offset, lengths, C, L,
+                t_real, QB, H)
 
 
 banded_attention_dkv.launches = 0
+banded_attention_dkv.launches_by_body = {"tensor_core": 0, "cuda_core": 0}
 
 
 def fused_attention_fwd(x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, save):
@@ -664,12 +729,23 @@ def banded_flash_attention(
     ~128-row query block.  Returns ``(B, T, H, Dh)``; differentiable in
     q, k and v (forward K2f, backward K2b).  The three are promoted to
     one dtype and padded to a multiple of the query block.  With no
-    gradient wanted it runs K2f alone and saves nothing."""
+    gradient wanted it runs K2f alone and saves nothing.
+
+    On the card the default query block shrinks where a wide head's block
+    would not fit shared memory (:func:`plan_banded_query_rows`; forward
+    and backward take the same block).  The band does not depend on the
+    block: every row sees the same keys whatever it is.  Only the padding
+    rows with no valid key get the uniform average of their block's
+    window, which does depend on it; those rows are compared for
+    finiteness alone, and the backward gives them no gradient.  An
+    explicit ``query_rows`` stays as given."""
     B, T, H, Dh = q.shape
     D = H * Dh
     ct = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
     C, L = chunk_size, left_context
     QB = _pick_query_rows(C, L, query_rows)
+    if q.is_cuda and query_rows is None:
+        QB = plan_banded_query_rows(ct, QB, C, L, Dh, _smem_limit(q.device))
     T1 = -(-T // QB) * QB
 
     def flat(a):

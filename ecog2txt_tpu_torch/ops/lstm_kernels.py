@@ -17,9 +17,11 @@ backward K1b plus one GEMM for the recurrent weight's gradient.
 ``bilstm_grid_fwd`` is the port of ``_bi_grid_fwd_call`` and
 ``bilstm_grid_bwd`` of ``_bi_grid_bwd_call`` (``csrc/bilstm_grid.cu``:
 one launch whose grid has a direction axis, so the forward and the
-reverse-time chain of a layer run at once on separate SMs);
-:func:`fused_bilstm_grid` is the differentiable layer recurrence, the
-JAX package's function of the same name.
+reverse-time chain of a layer run at once on separate SMs; K4b's bf16
+adjoint is K1b's cluster body with that direction axis, picked by
+:func:`plan_bwd_body` as for K1b); :func:`fused_bilstm_grid` is the
+differentiable layer recurrence, the JAX package's function of the same
+name.
 """
 
 from __future__ import annotations
@@ -32,6 +34,17 @@ from ._build import device_smem_optin, load_library
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _ROWS_PER_BLOCK = (1, 2, 4, 8)
+_MAX_KERNEL_H = 1024  # the kernels' per-unit threading: one thread a hidden unit, 1024 a block
+
+
+def _check_kernel_width(name: str, H: int) -> None:
+    """Refuse, before any launch, a width the LSTM kernels do not take
+    (the plain version on a CPU tensor takes any, as JAX does)."""
+    if H > _MAX_KERNEL_H:
+        raise ValueError(
+            f"{name}: hidden width H={H} is above the CUDA kernels' limit "
+            f"H <= {_MAX_KERNEL_H} (one thread a hidden unit)"
+        )
 
 
 def lstm_recurrence_reference(
@@ -195,6 +208,7 @@ def lstm_recurrence(
     if xw.device.type != "cuda":
         raise ValueError(f"lstm_recurrence runs on cuda or cpu, not {xw.device}")
     B, H = h0.shape
+    _check_kernel_width("lstm_recurrence", H)
     return _launch(
         xw, wh, lengths, h0, c0, mask, reverse_time, return_c_seq,
         _rows_per_block(B, H, xw.device, waves=2),
@@ -336,25 +350,28 @@ def _cluster_smem(H: int, cs: int) -> int:
     return cs * R * Uc * 4 + Hp * SW * 2 + R * SH * 2 + R * SW * 2 + R * 7 * Uc * 2
 
 
-def plan_bwd_body(dtype: torch.dtype, B: int, H: int, sms: int, smem_limit: int) -> dict:
-    """Which K1b body runs, chosen up front from the dtype and the shape:
-    ``{"body": "cluster", "cluster_size": cs, "rows_per_cluster": 16,
-    "clusters": n, "smem": bytes}`` for bf16 where a cluster of ``cs`` in
-    (1, 2, 4, 8) CTAs holds ``wh`` (the fewest CTAs whose slice of at most
-    256 gate columns fits ``smem_limit``; 8 at H=400, 1 at H=64), else
-    ``{"body": "rows", "rows_per_block": r}``, the CUDA-core body (f32: the
-    tensor cores have no f32 product; H whose slice fits no cluster,
-    ~H > 420).  ``sms`` and ``smem_limit`` are the card's SM count and
-    per-block shared-memory opt-in, passed in so the plan runs without a
-    card."""
+def plan_bwd_body(dtype: torch.dtype, B: int, H: int, sms: int, smem_limit: int,
+                  directions: int = 1) -> dict:
+    """Which body of the LSTM adjoint runs, K1b's (``directions=1``) or
+    K4b's (``directions=2``, both chains of a biLSTM layer in one launch),
+    chosen up front from the dtype and the shape: ``{"body": "cluster",
+    "cluster_size": cs, "rows_per_cluster": 16, "clusters": n, "smem":
+    bytes}`` for bf16 where a cluster of ``cs`` in (1, 2, 4, 8) CTAs holds
+    ``wh`` (the fewest CTAs whose slice of at most 256 gate columns fits
+    ``smem_limit``; 8 at H=400, 1 at H=64; ``n = directions · ceil(B /
+    16)`` clusters), else ``{"body": "rows", "rows_per_block": r}``, the
+    CUDA-core body (f32: the tensor cores have no f32 product; H whose
+    slice fits no cluster, ~H > 420).  ``sms`` and ``smem_limit`` are the
+    card's SM count and per-block shared-memory opt-in, passed in so the
+    plan runs without a card."""
     if dtype == torch.bfloat16:
         for cs in _CLUSTER_SIZES:
             smem = _cluster_smem(H, cs)
             if 4 * _cluster_units(H, cs) <= _CLUSTER_MAX_GATE_COLS and smem <= smem_limit:
                 return {"body": "cluster", "cluster_size": cs,
                         "rows_per_cluster": _CLUSTER_ROWS,
-                        "clusters": -(-B // _CLUSTER_ROWS), "smem": smem}
-    return {"body": "rows", "rows_per_block": _rows_for(B, H, sms)}
+                        "clusters": directions * -(-B // _CLUSTER_ROWS), "smem": smem}
+    return {"body": "rows", "rows_per_block": _rows_for(B, H, sms, directions)}
 
 
 def _launch_bwd_cluster(xw, wh, hprev, cprev, cseq, lengths, mask, dhseq,
@@ -416,6 +433,7 @@ def lstm_recurrence_bwd(
             f"lstm_recurrence_bwd runs on cuda or cpu, not {xw.device}"
         )
     B, H = dhT.shape
+    _check_kernel_width("lstm_recurrence_bwd", H)
     plan = plan_bwd_body(xw.dtype, B, H, *_device_limits(xw.device))
     if plan["body"] == "cluster":
         out = _launch_bwd_cluster(*args, reverse_time, plan["cluster_size"])
@@ -560,7 +578,10 @@ def _check_grid(xwf, xwb, whf, whb, lengths, maskf, maskb):
         raise ValueError("xwf and xwb must share one shape, dtype and device")
 
 
-def _launch_grid(fn_name, tensors, T, B, H, dtype, device, rows):
+def _launch_grid(fn_name, tensors, T, B, H, dtype, device, tile):
+    """One launch of a ``csrc/bilstm_grid.cu`` entry on ``tensors``
+    stacked direction-major; ``tile`` is the rows body's batch rows a
+    block, or the cluster body's CTAs a cluster."""
     fn = getattr(load_library("bilstm_grid"), fn_name)
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p
@@ -570,11 +591,11 @@ def _launch_grid(fn_name, tensors, T, B, H, dtype, device, rows):
     array = (ctypes.c_void_p * len(ptrs))(*ptrs)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(array, T, B, H, int(dtype == torch.bfloat16), rows, stream)
+        err = fn(array, T, B, H, int(dtype == torch.bfloat16), tile, stream)
     if err != 0:
         raise RuntimeError(
             f"{fn_name} launch failed with CUDA error {err} "
-            f"(T={T}, B={B}, H={H}, rows={rows}, {dtype})"
+            f"(T={T}, B={B}, H={H}, tile {tile}, {dtype})"
         )
 
 
@@ -623,6 +644,7 @@ def bilstm_grid_fwd(
     if xwf.device.type != "cuda":
         raise ValueError(f"bilstm_grid_fwd runs on cuda or cpu, not {xwf.device}")
     B, H = maskf.shape
+    _check_kernel_width("bilstm_grid_fwd", H)
     out = _launch_grid_fwd(
         xwf, xwb, whf, whb, lengths, maskf, maskb, return_c_seq,
         _rows_per_block(B, H, xwf.device, directions=2),
@@ -665,7 +687,11 @@ def bilstm_grid_bwd(xwf, xwb, whf, whb, hpf, hpb, cpf, cpb, csf, csb, lengths,
     in one launch — see :func:`bilstm_grid_bwd_reference`.
 
     On a CUDA tensor this launches the Hopper kernel K4b (and raises if it
-    cannot be built or launched); on a CPU tensor it runs the reference.
+    cannot be built or launched): K1b's cluster body with a direction axis
+    (``csrc/lstm_bwd_cluster.cuh`` through ``csrc/bilstm_grid.cu``) where
+    :func:`plan_bwd_body` picks it for two directions, else the rows body;
+    ``bilstm_grid_bwd.launches_by_body`` counts each.  On a CPU tensor it
+    runs the reference.
     """
     args = (xwf, xwb, whf, whb, hpf, hpb, cpf, cpb, csf, csb, lengths,
             maskf, maskb, dhsf, dhsb, dhT, dcT)
@@ -681,24 +707,30 @@ def bilstm_grid_bwd(xwf, xwb, whf, whb, hpf, hpb, cpf, cpb, csf, csb, lengths,
         return bilstm_grid_bwd_reference(*args)
     if xwf.device.type != "cuda":
         raise ValueError(f"bilstm_grid_bwd runs on cuda or cpu, not {xwf.device}")
+    _check_kernel_width("bilstm_grid_bwd", H)
+    plan = plan_bwd_body(xwf.dtype, B, H, *_device_limits(xwf.device), directions=2)
     # the kernel takes each per-direction tensor stacked direction-major
     stack = lambda a, b: torch.stack([a, b])  # noqa: E731
     wh = stack(whf, whb)
     dgates = torch.empty((2, T, B, G), dtype=xwf.dtype, device=xwf.device)
     dh0 = torch.empty((2, B, H), dtype=torch.float32, device=xwf.device)
     dc0 = torch.empty_like(dh0)
-    _launch_grid(
-        "bilstm_grid_bwd",
-        (stack(xwf, xwb), wh, wh.transpose(1, 2).contiguous(), stack(hpf, hpb),
-         stack(cpf, cpb), stack(csf, csb), lengths, stack(maskf, maskb),
-         stack(dhsf, dhsb), dhT, dcT, dgates, dh0, dc0),
-        T, B, H, xwf.dtype, xwf.device, _rows_per_block(B, H, xwf.device, directions=2),
-    )
+    seqs = (stack(hpf, hpb), stack(cpf, cpb), stack(csf, csb), lengths, stack(maskf, maskb),
+            stack(dhsf, dhsb), dhT, dcT, dgates, dh0, dc0)
+    if plan["body"] == "cluster":
+        _launch_grid("bilstm_grid_bwd_cluster", (stack(xwf, xwb), wh, *seqs),
+                     T, B, H, xwf.dtype, xwf.device, plan["cluster_size"])
+    else:
+        _launch_grid("bilstm_grid_bwd",
+                     (stack(xwf, xwb), wh, wh.transpose(1, 2).contiguous(), *seqs),
+                     T, B, H, xwf.dtype, xwf.device, plan["rows_per_block"])
     bilstm_grid_bwd.launches += 1
+    bilstm_grid_bwd.launches_by_body[plan["body"]] += 1
     return dgates[0], dgates[1], dh0, dc0
 
 
 bilstm_grid_bwd.launches = 0
+bilstm_grid_bwd.launches_by_body = {"cluster": 0, "rows": 0}
 
 
 class BiLSTMGrid(torch.autograd.Function):

@@ -549,39 +549,58 @@ def test_k1b_cluster_sizes_match_plain_version(H, cs, reverse_time):
 
 
 @pytest.mark.gpu
-def test_banded_kernels_refuse_a_block_beyond_shared_memory():
-    """At head dim 256 (one head) the CUDA-core bodies' f32 window does not
-    fit shared memory: f32 K2f, and K2b-dq and K2b-dkv in either dtype,
-    refuse with ValueError (no number, no launch), where JAX's banded
-    attention takes any head dim (ROADMAP, Queue 3).  bf16 K2f runs its
-    tensor-core body there and matches its plain version."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_kernels_refuse_a_block_beyond_shared_memory(dtype):
+    """At head dim 256 (one head: ``model_dim=256, num_heads=1``)
+    ``banded_flash_attention`` plans a query block that fits (80 rows f32,
+    96 bf16 on the H100): K2f, K2b-dq and K2b-dkv launch in the dtype's
+    bodies and match their plain versions at that block, forward and
+    backward.  An explicit 128-row f32 block, whose CUDA-core window does
+    not fit shared memory, is still refused with ValueError (no number, no
+    launch)."""
     _need_cuda()
     from ecog2txt_tpu_torch.ops import attention_kernels as ak
 
-    B, T, Dh, C, L = 2, 40, 256, 16, 1
-    QB = ak._pick_query_rows(C, L, None)
+    B, T, Dh, C, L = 2, 100, 256, 16, 1
+    QB = ak.plan_banded_query_rows(dtype, 128, C, L, Dh, ak._smem_limit("cuda"))
+    assert QB < 128 and QB % 16 == 0
+    T1 = -(-T // QB) * QB
     g = torch.Generator().manual_seed(9)
-    lengths = torch.tensor([T, 29], dtype=torch.int32).cuda()
+    q, k, v, cot = (torch.randn((B, T, 1, Dh), generator=g).to(dtype).cuda() for _ in range(4))
+    lengths = torch.tensor([T, 61], dtype=torch.int32).cuda()
+    body = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    wrappers = (ak.banded_attention_fwd, ak.banded_attention_dq, ak.banded_attention_dkv)
+    before = [dict(w.launches_by_body) for w in wrappers]
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    out = ak.banded_flash_attention(*leaves, 0, lengths, chunk_size=C, left_context=L)
+    (out.float() * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    for w, b0 in zip(wrappers, before):
+        assert w.launches_by_body[body] == b0[body] + 1
+    pad = lambda a: torch.nn.functional.pad(a.reshape(B, T, Dh), (0, 0, 0, T1 - T))  # noqa: E731
+    q3, k3, v3, g3 = (pad(a).contiguous() for a in (q, k, v, cot))
     args = (0, lengths, C, L, T, QB, 1)
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, gout = (torch.randn((B, QB, Dh), generator=g).to(dtype).cuda() for _ in range(4))
-        counts = [w.launches for w in (ak.banded_attention_fwd, ak.banded_attention_dq,
-                                       ak.banded_attention_dkv)]
-        r_out, r_lse = ak.banded_attention_fwd_reference(q, k, v, *args)
-        if dtype == torch.float32:
-            with pytest.raises(ValueError, match="shared memory"):
-                ak.banded_attention_fwd(q, k, v, *args)
-        else:
-            out, _ = ak.banded_attention_fwd(q, k, v, *args)
-            torch.testing.assert_close(out.float(), r_out.float(), **TOL[dtype])
-            counts[0] += 1
-        bwd = (q, k, v, gout, r_lse, ak._delta(gout, r_out, 1), *args)
+    r_out, r_lse = ak.banded_attention_fwd_reference(q3, k3, v3, *args)
+    valid = (torch.arange(T, device="cuda")[None] < lengths[:, None])[..., None, None]
+    torch.testing.assert_close(torch.where(valid, out.float(), 0.0),
+                               torch.where(valid, r_out[:, :T].reshape(B, T, 1, Dh).float(), 0.0),
+                               **TOL[dtype])
+    bwd = (q3, k3, v3, g3, r_lse, ak._delta(g3, r_out, 1), *args)
+    dk, dv = ak.banded_attention_dkv(*bwd)
+    r_dk, r_dv = ak.banded_attention_dkv_reference(*bwd)
+    for got, want in ((ak.banded_attention_dq(*bwd), ak.banded_attention_dq_reference(*bwd)),
+                      (dk, r_dk), (dv, r_dv)):
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if dtype == torch.float32:
+        n = [w.launches for w in wrappers]
+        big = [torch.nn.functional.pad(a.reshape(B, T, Dh), (0, 0, 0, 128 - T)).contiguous()
+               for a in (q, k, v)]
         with pytest.raises(ValueError, match="shared memory"):
-            ak.banded_attention_dq(*bwd)
+            ak.banded_attention_fwd(*big, 0, lengths, C, L, T, 128, 1)
         with pytest.raises(ValueError, match="shared memory"):
-            ak.banded_attention_dkv(*bwd)
-        assert [w.launches for w in (ak.banded_attention_fwd, ak.banded_attention_dq,
-                                     ak.banded_attention_dkv)] == counts
+            ak.banded_flash_attention(q, k, v, 0, lengths, chunk_size=C, left_context=L,
+                                      query_rows=128)
+        assert [w.launches for w in wrappers] == n
 
 
 @pytest.mark.gpu
@@ -596,6 +615,14 @@ def test_planners_agree_with_the_kernels_shared_memory():
     tc.argtypes, tc.restype = [ctypes.c_int] * 3, ctypes.c_int
     for QB, W, Dh in ((128, 144, 64), (40, 48, 20), (32, 64, 96)):
         assert tc(QB, W, Dh) == ak._k2f_tc_smem(QB, W, Dh)
+    from ecog2txt_tpu_torch.ops.attention_kernels import _k2b_tc_smem
+
+    for kernel in ("dq", "dkv"):
+        fn = getattr(_build.load_library("banded_attention_bwd_tc"),
+                     f"banded_attention_{kernel}_tc_smem")
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        for QB, W, Dh in ((128, 144, 64), (40, 48, 20), (96, 112, 256), (128, 132, 16)):
+            assert fn(QB, W, Dh) == _k2b_tc_smem(f"K2b-{kernel}", QB, W, Dh)
     cl = _build.load_library("lstm_bwd_cluster").lstm_recurrence_bwd_cluster_smem
     cl.argtypes, cl.restype = [ctypes.c_int] * 2, ctypes.c_longlong
     for H, cs in ((400, 8), (100, 2), (64, 1), (17, 4)):
@@ -808,3 +835,140 @@ def test_bi_grid_training_step_launches_the_grid_kernels():
                             torch.Generator(device="cuda").manual_seed(0), 1)
     assert np.isfinite(float(metrics["loss_total"]))
     assert [w.launches - b for w, b in zip(wrappers, before)] == [0, 0, 2, 2]
+
+
+# --------------------------------------------------------------------------
+# K4b on the cluster body, K2b on the tensor cores, the LSTM width limit
+# --------------------------------------------------------------------------
+
+
+def _k4b_cluster_case(B, Hw, T, seed):
+    """K4b inputs from a real forward pass of both chains (the plain
+    recurrences), ragged lengths with a zero, 0/2 masks, nonzero upstream
+    gradients, bf16."""
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    xw = [rand(T, B, 4 * Hw).bfloat16().cuda() for _ in "fb"]
+    wh = [(rand(Hw, 4 * Hw) / Hw ** 0.5).bfloat16().cuda() for _ in "fb"]
+    lengths = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    lengths[0] = T if B == 1 else 0
+    lengths = lengths.cuda()
+    masks = [((torch.rand((B, Hw), generator=g) < 0.5).float() * 2.0).cuda() for _ in "fb"]
+    hf, hb, cf, cb, _, _ = lstm_kernels.bilstm_grid_fwd_reference(*xw, *wh, lengths, *masks)
+    zeros = torch.zeros((B, Hw), device="cuda")
+    hpf, cpf = (lstm_kernels._shifted(a, zeros, False) for a in (hf, cf))
+    hpb, cpb = (lstm_kernels._shifted(a, zeros, True) for a in (hb, cb))
+    dhs = [rand(T, B, Hw).bfloat16().cuda() for _ in "fb"]
+    return (*xw, *wh, hpf, hpb, cpf, cpb, cf, cb, lengths, *masks, *dhs,
+            rand(2, B, Hw).cuda(), rand(2, B, Hw).cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hw", [100, 400])
+@pytest.mark.parametrize("B", [1, 17, 256])
+def test_k4b_cluster_body_matches_plain_version(B, Hw):
+    """K4b's bf16 body (K1b's cluster body, a direction axis on the grid)
+    against its plain version, padded B (1, 17) and H (100); two launches
+    are bit-identical, and equal two K1b launches (the same body a
+    direction) bit for bit."""
+    _need_cuda()
+    args = _k4b_cluster_case(B, Hw, 24, seed=B * 10 + Hw)
+    K4b = lstm_kernels.bilstm_grid_bwd
+    before = dict(K4b.launches_by_body)
+    got = K4b(*args)
+    again = K4b(*args)
+    torch.cuda.synchronize()
+    assert K4b.launches_by_body == {"cluster": before["cluster"] + 2, "rows": before["rows"]}
+    want = lstm_kernels.bilstm_grid_bwd_reference(*args)
+    (xwf, xwb, whf, whb, hpf, hpb, cpf, cpb, csf, csb, lengths, maskf, maskb,
+     dhsf, dhsb, dhT, dcT) = args
+    dgf, dh0f, dc0f = lstm_kernels.lstm_recurrence_bwd(
+        xwf, whf, hpf, cpf, csf, lengths, maskf, dhsf, dhT[0], dcT[0])
+    dgb, dh0b, dc0b = lstm_kernels.lstm_recurrence_bwd(
+        xwb, whb, hpb, cpb, csb, lengths, maskb, dhsb, dhT[1], dcT[1], True)
+    two = (dgf, dgb, torch.stack([dh0f, dh0b]), torch.stack([dc0f, dc0b]))
+    for a, b, c, w in zip(got, again, two, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+        torch.testing.assert_close(a.float(), w.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_k4b_keeps_the_rows_body_for_f32():
+    _need_cuda()
+    args = [a.float() if a.dtype == torch.bfloat16 else a
+            for a in _k4b_cluster_case(5, 64, 9, seed=3)]
+    K4b = lstm_kernels.bilstm_grid_bwd
+    before = dict(K4b.launches_by_body)
+    got = K4b(*args)
+    torch.cuda.synchronize()
+    assert K4b.launches_by_body == {"cluster": before["cluster"], "rows": before["rows"] + 1}
+    for a, w in zip(got, lstm_kernels.bilstm_grid_bwd_reference(*args)):
+        torch.testing.assert_close(a, w, **TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "Dh, C, L, QB, offset, t_real",
+    [(64, 16, 1, 128, 0, 104), (16, 4, 1, 128, 0, 100), (48, 8, 2, 32, 16, 90),
+     (96, 8, 1, 40, 0, 100), (64, 16, 1, 48, 256, 100), (20, 4, 2, 24, 8, 70),
+     (256, 16, 1, 96, 32, 100)],
+)
+def test_k2b_tensor_core_bodies_match_plain_versions(Dh, C, L, QB, offset, t_real):
+    """The bf16 bodies of K2b-dq and K2b-dkv at padded shapes (head dims
+    16 to 256, one not a multiple of 8; query blocks of 24 to 128 rows;
+    offsets > 0; t_real < T1; ragged lengths, one ending inside a chunk
+    and one before the first chunk's end) against their plain versions,
+    every row."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    H, B = 2, 3
+    T1 = -(-t_real // QB) * QB
+    g = torch.Generator().manual_seed(Dh + QB + offset)
+    q, k, v, gout = (torch.randn((B, T1, H * Dh), generator=g).bfloat16().cuda()
+                     for _ in range(4))
+    lengths = torch.tensor([t_real + offset, t_real + offset - 13, offset + 3],
+                           dtype=torch.int32).cuda()
+    args = (offset, lengths, C, L, t_real, QB, H)
+    r_out, r_lse = ak.banded_attention_fwd_reference(q, k, v, *args)
+    bwd = (q, k, v, gout, r_lse, ak._delta(gout, r_out, H), *args)
+    before = [dict(w.launches_by_body) for w in (ak.banded_attention_dq, ak.banded_attention_dkv)]
+    dq = ak.banded_attention_dq(*bwd)
+    dk, dv = ak.banded_attention_dkv(*bwd)
+    torch.cuda.synchronize()
+    for w, b0 in zip((ak.banded_attention_dq, ak.banded_attention_dkv), before):
+        assert w.launches_by_body == {"tensor_core": b0["tensor_core"] + 1,
+                                      "cuda_core": b0["cuda_core"]}
+    r_dk, r_dv = ak.banded_attention_dkv_reference(*bwd)
+    for got, want in ((dq, ak.banded_attention_dq_reference(*bwd)), (dk, r_dk), (dv, r_dv)):
+        assert bool(torch.isfinite(got.float()).all())
+        torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_lstm_kernels_refuse_a_width_above_1024():
+    """On a CUDA tensor the four LSTM wrappers refuse H > 1024 with a
+    ValueError naming the width and the limit, before any launch."""
+    _need_cuda()
+    Tn, Bn, Hw = 2, 1, 1040
+    z = torch.zeros((Bn, Hw), device="cuda")
+    xw = torch.zeros((Tn, Bn, 4 * Hw), device="cuda")
+    wh = torch.zeros((Hw, 4 * Hw), device="cuda")
+    seq = torch.zeros((Tn, Bn, Hw), device="cuda")
+    lengths = torch.full((Bn,), Tn, dtype=torch.int32, device="cuda")
+    z2 = torch.zeros((2, Bn, Hw), device="cuda")
+    counts = [w.launches for w in (lstm_kernels.lstm_recurrence, lstm_kernels.lstm_recurrence_bwd,
+                                   lstm_kernels.bilstm_grid_fwd, lstm_kernels.bilstm_grid_bwd)]
+    calls = (
+        lambda: lstm_kernels.lstm_recurrence(xw, wh, lengths, z, z, z),
+        lambda: lstm_kernels.lstm_recurrence_bwd(xw, wh, seq, seq, seq, lengths, z, seq, z, z),
+        lambda: lstm_kernels.bilstm_grid_fwd(xw, xw, wh, wh, lengths, z, z),
+        lambda: lstm_kernels.bilstm_grid_bwd(xw, xw, wh, wh, seq, seq, seq, seq, seq, seq,
+                                             lengths, z, z, seq, seq, z2, z2),
+    )
+    for call in calls:
+        with pytest.raises(ValueError, match="H=1040 is above the CUDA kernels' limit H <= 1024"):
+            call()
+    assert counts == [w.launches for w in (
+        lstm_kernels.lstm_recurrence, lstm_kernels.lstm_recurrence_bwd,
+        lstm_kernels.bilstm_grid_fwd, lstm_kernels.bilstm_grid_bwd)]

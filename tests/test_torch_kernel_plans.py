@@ -1,11 +1,13 @@
 """The host-side planners that choose, before a launch, which body of a
-kernel runs and how its grid is cut: K1b's cluster body (cluster size,
-rows per cluster), K2f's tensor-core body and K3f's query block.  They
-take the card's SM count and shared-memory limit as arguments, so they
-run here without a card; the H100's figures are 132 SMs and 227 KB
-(232448 bytes) of opt-in shared memory a block.
+kernel runs and how its grid is cut: K1b's and K4b's cluster body (cluster
+size, rows per cluster), K2f's and K2b's tensor-core bodies, the query
+block of ``banded_flash_attention`` and K3f's.  They take the card's SM
+count and shared-memory limit as arguments, so they run here without a
+card; the H100's figures are 132 SMs and 227 KB (232448 bytes) of opt-in
+shared memory a block.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -113,3 +115,137 @@ def test_cuda_core_attention_blocks_against_shared_memory():
     for kernel in ("K2f", "K2b-dq", "K2b-dkv"):
         assert ak._cuda_core_smem(kernel, 144, 128) <= SMEM
         assert ak._cuda_core_smem(kernel, 144, 256) > SMEM
+
+
+@pytest.mark.parametrize(
+    "dtype, B, H, plan",
+    [(torch.bfloat16, 256, 400, {"body": "cluster", "cluster_size": 8, "rows_per_cluster": 16,
+                                 "clusters": 32, "smem": 231040}),
+     (torch.bfloat16, 1, 400, {"body": "cluster", "cluster_size": 8, "rows_per_cluster": 16,
+                               "clusters": 2, "smem": 231040}),
+     (torch.float32, 256, 400, {"body": "rows", "rows_per_block": 4}),
+     (torch.bfloat16, 256, 512, {"body": "rows", "rows_per_block": 4})],
+)
+def test_k4b_plans_two_directions(dtype, B, H, plan):
+    """K4b runs both chains of a layer in one launch: bf16 at H=400 takes
+    the cluster body with twice K1b's clusters (32 of 8 CTAs at B=256);
+    f32, and H=512 whose slice fits no cluster, keep the rows body with
+    the rows per block of a doubled grid."""
+    assert lk.plan_bwd_body(dtype, B, H, SMS, SMEM, directions=2) == plan
+    if plan["body"] == "rows":
+        assert plan["rows_per_block"] == lk._rows_for(B, H, SMS, directions=2)
+
+
+@pytest.mark.parametrize(
+    "dtype, QB, W, Dh, body",
+    [(torch.bfloat16, 128, 144, 64, "tensor_core"),  # headline, request, long
+     (torch.bfloat16, 128, 132, 16, "tensor_core"),  # the demo trainer
+     (torch.bfloat16, 96, 112, 256, "tensor_core"),  # head dim 256, planned block
+     (torch.bfloat16, 128, 144, 256, "cuda_core"),   # does not fit
+     (torch.float32, 128, 144, 64, "cuda_core"),
+     (torch.float32, 128, 132, 16, "cuda_core")],
+)
+def test_k2b_body_by_dtype_and_shape(dtype, QB, W, Dh, body):
+    assert ak.plan_k2b_body(dtype, QB, W, Dh, SMEM) == body
+
+
+def test_k2b_tensor_core_blocks_at_the_headline_shape():
+    """K2b-dq stages Q and G (128 rows) and K and V (144) in bf16 at a
+    72-element row stride, and 144 key chunk ids: 78912 bytes; K2b-dkv
+    K and V (128) and Q and G (144), with chunk ids, lse and delta of the
+    144 rows: 80064 bytes.  Two blocks fit an SM."""
+    assert ak._k2b_tc_smem("K2b-dq", 128, 144, 64) == 2 * (256 + 288) * 72 + 4 * 144 == 78912
+    assert ak._k2b_tc_smem("K2b-dkv", 128, 144, 64) == 2 * (256 + 288) * 72 + 12 * 144 == 80064
+    assert ak._k2b_tc_smem("K2b-dkv", 40, 48, 20) == 2 * (2 * 48 + 2 * 48) * 40 + 12 * 48
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_query_block_keeps_128_rows_at_the_conformer_head_dim(dtype):
+    assert ak.plan_banded_query_rows(dtype, 128, 16, 1, 64, SMEM) == 128
+    assert ak.plan_banded_query_rows(dtype, 128, 4, 1, 16, SMEM) == 128  # the demo trainer
+
+
+@pytest.mark.parametrize("dtype, rows", [(torch.float32, 80), (torch.bfloat16, 96)])
+def test_banded_query_block_shrinks_at_head_dim_256(dtype, rows):
+    """Head dim 256 (``model_dim=256, num_heads=1``): the largest multiple
+    of L·C = 16 whose blocks fit every body that runs them, the CUDA-core
+    bodies' f32 window (f32) or the tensor-core bodies (bf16); 16 more rows
+    would not fit."""
+    QB = ak.plan_banded_query_rows(dtype, 128, 16, 1, 256, SMEM)
+    assert QB == rows and QB % 16 == 0
+    for q in (QB, QB + 16):
+        fits = (ak._k2f_tc_smem(q, q + 16, 256) <= SMEM
+                and all(ak._k2b_tc_smem(k, q, q + 16, 256) <= SMEM for k in ("K2b-dq", "K2b-dkv"))
+                if dtype == torch.bfloat16 else
+                all(ak._cuda_core_smem(k, q + 16, 256) <= SMEM
+                    for k in ("K2f", "K2b-dq", "K2b-dkv")))
+        assert fits == (q == QB)
+    if dtype == torch.bfloat16:
+        assert ak.plan_k2f_body(dtype, QB, QB + 16, 256, SMEM) == "tensor_core"
+        assert ak.plan_k2b_body(dtype, QB, QB + 16, 256, SMEM) == "tensor_core"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_query_block_refuses_what_no_block_fits(dtype):
+    with pytest.raises(ValueError, match="head dim 256, chunk 16, left context 1"):
+        ak.plan_banded_query_rows(dtype, 128, 16, 1, 256, 40 * 1024)
+
+
+@pytest.mark.parametrize("C, Dh, rows", [(16, 448, 16), (4, 512, 16)])
+def test_k3f_query_block_at_its_widest_head_dims(C, Dh, rows):
+    """K3f stages q, k and v of the window in f32 at the full head dim, plus
+    a 32-row f32 weight tile: at chunk 16, left context 1 one 16-row block
+    fits up to head dim 448 (452 too); at chunk 4 head dim 512 fits."""
+    assert ak.plan_fused_query_rows(128, C, 1, Dh, SMEM) == rows
+
+
+@pytest.mark.parametrize("Dh", [454, 456, 512])
+def test_k3f_refuses_wide_heads_at_chunk_16(Dh):
+    """From head dim 454 not even 16 rows of K3f fit at chunk 16, left
+    context 1: a limit of K3f's f32 staging, not of its projections."""
+    with pytest.raises(ValueError, match="no query block fits"):
+        ak.plan_fused_query_rows(128, 16, 1, Dh, SMEM)
+
+
+def test_flash_attention_values_do_not_depend_on_the_query_block():
+    """``banded_flash_attention`` on the CPU (the plain versions) at query
+    blocks of 32 and 128 rows, head dim 64, ragged lengths: the outputs on
+    rows below each length, and the gradients of q, k and v (a cotangent
+    on every row), agree at the f32 tolerance.  The band, not the block,
+    defines what a row sees, so the block the card plans changes nothing
+    the JAX function's block defines."""
+    B, T, H, Dh, C, L = 2, 100, 2, 64, 16, 1
+    rng = np.random.default_rng(0)
+    q, k, v, cot = (torch.from_numpy(rng.standard_normal((B, T, H, Dh), dtype=np.float32))
+                    for _ in range(4))
+    lengths = torch.tensor([100, 61], dtype=torch.int32)
+
+    def run(rows):
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        out = ak.banded_flash_attention(*leaves, 0, lengths, chunk_size=C, left_context=L,
+                                        query_rows=rows)
+        (out * cot).sum().backward()
+        return out.detach(), [a.grad for a in leaves]
+
+    (o32, g32), (o128, g128) = run(32), run(None)
+    valid = (torch.arange(T)[None] < lengths[:, None])[..., None, None]
+    tol = dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(torch.where(valid, o32, 0.0), torch.where(valid, o128, 0.0), **tol)
+    for a, b in zip(g32, g128):
+        torch.testing.assert_close(a, b, **tol)
+
+
+def test_lstm_width_limit_is_the_kernels_alone():
+    """The CUDA kernels refuse H > 1024 (one thread a hidden unit); the
+    plain path on a CPU tensor takes any width, as JAX does."""
+    T, B, Hw = 2, 1, 1040
+    g = torch.Generator().manual_seed(0)
+    xw = torch.randn((T, B, 4 * Hw), generator=g)
+    wh = torch.randn((Hw, 4 * Hw), generator=g) / Hw ** 0.5
+    zeros = torch.zeros((B, Hw))
+    lengths = torch.tensor([T], dtype=torch.int32)
+    h_seq, _, hT, _ = lk.lstm_recurrence(xw, wh, lengths, zeros, zeros, torch.ones((B, Hw)))
+    assert h_seq.shape == (T, B, Hw) and bool(torch.isfinite(hT).all())
+    with pytest.raises(ValueError, match="H=1040 is above the CUDA kernels' limit H <= 1024"):
+        lk._check_kernel_width("lstm_recurrence", Hw)
+    lk._check_kernel_width("lstm_recurrence", 1024)
