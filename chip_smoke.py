@@ -81,20 +81,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
 9. the conformer demo trainer (a main path): ``MultiSubjectTrainer`` on
    the demo experiment with a small flash conformer, bf16: training WER
    must fall, with 2 K2b-dq and 2 K2b-dkv launches per step;
-K1b, K4b, K2f, K2b-dq and K2b-dkv have two bodies each, chosen up front by
-dtype (and shape): bf16 runs the cluster body of the LSTM adjoint
-(``csrc/lstm_bwd_cluster.cuh``: K1b one direction a launch, K4b both with
-a direction axis) and the attention kernels' tensor-core bodies
-(``csrc/banded_attention_tc.cu``, ``csrc/banded_attention_bwd_tc.cu``),
-f32 the CUDA-core bodies.  Every main path reads ``launches_by_body``
-beside its counts and fails unless its bf16 launches went through the new
-body (the f32 cases through the old one).  Phase 2 holds K1b at B=1, 16,
-17 and 256 (H=400), at H=100 and the demo width, and K4b at the same
-batches at H=400 and H=100, bit-identical on repeat (K4b's cluster body
-equal to two K1b launches bit for bit); phase 6 holds K3f at head dims 288
-and 384 too, and ``banded_flash_attention`` at head dim 256 in both dtypes
-at the query block it plans; both bodies of K1b, K4b, K2f and K2b are
-timed at bf16, in turns.
+K1f, K1b, K4f, K4b, K2f, K2b-dq and K2b-dkv have two bodies each, chosen
+up front by dtype (and shape): bf16 runs the cluster bodies of the LSTM
+forward and adjoint (``csrc/lstm_fwd_cluster.cuh``,
+``csrc/lstm_bwd_cluster.cuh``: K1f / K1b one direction a launch, K4f /
+K4b both with a direction axis) and the attention kernels' tensor-core
+bodies (``csrc/banded_attention_tc.cu``, ``csrc/banded_attention_bwd_tc.cu``),
+f32 the rows and CUDA-core bodies.  Every main path reads
+``launches_by_body`` beside its counts and fails unless its bf16 launches
+went through the new body (the f32 cases through the old one).  Phase 2
+holds K1f and K1b at B=1, 16, 17 and 256 (H=400) and the demo width (K1b
+at H=100 too), and K4f and K4b at the same batches at H=400 and H=100,
+bit-identical on repeat (K4f's and K4b's cluster bodies equal to two K1f
+/ K1b launches bit for bit; K1f's row 0 alone equal to row 0 in B=17);
+phase 6 holds K3f at head dims 288, 384, 454 and 512 too (512 on 16-column
+streamed tiles), and ``banded_flash_attention`` at head dim 256 in both
+dtypes at the query block it plans; both bodies of K1f, K1b, K4f, K4b, K2f
+and K2b are timed at bf16, in turns (K1f and K4f with cuDNN in the same
+turns, and at 16 and 32 rows a cluster).
 Every conformer path also counts its LayerNorm launches: 5 K5f per block
 and encode (4 under 'fused', where K3f normalises inside) and as many K5b
 per training step; the flash training step is timed once more with the
@@ -116,6 +120,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -179,7 +184,8 @@ WRAPPERS = {
 }
 # the kernels with two bodies, chosen up front by dtype and shape; each
 # wrapper counts its launches by body beside its plain count
-BODIES = {"K1b": lstm_kernels.lstm_recurrence_bwd, "K2f": ATTN.banded_attention_fwd,
+BODIES = {"K1f": lstm_kernels.lstm_recurrence, "K1b": lstm_kernels.lstm_recurrence_bwd,
+          "K2f": ATTN.banded_attention_fwd, "K4f": lstm_kernels.bilstm_grid_fwd,
           "K4b": lstm_kernels.bilstm_grid_bwd, "K2b-dq": ATTN.banded_attention_dq,
           "K2b-dkv": ATTN.banded_attention_dkv}
 # LayerNorms per conformer block that run K5f/K5b: both FFNs, the
@@ -295,11 +301,31 @@ def environment() -> dict:
     # the reference products stay full f32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # one nvcc per source, all started together; the phases wait for what
+    # they use (wait_built), so the slowest source (K3f's) builds while the
+    # LSTM kernels are checked
     t0 = time.perf_counter()
-    names = _build.build_all()
-    build_s = time.perf_counter() - t0
-    print(f"kernel build: {', '.join(names)} {build_s:.2f} s (in parallel)")
-    return {"build_s": build_s}
+    names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    pool = ThreadPoolExecutor(len(names))
+
+    def build(name):
+        _build.load_library(name)
+        return time.perf_counter() - t0
+
+    return {"t0": t0, "pool": pool, "builds": {n: pool.submit(build, n) for n in names}}
+
+
+def wait_built(env: dict, names=None) -> None:
+    """Wait until the named kernel libraries (every one by default) are
+    built and loaded (a failed build raises here); with every one, record
+    and print the build's wall time."""
+    for name in names or env["builds"]:
+        env["builds"][name].result()
+    if names is None and "build_s" not in env:
+        env["pool"].shutdown()
+        env["build_s"] = max(f.result() for f in env["builds"].values())
+        print(f"kernel build: {', '.join(env['builds'])} {env['build_s']:.2f} s (in parallel; "
+              "the LSTM kernel checks ran meanwhile)")
 
 
 # --------------------------------------------------------------------------
@@ -385,23 +411,156 @@ def _case_name(B, h, steps, dtype, reverse_time, variant) -> str:
             f"{'reverse' if reverse_time else 'forward'} {variant}")
 
 
+def _in_turns(fns: dict, reps: int, order) -> dict:
+    """Mean device time (ms) of each of ``fns`` timed in the given order
+    (each name twice, e.g. a, b, c, c, b, a), so that a drift of the card
+    between the calls falls on all of them alike."""
+    ms: dict = {name: [] for name in fns}
+    for name in order:
+        ms[name].append(cuda_ms(fns[name], reps=reps))
+    return {name: float(np.mean(v)) for name, v in ms.items()}
+
+
+def _k1f_row_independence() -> None:
+    """One row's outputs at B=1 equal the same row inside B=17 bit for bit
+    (cluster body, bf16, ragged lengths and a 0/2 mask, both directions):
+    each row of a tensor-core product is its own row of A times B."""
+    for reverse_time in (False, True):
+        args = _recurrence_inputs(17, torch.bfloat16, "ragged_mask_state", reverse_time, 77)
+        one = tuple(a[:, :1] if a.dim() == 3 else a[:1] if a.shape[0] == 17 else a
+                    for a in args)
+        one = tuple(a.contiguous() for a in one)
+        full = lstm_kernels.lstm_recurrence(*args, reverse_time=reverse_time, return_c_seq=True)
+        alone = lstm_kernels.lstm_recurrence(*one, reverse_time=reverse_time, return_c_seq=True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(f[:, :1] if f.dim() == 3 else f[:1], a)
+                   for f, a in zip(full, alone))
+        check(same, f"K1f cluster body: row 0 of B=17 differs from B=1 "
+                    f"({'reverse' if reverse_time else 'forward'})")
+    print("kernel lstm_recurrence_fwd: row 0 alone (B=1) == row 0 inside B=17 bit for bit, "
+          "forward and reverse (cluster body)")
+
+
+def _k1f_timings(B: int) -> dict:
+    """K1f at the serving shape (bf16, full lengths, unit mask, zero state):
+    the cluster body the wrapper plans in turns with the rows body (the old
+    bf16 body) and cuDNN's ``nn.LSTM``; at B=256 the cluster body at 16 and
+    32 rows a cluster in turns too; the plain version, the bound."""
+    args = _recurrence_inputs(B, torch.bfloat16, "serving", False, 1000 + B)
+    sms, smem_limit = lstm_kernels._device_limits(args[0].device)
+    plan = lstm_kernels._plan_fwd(torch.bfloat16, B, H, args[0].device)
+    check(plan["body"] == "cluster", f"K1f at B={B} H={H} bf16 plans {plan}")
+    plan["resident_clusters"] = lstm_kernels._fwd_resident(0, H, plan["cluster_size"])
+    rows = lstm_kernels._rows_for(B, H, sms, waves=2)
+    lstm = _library_lstm(args[1])
+    with torch.no_grad():
+        lib_out, _ = lstm(args[0])
+        t = _in_turns({
+            "rows": lambda: lstm_kernels._launch(*args, False, False, rows),
+            "cluster": lambda: lstm_kernels.lstm_recurrence(*args),
+            "library": lambda: lstm(args[0]),
+        }, 20, ("rows", "cluster", "library", "library", "cluster", "rows"))
+    ours = lstm_kernels.lstm_recurrence(*args)[0]
+    lib_err = float((lib_out.float() - ours.float()).abs().max())
+    bound_ms, bound_by = _bound(B, torch.bfloat16)
+    out = {"ms": t["cluster"], "ms_rows_body": t["rows"], "library_ms": t["library"],
+           "plain_ms": cuda_ms(lambda: lstm_kernels.lstm_recurrence_reference(*args),
+                               reps=3, warmup=1),
+           "bound_ms": bound_ms, "bound_by": bound_by, "rows_per_block": rows, "plan": plan}
+    if B == 256:
+        cs = plan["cluster_size"]
+        out["ms_by_rows_per_cluster"] = _in_turns({
+            16: lambda: lstm_kernels._launch_cluster(*args, False, False, cs, 16),
+            32: lambda: lstm_kernels._launch_cluster(*args, False, False, cs, 32),
+        }, 20, (16, 32, 32, 16))
+    print(f"timing lstm_recurrence_fwd B={B} T'={T_STEPS} H={H} bf16: kernel (cluster body, "
+          f"{plan['clusters']} clusters of {plan['cluster_size']} CTAs x "
+          f"{plan['rows_per_cluster']} rows, {plan['resident_clusters']} resident at once, "
+          f"{plan['smem']} bytes of shared memory a CTA) {out['ms']:.4f} ms, in turns with the "
+          f"rows body ({rows} rows a block) {out['ms_rows_body']:.4f} ms and cuDNN nn.LSTM "
+          f"{out['library_ms']:.4f} ms [max abs diff to the kernel {lib_err:.3e}]; plain "
+          f"{out['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+          + (f"; cluster body by rows a cluster, in turns: {out['ms_by_rows_per_cluster']}"
+             if B == 256 else ""))
+    return out
+
+
+def _fwd_bodies_by_shape(shapes) -> dict:
+    """K1f's and K4f's rows bodies in turns with their cluster bodies at
+    every cluster size that fits (16 rows a cluster), bf16, full lengths,
+    at each (B, H, T') of ``shapes``: the sizes the planner did not take
+    beside the one it did, and how many clusters of each the card keeps
+    resident at once."""
+    out = {}
+    sms, smem_limit = lstm_kernels._device_limits(torch.device("cuda"))
+    for B, h, steps in shapes:
+        sizes = lstm_kernels._fwd_cluster_sizes(h, smem_limit)
+        order = ["rows", *(f"cs={c}" for c in sizes)]
+        order += order[::-1]
+        args = _recurrence_inputs(B, torch.bfloat16, "serving", False, 3000 + B + h, h, steps)
+        xwf, xwb, whf, whb, lengths, maskf, maskb = _grid_inputs(
+            B, torch.bfloat16, "serving", 3100 + B + h, h, steps)
+        rows, grows = lstm_kernels._rows_for(B, h, sms, waves=2), lstm_kernels._rows_for(B, h, sms, 2)
+        k1f = {"rows": lambda: lstm_kernels._launch(*args, False, False, rows)}
+        # K4f's launches alone on inputs stacked once: at these sizes the
+        # wrapper's stacking would cost the host more than the kernel
+        st = lambda a, b: torch.stack([a, b])  # noqa: E731
+        stacked = (st(xwf, xwb), st(whf, whb), lengths, st(maskf, maskb),
+                   torch.empty((2, steps, B, h), dtype=torch.bfloat16, device="cuda"), None,
+                   torch.empty((2, B, h), device="cuda"), torch.empty((2, B, h), device="cuda"))
+        grid = lambda name, *tile: lstm_kernels._launch_grid(  # noqa: E731
+            name, stacked, steps, B, h, torch.bfloat16, xwf.device, *tile)
+        k4f = {"rows": lambda: grid("bilstm_grid_fwd", grows)}
+        for c in sizes:
+            k1f[f"cs={c}"] = lambda c=c: lstm_kernels._launch_cluster(*args, False, False, c, 16)
+            k4f[f"cs={c}"] = lambda c=c: grid("bilstm_grid_fwd_cluster", c, 16)
+        entry = {"resident_clusters": {c: lstm_kernels._fwd_resident(0, h, c) for c in sizes}}
+        for name, fns, directions in (("K1f", k1f, 1), ("K4f", k4f, 2)):
+            plan = lstm_kernels._plan_fwd(torch.bfloat16, B, h, args[0].device, directions)
+            ms = _in_turns(fns, 10, order)
+            taken = f"cs={plan['cluster_size']}"
+            entry[name] = {"ms": ms, "planned": taken, "rows_per_cluster": plan["rows_per_cluster"]}
+            print(f"timing {name} B={B} H={h} T'={steps} bf16, bodies in turns: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                  + f" ms; planned {taken} x {plan['rows_per_cluster']} rows"
+                  + (f" ({'no slower' if ms[taken] <= ms['rows'] else 'SLOWER'} than the rows "
+                     "body)" if plan["rows_per_cluster"] == 16 else ""))
+        print(f"resident clusters at H={h}: {entry['resident_clusters']}")
+        out[f"B={B} H={h} T'={steps}"] = entry
+    return out
+
+
 def kernel_phase(extra_shapes) -> dict:
-    """K1f against its plain version at the serving shapes and at
-    ``extra_shapes`` (B, H, T'), then its timings at the serving shapes."""
+    """K1f against its plain version at the serving shapes (B in {1, 16,
+    17, 256}) and at ``extra_shapes`` (B, H, T'): bf16 through the cluster
+    body (bit-identical on repeat), f32 through the rows body; one row alone
+    against the same row in a batch; then its timings at B=1 and 256."""
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    timings = {}
-    shapes = [(1, H, T_STEPS), (256, H, T_STEPS), *extra_shapes]
+    # B=1 and B=17 pad the cluster body's 16-row tiles
+    shapes = [(1, H, T_STEPS), (16, H, T_STEPS), (17, H, T_STEPS), (256, H, T_STEPS),
+              *extra_shapes]
     for seed, (B, h, steps, dtype, reverse_time, variant) in enumerate(_cases(shapes), 1):
         args = _recurrence_inputs(B, dtype, variant, reverse_time, seed, h, steps)
         with_c = variant != "serving"
+        before = read_bodies()["K1f"]
         got = lstm_kernels.lstm_recurrence(
             *args, reverse_time=reverse_time, return_c_seq=with_c
         )
+        case = _case_name(B, h, steps, dtype, reverse_time, variant)
+        body = "cluster" if dtype == torch.bfloat16 else "rows"
+        check(read_bodies()["K1f"][body] == before[body] + 1,
+              f"K1f {case}: launches by body {read_bodies()['K1f']}, expected the {body} body")
+        if body == "cluster":
+            again = lstm_kernels.lstm_recurrence(
+                *args, reverse_time=reverse_time, return_c_seq=with_c
+            )
+            torch.cuda.synchronize()
+            check(all(a is None or torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K1f {case}: two launches on the same inputs differ")
         want = lstm_kernels.lstm_recurrence_reference(
             *args, reverse_time=reverse_time, return_c_seq=with_c
         )
         torch.cuda.synchronize()
-        case = _case_name(B, h, steps, dtype, reverse_time, variant)
         worst = (0.0, 0.0)
         for name, g, w in zip(("h_seq", "c_seq", "hT", "cT"), got, want):
             if w is None:
@@ -409,47 +568,11 @@ def kernel_phase(extra_shapes) -> dict:
             a, r = compare(f"{case} {name}", g, w, TOL[dtype])
             worst = (max(worst[0], a), max(worst[1], r))
         errs[dtype] = max(errs[dtype], worst[0])
-        print(f"kernel lstm_recurrence_fwd {case}: max abs err "
+        print(f"kernel lstm_recurrence_fwd {case} ({body} body"
+              f"{', bit-identical on repeat' if body == 'cluster' else ''}): max abs err "
               f"{worst[0]:.3e}, max rel err {worst[1]:.3e}")
-
-    for B in (1, 256):
-        # timings at the serving shape: bf16, full lengths, unit mask, zero state
-        args = _recurrence_inputs(B, torch.bfloat16, "serving", False, 1000 + B)
-        kernel_ms = cuda_ms(lambda: lstm_kernels.lstm_recurrence(*args), reps=20)
-        plain_ms = cuda_ms(
-            lambda: lstm_kernels.lstm_recurrence_reference(*args), reps=3, warmup=1
-        )
-        lstm = _library_lstm(args[1])
-        with torch.no_grad():
-            lib_out, _ = lstm(args[0])
-            library_ms = cuda_ms(lambda: lstm(args[0]), reps=20)
-        ours = lstm_kernels.lstm_recurrence(*args)[0]
-        lib_err = float((lib_out.float() - ours.float()).abs().max())
-        bound_ms, bound_by = _bound(B, torch.bfloat16)
-        t = {
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-        }
-        if B == 1:
-            t["note"] = ("at B=1 the 104-step serial chain, not bytes or "
-                         "FLOPs, sets the real floor")
-        else:
-            sweep = {}
-            for rows in lstm_kernels._ROWS_PER_BLOCK:
-                sweep[rows] = cuda_ms(
-                    lambda: lstm_kernels._launch(*args, False, False, rows), reps=10
-                )
-            t["rows_per_block_ms"] = sweep
-            t["rows_per_block"] = lstm_kernels._rows_per_block(B, H, args[0].device, waves=2)
-        timings[B] = t
-        print(f"timing lstm_recurrence_fwd B={B} T'={T_STEPS} H={H} bf16: "
-              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library (cuDNN nn.LSTM) {library_ms:.4f} ms "
-              f"[max abs diff to the kernel {lib_err:.3e}], "
-              f"bound {bound_ms:.4f} ms ({bound_by})"
-              + (f", rows/block sweep {t['rows_per_block_ms']}, rows/block taken "
-                 f"{t['rows_per_block']}" if B > 1 else ""))
-    return {"errs": errs, "timings": timings}
+    _k1f_row_independence()
+    return {"errs": errs, "timings": {B: _k1f_timings(B) for B in (1, 256)}}
 
 
 def _adjoint_inputs(B, dtype, variant, reverse_time, seed, h=H, steps=T_STEPS):
@@ -666,17 +789,43 @@ def _two_k1b(args):
     return dgf, dgb, torch.stack([dh0f, dh0b]), torch.stack([dc0f, dc0b])
 
 
+def _two_k1f(args):
+    """K4f's two chains as two K1f launches (the forward chain, then the
+    reverse chain, each from a zero state) on K4f's inputs, in K4f's order
+    ``(hf, hb, cf, cb, hT, cT)``."""
+    xwf, xwb, whf, whb, lengths, maskf, maskb = args
+    zeros = torch.zeros(maskf.shape, device="cuda")
+    hf, cf, hTf, cTf = lstm_kernels.lstm_recurrence(xwf, whf, lengths, zeros, zeros, maskf,
+                                                    False, True)
+    hb, cb, hTb, cTb = lstm_kernels.lstm_recurrence(xwb, whb, lengths, zeros, zeros, maskb,
+                                                    True, True)
+    return hf, hb, cf, cb, torch.stack([hTf, hTb]), torch.stack([cTf, cTb])
+
+
 def _grid_case_check(kind, B, h, steps, dtype, variant, seed, errs):
-    """One K4f or K4b case against its plain version.  K4b also runs twice
+    """One K4f or K4b case against its plain version.  Each also runs twice
     (the two launches bit-identical) and its body must be the one planned
-    for the dtype (bf16: the cluster body, which must then equal two K1b
-    cluster launches bit for bit: the same body per direction)."""
+    for the dtype (bf16: the cluster body, which must then equal two K1f /
+    K1b cluster launches bit for bit: the same body per direction)."""
     case = f"B={B} H={h} T'={steps} {str(dtype)[6:]} {variant}"
+    body = "cluster" if dtype == torch.bfloat16 else "rows"
     if kind == "K4f":
         args = _grid_inputs(B, dtype, variant, seed, h, steps)
+        before = read_bodies()["K4f"]
         got = lstm_kernels.bilstm_grid_fwd(*args)
+        again = lstm_kernels.bilstm_grid_fwd(*args)
         want = lstm_kernels.bilstm_grid_fwd_reference(*args)
         names = ("hf", "hb", "cf", "cb", "hT", "cT")
+        torch.cuda.synchronize()
+        check(read_bodies()["K4f"][body] == before[body] + 2,
+              f"K4f {case}: launches by body {read_bodies()['K4f']}, expected the {body} body")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K4f {case}: two launches on the same inputs differ")
+        if body == "cluster":
+            check(all(torch.equal(a, b) for a, b in zip(got, _two_k1f(args))),
+                  f"K4f {case}: the cluster body differs from two K1f launches")
+        case += f" ({body} body, bit-identical on repeat"
+        case += ", == two K1f launches)" if body == "cluster" else ")"
     else:
         args = _grid_adjoint_inputs(B, dtype, variant, seed, h, steps)
         before = read_bodies()["K4b"]
@@ -685,7 +834,6 @@ def _grid_case_check(kind, B, h, steps, dtype, variant, seed, errs):
         want = lstm_kernels.bilstm_grid_bwd_reference(*args)
         names = ("dgf", "dgb", "dh0", "dc0")
         torch.cuda.synchronize()
-        body = "cluster" if dtype == torch.bfloat16 else "rows"
         check(read_bodies()["K4b"][body] == before[body] + 2,
               f"K4b {case}: launches by body {read_bodies()['K4b']}, expected the {body} body")
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -738,31 +886,42 @@ def _grid_function_grads() -> float:
 
 def _grid_timings(B: int) -> dict:
     """K4f at the serving shape and K4b at the training shape (bf16, full
-    lengths, unit masks): CUDA-event times beside the plain versions,
-    the bounds (twice K1f's and K1b's: two chains of the same work), the
-    cuDNN bidirectional yardstick and the two K1f launches K4f replaces;
-    at B=256 a sweep of K4f's rows per block."""
+    lengths, unit masks): CUDA-event times beside the plain versions, the
+    bounds (twice K1f's and K1b's: two chains of the same work), the cuDNN
+    bidirectional yardstick and the two K1f / K1b launches each replaces.
+    K4f's cluster body runs in turns with its rows body and cuDNN, and at
+    B=256 at 16 and 32 rows a cluster in turns too."""
     dtype = torch.bfloat16
     args = _grid_inputs(B, dtype, "serving", 1100 + B)
     xwf, xwb, whf, whb, lengths, maskf, maskb = args
     zeros = torch.zeros((B, H), device="cuda")
-    fwd = {"ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_fwd(*args, return_c_seq=False), 20),
-           "plain_ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_fwd_reference(
-               *args, return_c_seq=False), reps=3, warmup=1)}
-    fwd["two_k1f_ms"] = cuda_ms(lambda: (
-        lstm_kernels.lstm_recurrence(xwf, whf, lengths, zeros, zeros, maskf),
-        lstm_kernels.lstm_recurrence(xwb, whb, lengths, zeros, zeros, maskb, True)), 20)
+    sms, smem_limit = lstm_kernels._device_limits(xwf.device)
+    plan = lstm_kernels._plan_fwd(dtype, B, H, xwf.device, directions=2)
+    check(plan["body"] == "cluster", f"K4f at B={B} H={H} bf16 plans {plan}")
+    plan["resident_clusters"] = lstm_kernels._fwd_resident(0, H, plan["cluster_size"])
+    plan["waves"] = -(-plan["clusters"] // plan["resident_clusters"])
+    rows = lstm_kernels._rows_for(B, H, sms, directions=2)
     lstm = _library_bilstm(whf, whb)
+    grid_fwd = lstm_kernels._launch_grid_fwd
     with torch.no_grad():
-        fwd["library_ms"] = cuda_ms(lambda: lstm(xwf), 20)
-    bound, by = _bound(B, dtype)
-    fwd.update(bound_ms=2 * bound, bound_by=by,
-               rows_per_block=lstm_kernels._rows_per_block(B, H, xwf.device, directions=2))
+        t = _in_turns({
+            "rows": lambda: grid_fwd(*args, False, {"body": "rows", "rows_per_block": rows}),
+            "cluster": lambda: lstm_kernels.bilstm_grid_fwd(*args, return_c_seq=False),
+            "library": lambda: lstm(xwf),
+        }, 20, ("rows", "cluster", "library", "library", "cluster", "rows"))
+    fwd = {"ms": t["cluster"], "ms_rows_body": t["rows"], "library_ms": t["library"],
+           "plain_ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_fwd_reference(
+               *args, return_c_seq=False), reps=3, warmup=1),
+           "two_k1f_ms": cuda_ms(lambda: (
+               lstm_kernels.lstm_recurrence(xwf, whf, lengths, zeros, zeros, maskf),
+               lstm_kernels.lstm_recurrence(xwb, whb, lengths, zeros, zeros, maskb, True)), 20),
+           "rows_per_block": rows, "plan": plan}
     if B == 256:
-        fwd["rows_per_block_ms"] = {
-            rows: cuda_ms(lambda: lstm_kernels._launch_grid_fwd(*args, False, rows), 10)
-            for rows in lstm_kernels._ROWS_PER_BLOCK
-        }
+        fwd["ms_by_rows_per_cluster"] = _in_turns({
+            r: (lambda r=r: grid_fwd(*args, False, {**plan, "rows_per_cluster": r}))
+            for r in (16, 32)}, 20, (16, 32, 32, 16))
+    bound, by = _bound(B, dtype)
+    fwd.update(bound_ms=2 * bound, bound_by=by)
     bargs = _grid_adjoint_inputs(B, dtype, "serving", 1200 + B)
     bwd = {"plain_ms": cuda_ms(lambda: lstm_kernels.bilstm_grid_bwd_reference(*bargs),
                                reps=3, warmup=1)}
@@ -785,15 +944,19 @@ def _grid_timings(B: int) -> dict:
               f"{t['plain_ms']:.4f} ms, library (cuDNN bidirectional nn.LSTM"
               f"{'' if name == 'K4f' else ' backward, with weight gradients'}) "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-              + (f"two K1f launches {t['two_k1f_ms']:.4f} ms, rows/block "
-                 f"{t['rows_per_block']}" if name == "K4f" else
+              + (f"two K1f launches {t['two_k1f_ms']:.4f} ms; cluster body "
+                 f"({t['plan']['clusters']} clusters of {t['plan']['cluster_size']} CTAs x "
+                 f"{t['plan']['rows_per_cluster']} rows, {t['plan']['resident_clusters']} "
+                 f"resident at once: {t['plan']['waves']} waves) in turns with the rows body "
+                 f"({t['rows_per_block']} rows a block) {t['ms_rows_body']:.4f} ms and cuDNN"
+                 + (f"; cluster body by rows a cluster, in turns: "
+                    f"{t['ms_by_rows_per_cluster']}" if B == 256 else "")
+                 if name == "K4f" else
                  f"two K1b launches {t['two_k1b_ms']:.4f} ms; cluster body "
                  f"({t['plan']['clusters']} clusters of {t['plan']['cluster_size']} CTAs, "
                  f"{t['plan']['resident_clusters']} resident at once: {t['plan']['waves']} "
                  f"waves) launch alone {t['ms_launch_only']:.4f} ms in turns with the rows "
-                 f"body ({t['rows_per_block']} rows a block) {t['ms_rows_body']:.4f} ms")
-              + (f", rows/block sweep {t['rows_per_block_ms']}" if "rows_per_block_ms" in t
-                 else ""))
+                 f"body ({t['rows_per_block']} rows a block) {t['ms_rows_body']:.4f} ms"))
     return {"K4f": fwd, "K4b": bwd}
 
 
@@ -922,15 +1085,17 @@ def _ln_function_grads() -> float:
 
 def grid_and_layernorm_kernel_phase(demo_shapes) -> dict:
     """K4f and K4b against their plain versions at the full-width shapes
-    (H=400, T'=104; K4f at B in {1, 256}, K4b at B in {1, 16, 17, 256}
-    and at H=100 too) and the demo trainer's own (B=16, H=64); K5f and K5b at the headline conformer rows (B=256 x T'=104,
-    D=384), the long recording's (B=16 x T'=8192) and at D=64; f32 and
+    (H=400, T'=104, B in {1, 16, 17, 256}; at H=100 too) and the demo
+    trainer's own (B=16, H=64); K5f and K5b at the headline conformer rows
+    (B=256 x T'=104, D=384), the long recording's (B=16 x T'=8192) and at
+    D=64; f32 and
     bf16, ragged lengths and 0/2 masks or odd row counts; the two
     Functions' gradients; the timings."""
     errs = {k: {torch.float32: 0.0, torch.bfloat16: 0.0} for k in ("K4f", "K4b", "K5f", "K5b")}
     shapes = {
-        "K4f": [(1, H, T_STEPS), (256, H, T_STEPS), *demo_shapes],
-        # B=1 and 17 pad the cluster body's 16-row tiles, H=100 its unit slices
+        # B=1 and 17 pad the cluster bodies' 16-row tiles, H=100 their unit slices
+        "K4f": [(B, H, T_STEPS) for B in (1, 16, 17, 256)] + [(17, 100, T_STEPS)]
+        + list(demo_shapes),
         "K4b": [(B, h, T_STEPS) for h in (H, 100) for B in (1, 16, 17, 256)] + list(demo_shapes),
     }
     seed = 500
@@ -1044,10 +1209,12 @@ def serving_phase() -> dict:
     streamed = session.decode()
     calls += 1
     counts = read_counts()
+    bodies = read_bodies()
     launches = counts["K1f"]
     # ------------------------------------------------------------------
     expected = calls * ENCODES_PER_CALL * LAUNCHES_PER_ENCODE
     check_counts(f"biLSTM serving ({calls} predictor calls)", counts, {"K1f": expected})
+    check_bodies("biLSTM serving (bf16)", bodies, "K1f", "cluster", expected)
     check(np.array_equal(streamed["tokens"], single_out[1]["tokens"]),
           "streaming: tokens differ from the whole utterance")
     check(np.allclose(streamed["probabilities"], single_out[1]["probabilities"],
@@ -1056,7 +1223,7 @@ def serving_phase() -> dict:
     check(streamed["sequences"] == single_out[1]["sequences"],
           "streaming: sequences differ from the whole utterance")
     print(f"serving: {calls} predictor calls, {launches} recurrence launches "
-          f"({LAUNCHES_PER_ENCODE} per encode)")
+          f"({LAUNCHES_PER_ENCODE} per encode), K1f by body {bodies['K1f']}")
     print(f"serving latency B=1 (s): warm-up {warm_s:.4f}, "
           + ", ".join(f"{len(x)} samples {dt:.4f}" for x, dt in zip(singles, latencies)))
     print(f"serving batch B=256: first {first_batch_s:.4f} s, second {batch_s:.4f} s "
@@ -1079,6 +1246,7 @@ def serving_phase() -> dict:
     pk = OnlinePredictor(params, f32, targets, max_samples=1248, device="cuda")
     pp = OnlinePredictor(params, f32_plain, targets, max_samples=1248, device="cuda")
     f32_err = 0.0
+    before = read_bodies()["K1f"]
     for x in singles:
         (ok, fk, _), (op, fp, _) = (
             _encode_padded(params, f32, x), _encode_padded(params, f32_plain, x)
@@ -1089,12 +1257,13 @@ def serving_phase() -> dict:
         tk, tp = pk(x), pp(x)
         check(np.array_equal(tk["tokens"], tp["tokens"]),
               f"f32 tokens of {len(x)} samples: kernel path != plain path")
+    _check_f32_rows_body("f32 serving", "K1f", before)
     print(f"f32 encoder, kernel vs plain path: max abs err {f32_err:.3e}; "
-          "greedy tokens identical")
+          "greedy tokens identical (K1f rows body)")
     profile_call("B=1", lambda: predictor(singles[0]))
     profile_call("B=256", lambda: predictor(batch))
     return {
-        "launches": launches, "calls": calls, "latency_s": latencies,
+        "launches": launches, "bodies": bodies, "calls": calls, "latency_s": latencies,
         "batch_s": batch_s, "enc_err_bf16": enc_err, "enc_err_f32": f32_err,
     }
 
@@ -1105,7 +1274,8 @@ _KERNEL_CATEGORIES = (
     ("banded_attention_dq_kernel", "K2b-dq"), ("banded_attention_dq_tc_kernel", "K2b-dq"),
     ("banded_attention_dkv_kernel", "K2b-dkv"), ("banded_attention_dkv_tc_kernel", "K2b-dkv"),
     ("fused_attention_fwd_kernel", "K3f"),
-    ("bilstm_grid_fwd_kernel", "K4f"), ("bilstm_grid_bwd_kernel", "K4b"),
+    ("bilstm_grid_fwd_kernel", "K4f"), ("bilstm_grid_fwd_cluster_kernel", "K4f"),
+    ("bilstm_grid_bwd_kernel", "K4b"),
     ("bilstm_grid_bwd_cluster_kernel", "K4b"),
     ("layer_norm_fwd_kernel", "K5f"), ("layer_norm_bwd_kernel", "K5b"),
 )
@@ -1182,6 +1352,14 @@ def _random_corpus(config: Seq2SeqConfig) -> dict:
     }
 
 
+def _check_f32_rows_body(path: str, kernel: str, before: dict) -> None:
+    """The f32 launches of ``kernel`` since ``before`` (its launches by
+    body) all went through the rows body."""
+    f32_bodies = {b: n - before[b] for b, n in read_bodies()[kernel].items()}
+    check(f32_bodies["cluster"] == 0 and f32_bodies["rows"] > 0,
+          f"{path}: {kernel} launches by body {f32_bodies}, expected the rows body")
+
+
 def _f32_kernel_vs_plain(params, data, idx, kernel_path=True) -> float:
     """Loss and every gradient leaf of one f32 batch, the kernel path
     (``use_pallas_lstm=kernel_path``) against the plain path, both
@@ -1199,10 +1377,8 @@ def _f32_kernel_vs_plain(params, data, idx, kernel_path=True) -> float:
         out[use_pallas] = (loss.detach(), [t.grad for t in tree_leaves(p)])
     (lk, gk), (lp, gp) = out[kernel_path], out[False]
     path = f"use_pallas_lstm={kernel_path!r}"
-    kernel = "K4b" if kernel_path == "bi_grid" else "K1b"
-    f32_bodies = {b: n - before[kernel][b] for b, n in read_bodies()[kernel].items()}
-    check(f32_bodies["cluster"] == 0 and f32_bodies["rows"] > 0,
-          f"f32 training, {path}: {kernel} launches by body {f32_bodies}, expected the rows body")
+    for kernel in ("K4f", "K4b") if kernel_path == "bi_grid" else ("K1f", "K1b"):
+        _check_f32_rows_body(f"f32 training, {path}", kernel, before[kernel])
     err, _ = compare(f"f32 training loss, {path} vs plain path", lk, lp, TOL[torch.float32])
     for i, (a, b) in enumerate(zip(gk, gp)):
         e, _ = compare(f"f32 gradient leaf {i}, {path} vs plain path", a, b,
@@ -1250,6 +1426,7 @@ def training_phase() -> dict:
     # ------------------------------------------------------------------
     want = TRAIN_STEPS * LAUNCHES_PER_ENCODE
     check_counts(f"biLSTM training ({TRAIN_STEPS} steps)", counts, {"K1f": want, "K1b": want})
+    check_bodies("biLSTM training (bf16)", bodies, "K1f", "cluster", want)
     check_bodies("biLSTM training (bf16)", bodies, "K1b", "cluster", want)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
@@ -1310,6 +1487,7 @@ def trainer_phase(trainer: MultiSubjectTrainer) -> dict:
     # ------------------------------------------------------------------
     check(all(v == 0 for k, v in counts.items() if k not in ("K1f", "K1b")),
           f"trainer: launches {counts}")
+    check_bodies("trainer (bf16)", bodies, "K1f", "cluster", fwd)
     check_bodies("trainer (bf16)", bodies, "K1b", "cluster", bwd)
     per_step = 2 * len(trainer.net_config.rnn_sizes)
     check(bwd == steps * per_step,
@@ -1379,9 +1557,12 @@ def grid_serving_phase() -> dict:
     streamed = session.decode()
     calls += 1
     counts = read_counts()
+    bodies = read_bodies()
     # ------------------------------------------------------------------
     check_counts("biLSTM 'bi_grid' serving", counts,
                  {"K4f": calls * ENCODES_PER_CALL * layers})
+    check_bodies("biLSTM 'bi_grid' serving (bf16)", bodies, "K4f", "cluster",
+                 calls * ENCODES_PER_CALL * layers)
     _check_response(outs[-1], 1, "'bi_grid' single")
     _check_response(b2, 256, "'bi_grid' batch")
     check(np.array_equal(b1["tokens"], b2["tokens"]), "'bi_grid' batch: tokens differ")
@@ -1399,6 +1580,7 @@ def grid_serving_phase() -> dict:
     pk = OnlinePredictor(params, f32, targets, max_samples=1248, device="cuda")
     pp = OnlinePredictor(params, f32_plain, targets, max_samples=1248, device="cuda")
     f32_err = 0.0
+    before = read_bodies()["K4f"]
     for x in singles:
         (ok, fk, _), (op, fp, _) = (_encode_padded(params, f32, x),
                                     _encode_padded(params, f32_plain, x))
@@ -1407,11 +1589,13 @@ def grid_serving_phase() -> dict:
             f32_err = max(f32_err, a)
         check(np.array_equal(pk(x)["tokens"], pp(x)["tokens"]),
               f"'bi_grid' f32 tokens of {len(x)} samples: kernel path != plain path")
+    _check_f32_rows_body("'bi_grid' f32 serving", "K4f", before)
     print(f"'bi_grid' f32 encoder vs plain path: max abs err {f32_err:.3e}; greedy tokens "
-          "identical")
+          "identical (K4f rows body)")
     prof = profile_call("'bi_grid' B=1", lambda: predictor(singles[0]), need=("K4f",))
-    return {"counts": counts, "calls": calls, "latency_s": latency, "latencies_s": latencies,
-            "batch_s": batch_s, "enc_err_f32": f32_err, "profile_b1": prof}
+    return {"counts": counts, "bodies": bodies, "calls": calls, "latency_s": latency,
+            "latencies_s": latencies, "batch_s": batch_s, "enc_err_f32": f32_err,
+            "profile_b1": prof}
 
 
 def grid_training_phase() -> dict:
@@ -1448,6 +1632,7 @@ def grid_training_phase() -> dict:
     # ------------------------------------------------------------------
     want = TRAIN_STEPS * len(config.rnn_sizes)
     check_counts("biLSTM 'bi_grid' training", counts, {"K4f": want, "K4b": want})
+    check_bodies("biLSTM 'bi_grid' training (bf16)", bodies, "K4f", "cluster", want)
     check_bodies("biLSTM 'bi_grid' training (bf16)", bodies, "K4b", "cluster", want)
     check(all(np.isfinite(losses)), f"'bi_grid' training: non-finite loss {losses}")
     check(losses[-1] < losses[0], f"'bi_grid' training loss did not fall: {losses}")
@@ -1455,7 +1640,7 @@ def grid_training_phase() -> dict:
     print(f"biLSTM 'bi_grid' training B={B_TRAIN} x {T_RAW} samples, bf16, dropout on: losses "
           + ", ".join(f"{x:.4f}" for x in losses)
           + f"; {counts['K4f']} K4f + {counts['K4b']} K4b launches in {TRAIN_STEPS} steps "
-          f"(K4b by body {bodies['K4b']}); step "
+          f"(K4f by body {bodies['K4f']}, K4b {bodies['K4b']}); step "
           + ", ".join(f"{1e3 * x:.2f}" for x in step_s)
           + f" ms, mean {ms:.2f} ms = {B_TRAIN / (ms / 1e3):.2f} sentences/s")
     prof = profile_call(f"'bi_grid' training step B={B_TRAIN}", step, need=("K4f", "K4b"))
@@ -1545,10 +1730,12 @@ def _check_attention_case(case: str, c: dict, dtype, errs: dict) -> None:
 def _check_fused_wide_head(Dh: int, dtype, seed: int) -> float:
     """K3f at a head dim above 256 (one head of width ``Dh``; the
     projections take two head columns a thread) at the query block
-    ``fused_attention_layer`` picks on the card, B=16, T'=104, ragged
-    lengths, against its plain version; returns the largest error."""
+    ``fused_attention_layer`` picks on the card and the streamed tile width
+    that block fits, B=16, T'=104, ragged lengths, against its plain
+    version; returns the largest error."""
     B, T, C, L = 16, 104, 16, 1
     QB = ATTN._fit_query_rows(128, C, L, Dh, torch.device("cuda"))
+    tile = ATTN._fused_tile(QB, QB + L * C, Dh, ATTN._smem_limit("cuda"))
     T1 = -(-T // QB) * QB
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((B, T1, Dh), generator=g, device="cuda").to(dtype)
@@ -1569,7 +1756,8 @@ def _check_fused_wide_head(Dh: int, dtype, seed: int) -> float:
         tol = TOL[torch.float32] if name == "lse" and dtype == torch.float32 else TOL[dtype]
         e, _ = compare(f"K3f head dim {Dh} {str(dtype)[6:]} {name}", a, b, tol)
         err = max(err, e)
-    print(f"attention kernels K3f head dim {Dh} (one head, query block {QB}) "
+    print(f"attention kernels K3f head dim {Dh} (one head, query block {QB}, {tile}-column "
+          f"streamed tiles) "
           f"{str(dtype)[6:]}: max abs err {err:.3e}")
     return err
 
@@ -1849,7 +2037,8 @@ def attention_kernel_phase(demo_shape) -> dict:
                 del c
     # K3f above head dim 256, next to 48, 96 and 64 above
     wide = {}
-    for Dh in (288, 384):
+    # 454 runs 32-column streamed tiles, 512 16-column ones (16-row blocks)
+    for Dh in (288, 384, 454, 512):
         for dtype in (torch.float32, torch.bfloat16):
             seed += 1
             e = _check_fused_wide_head(Dh, dtype, seed)
@@ -2285,9 +2474,15 @@ def main() -> int:
         conf_shape = conformer_trainer_shape(conf_trainer)
         print(f"demo trainer kernel shapes (B, H, T'): {demo_shapes}; conformer demo "
               f"trainer attention shape (B, T', D, H, C, L): {conf_shape}")
+        wait_built(env, ("device_info", "lstm_recurrence", "lstm_recurrence_bwd",
+                         "lstm_bwd_cluster", "bilstm_grid", "layer_norm"))
         kern = kernel_phase(demo_shapes)
         kern_b = kernel_bwd_phase(demo_shapes)
         gridk = grid_and_layernorm_kernel_phase(demo_shapes)
+        wait_built(env)  # nothing compiles while the main paths are timed
+        by_shape = _fwd_bodies_by_shape(
+            [(16, H, T_STEPS), *demo_shapes, *((1, h, steps) for _, h, steps in demo_shapes),
+             (256, 64, T_STEPS)])
         attn = attention_kernel_phase(conf_shape)
         serve = serving_phase()
         train = training_phase()
@@ -2364,8 +2559,14 @@ def main() -> int:
             "launches_per_request": ENCODES_PER_CALL * layers,
             "launches_training": gtrain["counts"]["K4f"],
             "two_k1f_ms": gridk["timings"][256]["K4f"]["two_k1f_ms"],
+            "body": "cluster for bf16 where the weight slice fits (K1f's body, "
+                    "csrc/lstm_fwd_cluster.cuh, with a direction axis), rows otherwise",
+            "launches_by_body": {"bi_grid_serving": gserve["bodies"]["K4f"],
+                                 "bi_grid_training": gtrain["bodies"]["K4f"]},
+            "ms_rows_body": gridk["timings"][256]["K4f"]["ms_rows_body"],
             "rows_per_block": gridk["timings"][256]["K4f"]["rows_per_block"],
-            "rows_per_block_ms": gridk["timings"][256]["K4f"]["rows_per_block_ms"],
+            "ms_by_rows_per_cluster": gridk["timings"][256]["K4f"]["ms_by_rows_per_cluster"],
+            "plan": gridk["timings"][256]["K4f"]["plan"],
             "library": "cuDNN bidirectional nn.LSTM forward (one input for both directions)"}),
         grid_entry("bilstm_grid_bwd", "K4b", f"{pallas_lstm}:805", gtrain["counts"]["K4b"], {
             "launches_per_step": layers,
@@ -2467,8 +2668,15 @@ def main() -> int:
         "ms": t256["ms"], "plain_ms": t256["plain_ms"],
         "bound_ms": t256["bound_ms"], "bound_by": t256["bound_by"],
         "library_ms": t256["library_ms"],
-        "rows_per_block_ms": t256["rows_per_block_ms"],
-        "rows_per_block": t256["rows_per_block"],
+        "library": "cuDNN nn.LSTM forward",
+        "body": "cluster for bf16 where the weight slice fits "
+                "(csrc/lstm_fwd_cluster.cuh), rows otherwise",
+        "launches_by_body": {"serving": serve["bodies"]["K1f"],
+                             "training": train["bodies"]["K1f"],
+                             "demo_trainer": trainer_out["bodies"]["K1f"]},
+        "ms_rows_body": t256["ms_rows_body"], "rows_per_block": t256["rows_per_block"],
+        "ms_by_rows_per_cluster": t256["ms_by_rows_per_cluster"], "plan": t256["plan"],
+        "bodies_ms_by_shape": by_shape,
         "build_s": env["build_s"],
         "at_batch_1": t1,
     }, {

@@ -37,6 +37,16 @@
 // block, one-row blocks ran several times slower on the H100.  The
 // wrapper picks R so that the doubled grid stays within one wave of SMs.
 //
+// K4f's bf16 body is K1f's cluster body (lstm_fwd_cluster.cuh: the
+// weight slice resident across a thread-block cluster, h all-gathered
+// through distributed shared memory every step), launched over a grid of
+// (cs * ceil(B / R), 2) CTAs in clusters of (cs, 1, 1) with R = 16 or 32
+// rows a cluster: blockIdx.y picks the direction, whose tensors lie at the
+// direction-major offsets, and reverse_time is the direction.  f32 streams
+// and widths whose slice fits no cluster keep the rows body
+// (lstm_common.cuh::fwd_rows); ops/lstm_kernels.py::plan_fwd_body picks
+// the body before the launch.
+//
 // K4b's bf16 body is K1b's cluster body (lstm_bwd_cluster.cuh:
 // the weight slice resident across a thread-block cluster, only
 // dgates @ wh^T on the serial chain), launched over a grid of
@@ -57,6 +67,7 @@
 
 #include "lstm_bwd_cluster.cuh"
 #include "lstm_common.cuh"
+#include "lstm_fwd_cluster.cuh"
 
 namespace {
 
@@ -102,6 +113,23 @@ bilstm_grid_bwd_kernel(const S* __restrict__ xw,         // (2, T, B, 4H)
                        dhT + d * st, dcT + d * st, dgates + d * 4 * seq, dh0 + d * st,
                        dc0 + d * st, T, B, H, /*reverse_time=*/static_cast<int>(blockIdx.y),
                        blockIdx.x * R);
+}
+
+// K4f's bf16 cluster body: CTA (blockIdx.x, d) runs K1f's cluster body on
+// direction d's slice of the stacked tensors, from a zero state.
+template <int MT>
+__global__ void __launch_bounds__(lstm_cluster::kThreads, 1)
+    bilstm_grid_fwd_cluster_kernel(lstm_cluster::FwdArgs a) {
+  const size_t d = blockIdx.y, st = static_cast<size_t>(a.B) * a.H, seq = a.T * st;
+  a.xw += d * 4 * seq;
+  a.wh += d * 4 * a.H * static_cast<size_t>(a.H);
+  a.mask += d * st;
+  a.h_seq += d * seq;
+  if (a.c_seq != nullptr) a.c_seq += d * seq;
+  a.hT += d * st;
+  a.cT += d * st;
+  a.reverse_time = static_cast<int>(blockIdx.y);
+  lstm_cluster::fwd_body<MT>(a);
 }
 
 // K4b's bf16 cluster body: CTA (blockIdx.x, d) runs K1b's cluster body on
@@ -197,6 +225,21 @@ int bilstm_grid_fwd(void* const* p, int T, int B, int H, int is_bf16, int rows, 
 // dcT, dgates, dh0, dc0, stacked as above.
 int bilstm_grid_bwd(void* const* p, int T, int B, int H, int is_bf16, int rows, void* stream) {
   return run(true, p, T, B, H, is_bf16, rows, stream);
+}
+
+// K4f's cluster body (bf16 only: is_bf16 must be 1).  p: xw, wh,
+// lengths, mask, h_seq, c_seq (may be null), hT, cT, stacked as above; cs
+// in {1, 2, 4, 8} CTAs a cluster and rows 16 or 32 a cluster, as the
+// wrapper plans them.
+int bilstm_grid_fwd_cluster(void* const* p, int T, int B, int H, int is_bf16, int cs, int rows,
+                            void* stream) {
+  if (!is_bf16 || (rows != 16 && rows != 32)) return static_cast<int>(cudaErrorInvalidValue);
+  const lstm_cluster::FwdArgs a = lstm_cluster::make_fwd_args(
+      p[0], p[1], p[2], nullptr, nullptr, p[3], p[4], p[5], p[6], p[7], T, B, H,
+      /*reverse_time=*/0, cs);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return rows == 32 ? lstm_cluster::fwd_launch(bilstm_grid_fwd_cluster_kernel<2>, a, 2, 2, st)
+                    : lstm_cluster::fwd_launch(bilstm_grid_fwd_cluster_kernel<1>, a, 1, 2, st);
 }
 
 // K4b's cluster body (bf16 only: is_bf16 must be 1).  p: xw, wh, hprev,

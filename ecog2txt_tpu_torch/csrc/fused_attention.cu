@@ -12,9 +12,15 @@
 // statistics in shared memory) and runs the five projections of its
 // head in its own body: the (D, D) weights do not fit shared memory, so
 // for each projection the contraction over D is streamed in tiles of
-// kTile columns (the LayerNorm output of the window rows, computed on the
-// fly, and the matching kTile x Dh slice of the weight), each thread
-// keeping a column strip of the result in registers.  Results are
+// KT columns (the LayerNorm output of the window rows, computed on the
+// fly, and the matching KT x Dh slice of the weight), each thread
+// keeping a column strip of the result in registers.  KT, the tile's
+// width (a launch argument, so no instantiation is added for it), is 32,
+// or 16 where a 32-column weight tile does not fit beside the window (head
+// dims 506-512 at chunk 16, left context 1); the LayerNorm
+// tile holds the rows a pass really takes, min(kPassRows, window rows).
+// Both change the staging only: the contraction runs over the same columns
+// in the same order at either width.  Results are
 // rounded to the stream dtype where the Pallas kernel rounds: the
 // LayerNorm output, each product, cos and sin, and each step of
 // S(x*cos) + S(xr*sin).  A thread takes NC head columns of a projection,
@@ -22,7 +28,8 @@
 // 256 (the common head dims run the same code as before), NC =
 // ceil(Dh / 256) above, so any even head dim up to 512 runs; the query
 // block shrinks until the window fits shared memory (32 rows at head dim
-// 288, 16 at 384; ops/attention_kernels.py::plan_fused_query_rows).
+// 288, 16 at 384 and above; ops/attention_kernels.py::
+// plan_fused_query_rows, which also picks KT).
 // q, k and v of the window stay in shared memory as f32 and feed the
 // attention of K2f's CUDA-core body (attention_common.cuh).
 //
@@ -38,13 +45,13 @@ using namespace attn;
 
 namespace {
 
-constexpr int kTile = 32;       // contraction columns per streamed tile
-constexpr int kLStride = kTile + 4;  // LayerNorm tile row stride (16-byte rows)
+// contraction columns per streamed tile: KT = 1 << Layer::kt_shift (32 or
+// 16); the LayerNorm tile's row stride is KT + 4 (16-byte rows)
 constexpr int kMaxAcc = 48;     // result elements a thread keeps per pass
 constexpr int kPassRows = 192;  // window rows per projection pass, at most
 
 struct Layer {
-  int T1, H, Dh, C, L, t_real, QB, offset;
+  int T1, H, Dh, C, L, t_real, QB, offset, kt_shift;
   float scale, eps;
 };
 
@@ -68,6 +75,7 @@ __device__ void project(float* dst, int lo, int hi, bool rot, const T* xb, const
                         const float* freq, int h, int base, const Layer& P, float* ltile,
                         float* wtile) {
   constexpr int kAcc = kMaxAcc / NC;  // results a thread keeps per column and pass
+  const int KT = 1 << P.kt_shift, kLStride = KT + 4;
   const int Dh = P.Dh, D = P.H * Dh, PREV = P.L * P.C, stride = Dh + 1;
   const int Dc = (Dh + NC - 1) / NC;
   const int RG = kThreads / Dc, ty = threadIdx.x / Dc, col = threadIdx.x % Dc;
@@ -80,11 +88,11 @@ __device__ void project(float* dst, int lo, int hi, bool rot, const T* xb, const
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int a = 0; a < kAcc; ++a) acc[c][a] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kTile) {
-      const int tk = min(kTile, D - d0);
+    for (int d0 = 0; d0 < D; d0 += KT) {
+      const int tk = min(KT, D - d0);
       __syncthreads();  // the previous tiles are consumed
-      for (int idx = threadIdx.x; idx < prow * kTile; idx += kThreads) {
-        const int r = idx / kTile, c = idx - r * kTile;
+      for (int idx = threadIdx.x; idx < prow * KT; idx += kThreads) {
+        const int r = idx >> P.kt_shift, c = idx & (KT - 1);
         const int wr = p0 + r, gr = base - PREV + wr;
         float val = 0.f;
         if (c < tk && gr >= 0) {
@@ -94,7 +102,7 @@ __device__ void project(float* dst, int lo, int hi, bool rot, const T* xb, const
         }
         ltile[r * kLStride + c] = val;
       }
-      for (int idx = threadIdx.x; idx < kTile * Dh; idx += kThreads) {
+      for (int idx = threadIdx.x; idx < KT * Dh; idx += kThreads) {
         const int kk = idx / Dh, c = idx - kk * Dh;
         wtile[idx] = kk < tk ? to_f<T>(w[(size_t)(d0 + kk) * D + h * Dh + c]) : 0.f;
       }
@@ -167,9 +175,10 @@ __global__ void __launch_bounds__(kThreads)
   const size_t boff = (size_t)b * T1 * D;
   const T* xb = x + boff;
   extern __shared__ float smem[];
-  float* ltile = smem;                         // kPassRows x kLStride (16-byte aligned)
-  float* wtile = ltile + kPassRows * kLStride;  // kTile x Dh
-  float* qsm = wtile + kTile * Dh;             // QB x stride: rotated q
+  const int KT = 1 << P.kt_shift;
+  float* ltile = smem;                               // min(kPassRows, W) x (KT + 4)
+  float* wtile = ltile + min(kPassRows, W) * (KT + 4);  // KT x Dh (16-byte aligned)
+  float* qsm = wtile + KT * Dh;                      // QB x stride: rotated q
   float* ksm = qsm + QB * stride;              // W x stride: rotated k
   float* vsm = ksm + W * stride;               // W x stride: v
   float* mu = vsm + W * stride;                // W: row means
@@ -228,9 +237,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // Shared memory of one block, in bytes; ops/attention_kernels.py::
 // _fused_smem computes the same sum to pick the query block.
-size_t fused_smem(int QB, int W, int Dh) {
+size_t fused_smem(int QB, int W, int Dh, int KT) {
   return sizeof(float) * ((size_t)(QB + 2 * W) * (Dh + 1) + 2 * (size_t)W +
-                          (size_t)kPassRows * kLStride + (size_t)kTile * Dh +
+                          (size_t)(W < kPassRows ? W : kPassRows) * (KT + 4) + (size_t)KT * Dh +
                           (size_t)kWarps * W);
 }
 
@@ -271,17 +280,20 @@ extern "C" {
 // CUDA error code (0 on success).  bf16 != 0 selects bfloat16 streams.
 // With save == 0, qs, ks, vs and lse may be null.  The projections take
 // NC = ceil(Dh / kThreads) head columns a thread: 1 up to a head dim of
-// 256, 2 up to 512 (wider heads do not fit shared memory anyway).
+// 256, 2 up to 512 (wider heads do not fit shared memory anyway); tile is
+// the streamed tiles' width, 32 or 16 (the wrapper picks it from the
+// shared memory).
 int fused_attention_fwd(const void* x, const void* wq, const void* wqr, const void* wk,
                         const void* wkr, const void* wv, const float* lng, const float* lnb,
                         const float* freq, const int* lengths, void* out, void* qs, void* ks,
                         void* vs, float* lse, int B, int T1, int H, int Dh, int C, int L,
-                        int t_real, int QB, int offset, int bf16, int save, float scale,
-                        float eps, void* stream) {
+                        int t_real, int QB, int offset, int bf16, int save, int tile,
+                        float scale, float eps, void* stream) {
+  if (tile != 32 && tile != 16) return (int)cudaErrorInvalidValue;
   const int W = QB + L * C;
   const dim3 grid(T1 / QB, H, B);
-  const size_t smem = fused_smem(QB, W, Dh);
-  const Layer P{T1, H, Dh, C, L, t_real, QB, offset, scale, eps};
+  const size_t smem = fused_smem(QB, W, Dh, tile);
+  const Layer P{T1, H, Dh, C, L, t_real, QB, offset, tile == 32 ? 5 : 4, scale, eps};
   const int NC = (Dh + kThreads - 1) / kThreads;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {

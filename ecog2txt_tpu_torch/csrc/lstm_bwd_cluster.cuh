@@ -416,10 +416,12 @@ __device__ __forceinline__ void bwd_body(const Args& a) {
   }
 }
 
-// The launch of `directions` chains (1: K1b, 2: K4b) of ceil(B / 16)
-// clusters of cs CTAs each: grid (cs * ceil(B / 16), directions), the
-// clusters along x.
-inline cudaLaunchConfig_t cluster_config(int B, int directions, const Dims& d,
+// The launch of `directions` chains (1: K1b or K1f, 2: K4b or K4f) of
+// ceil(B / R) clusters of cs CTAs each: grid (cs * ceil(B / R),
+// directions), the clusters along x (D: Dims, or lstm_fwd_cluster.cuh's
+// FwdDims).
+template <typename D>
+inline cudaLaunchConfig_t cluster_config(int B, int directions, const D& d,
                                          cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(d.cs * ((B + d.R - 1) / d.R), directions);

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, compiled by ``nvcc`` for Hopper (``sm_90a``) and loaded with
-``ctypes`` — no PyTorch headers, so a build takes seconds.  Libraries go
+``ctypes`` — no PyTorch headers, so most builds take seconds (K3f's four large
+instantiations about a minute).  Libraries go
 into ``_build/`` inside the package (listed in ``.gitignore``), named by
 a digest of the sources and flags so an edited source is rebuilt.
 """
@@ -15,7 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from concurrent.futures import ThreadPoolExecutor
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -52,36 +53,37 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+_BUILD_LOCKS: dict[str, threading.Lock] = {}
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` (once per source digest) and load it."""
+    """Compile ``csrc/<name>.cu`` (once per source digest) and load it.
+    Threads that ask for one library at once build it once: the second
+    waits for the first's build and loads it."""
     source = CSRC_DIR / f"{name}.cu"
     if not source.is_file():
         raise FileNotFoundError(f"kernel source {source} is missing")
     out = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
-    if not out.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {source.name} "
-                f"(exit {proc.returncode}):\n{proc.stderr}{proc.stdout}"
-            )
-        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    with _BUILD_LOCKS.setdefault(name, threading.Lock()):
+        if not out.is_file():
+            _compile(source, out)
     return ctypes.CDLL(str(out))
 
 
-def build_all() -> list[str]:
-    """Build and load every ``csrc/*.cu`` at once, one ``nvcc`` process
-    per source running in parallel; returns the kernel names."""
-    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
-    with ThreadPoolExecutor(max(len(names), 1)) as pool:
-        list(pool.map(load_library, names))
-    return names
+def _compile(source: Path, out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {source.name} "
+            f"(exit {proc.returncode}):\n{proc.stderr}{proc.stdout}"
+        )
+    os.replace(tmp, out)  # atomic: concurrent processes never see half a file
 
 
 @functools.cache

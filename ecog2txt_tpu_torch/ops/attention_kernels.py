@@ -237,37 +237,53 @@ def _check_cuda_core_fits(kernel: str, QB: int, W: int, Dh: int, device) -> None
         )
 
 
-def _fused_smem(QB: int, W: int, Dh: int) -> int:
+def _fused_smem(QB: int, W: int, Dh: int, tile: int = 32) -> int:
     """Shared memory (bytes) of one K3f block (``csrc/fused_attention.cu::
     fused_smem``): q, k, v of the window in f32, LayerNorm statistics, the
-    streamed LayerNorm and weight tiles, per-warp score rows."""
-    pass_rows, l_stride, tile, warps = 192, 36, 32, _THREADS // 32
-    return 4 * ((QB + 2 * W) * (Dh + 1) + 2 * W + pass_rows * l_stride + tile * Dh + warps * W)
+    streamed LayerNorm tile (the rows a pass takes, at most 192, by
+    ``tile`` + 4 columns) and weight tile (``tile`` × Dh), per-warp score
+    rows."""
+    pass_rows, warps = min(192, W), _THREADS // 32
+    return 4 * ((QB + 2 * W) * (Dh + 1) + 2 * W + pass_rows * (tile + 4) + tile * Dh
+                + warps * W)
+
+
+_FUSED_TILES = (32, 16)  # K3f's streamed tile widths, the wider first
+
+
+def _fused_tile(QB: int, W: int, Dh: int, smem_limit: int) -> int | None:
+    """The widest streamed tile with which a K3f block of ``QB`` query rows
+    (window ``W``) fits ``smem_limit`` bytes, or None."""
+    return next((t for t in _FUSED_TILES if _fused_smem(QB, W, Dh, t) <= smem_limit), None)
 
 
 def plan_fused_query_rows(QB: int, C: int, L: int, Dh: int, smem_limit: int) -> int:
     """K3f's query block on the card: the largest multiple of ``L·C`` up to
-    ``QB`` whose block fits ``smem_limit`` bytes (the window rows are staged
-    for q, k and v: a head dim above ~110 does not fit ~128 rows).  The
-    query block tiles the work only; each row sees the same keys whatever
-    it is.  Raises ``ValueError`` where not even ``L·C`` rows fit, or the
-    head dim is above what the kernel's projections take."""
+    ``QB`` whose block fits ``smem_limit`` bytes with 32-column streamed
+    tiles, else with 16-column tiles (the window rows are staged for q, k
+    and v: a head dim above ~110 does not fit ~128 rows; at chunk 16, left
+    context 1 head dims 454-512 fit 16 rows only with 16-column tiles).
+    The query block tiles the work only; each row sees the same keys
+    whatever it is.  Raises ``ValueError`` where not even ``L·C`` rows fit,
+    or the head dim is above what the kernel's projections take."""
     step = L * C
     if Dh > _FUSED_MAX_HEAD_DIM:
         raise ValueError(
             f"fused attention: head dim {Dh} is above the kernel's {_FUSED_MAX_HEAD_DIM} "
             "(use attention_impl='flash')"
         )
-    rows = QB
-    while rows > step and _fused_smem(rows, rows + step, Dh) > smem_limit:
-        rows -= step
-    if _fused_smem(rows, rows + step, Dh) > smem_limit:
-        raise ValueError(
-            f"fused attention: no query block fits {smem_limit} bytes of shared memory "
-            f"at head dim {Dh}, chunk {C}, left context {L} (one block of {step} rows "
-            f"needs {_fused_smem(step, 2 * step, Dh)}; use attention_impl='flash')"
-        )
-    return rows
+    for tile in _FUSED_TILES:
+        rows = QB
+        while rows > step and _fused_smem(rows, rows + step, Dh, tile) > smem_limit:
+            rows -= step
+        if _fused_smem(rows, rows + step, Dh, tile) <= smem_limit:
+            return rows
+    raise ValueError(
+        f"fused attention: no query block fits {smem_limit} bytes of shared memory "
+        f"at head dim {Dh}, chunk {C}, left context {L} (one block of {step} rows "
+        f"needs {_fused_smem(step, 2 * step, Dh, _FUSED_TILES[-1])}; "
+        "use attention_impl='flash')"
+    )
 
 
 def _smem_limit(device) -> int:
@@ -650,11 +666,12 @@ def fused_attention_fwd(x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, s
             x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, save
         )
     limit = _smem_limit(x.device)
-    if Dh > _FUSED_MAX_HEAD_DIM or _fused_smem(QB, QB + L * C, Dh) > limit:
+    tile = _fused_tile(QB, QB + L * C, Dh, limit)
+    if Dh > _FUSED_MAX_HEAD_DIM or tile is None:
         raise ValueError(
             f"fused_attention_fwd: a query block of {QB} rows at head dim {Dh} does not "
-            f"fit the kernel ({_fused_smem(QB, QB + L * C, Dh)} bytes of shared memory, "
-            f"{limit} available; head dims up to {_FUSED_MAX_HEAD_DIM}); "
+            f"fit the kernel ({_fused_smem(QB, QB + L * C, Dh, _FUSED_TILES[-1])} bytes of "
+            f"shared memory, {limit} available; head dims up to {_FUSED_MAX_HEAD_DIM}); "
             "fused_attention_layer picks a query block that fits"
         )
     freq = _rope_freq_tensor(H, D, x.device)
@@ -665,12 +682,12 @@ def fused_attention_fwd(x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, s
     else:
         qs = ks = vs = lse = None
     _call(
-        "fused_attention", "fused_attention_fwd", 15, 11,
+        "fused_attention", "fused_attention_fwd", 15, 12,
         [_ptr(a) for a in (x, *xw, lng, lnb, freq, lengths, out, qs, ks, vs, lse)],
         [B, T1, H, D // H, C, L, t_real, QB, offset,
-         int(x.dtype == torch.bfloat16), int(save)],
+         int(x.dtype == torch.bfloat16), int(save), tile],
         [_scale(D // H), _LN_EPS], x.device,
-        f"B={B} T1={T1} D={D} H={H} QB={QB} {x.dtype} save={save}",
+        f"B={B} T1={T1} D={D} H={H} QB={QB} tile={tile} {x.dtype} save={save}",
     )
     fused_attention_fwd.launches += 1
     return (out, qs, ks, vs, lse) if save else (out,)

@@ -4,10 +4,13 @@ plain PyTorch versions and the autograd Functions.
 
 ``lstm_recurrence`` is the port of ``ecog2txt_tpu/ops/pallas_lstm.py::
 _fwd_call`` and ``lstm_recurrence_bwd`` of ``_bwd_call``.  On a CUDA
-tensor each launches its kernel (``csrc/lstm_recurrence.cu``; for the
-adjoint ``csrc/lstm_bwd_cluster.cu`` at bf16 where a cluster holds
-``wh``, else ``csrc/lstm_recurrence_bwd.cu``, as :func:`plan_bwd_body`
-picks; one launch for the whole sequence) or raises; on a CPU tensor each runs its plain version
+tensor each launches its kernel (``csrc/lstm_recurrence.cu``: at bf16
+where a cluster holds ``wh`` the cluster body of
+``csrc/lstm_fwd_cluster.cuh``, else the rows body, as
+:func:`plan_fwd_body` picks; for the adjoint ``csrc/lstm_bwd_cluster.cu``
+at bf16 where a cluster holds ``wh``, else ``csrc/lstm_recurrence_bwd.cu``,
+as :func:`plan_bwd_body` picks; one launch for the whole sequence) or
+raises; on a CPU tensor each runs its plain version
 (:func:`lstm_recurrence_reference`, :func:`lstm_recurrence_bwd_reference`),
 a step loop with the same rounding points.  ``<wrapper>.launches`` counts
 kernel launches.  :func:`fused_lstm_recurrence` is the differentiable
@@ -17,9 +20,10 @@ backward K1b plus one GEMM for the recurrent weight's gradient.
 ``bilstm_grid_fwd`` is the port of ``_bi_grid_fwd_call`` and
 ``bilstm_grid_bwd`` of ``_bi_grid_bwd_call`` (``csrc/bilstm_grid.cu``:
 one launch whose grid has a direction axis, so the forward and the
-reverse-time chain of a layer run at once on separate SMs; K4b's bf16
-adjoint is K1b's cluster body with that direction axis, picked by
-:func:`plan_bwd_body` as for K1b); :func:`fused_bilstm_grid` is the
+reverse-time chain of a layer run at once on separate SMs; K4f's and
+K4b's bf16 bodies are K1f's and K1b's cluster bodies with that direction
+axis, picked by :func:`plan_fwd_body` and :func:`plan_bwd_body` as for
+K1f and K1b); :func:`fused_bilstm_grid` is the
 differentiable layer recurrence, the JAX package's function of the same
 name.
 """
@@ -27,6 +31,7 @@ name.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -143,15 +148,8 @@ def _device_limits(device: torch.device) -> tuple[int, int]:
     return sms, device_smem_optin(index)
 
 
-def _rows_per_block(
-    B: int, H: int, device: torch.device, directions: int = 1, waves: int = 1
-) -> int:
-    """:func:`_rows_for` on the SMs of ``device``."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _rows_for(B, H, sms, directions, waves)
-
-
 def _launch(xw, wh, lengths, h0, c0, mask, reverse_time, return_c_seq, rows):
+    """One launch of K1f's rows body (``rows`` batch rows a block)."""
     T, B, G = xw.shape
     H = G // 4
     lib = load_library("lstm_recurrence")
@@ -179,7 +177,34 @@ def _launch(xw, wh, lengths, h0, c0, mask, reverse_time, return_c_seq, rows):
             f"lstm_recurrence_fwd launch failed with CUDA error {err} "
             f"(T={T}, B={B}, H={H}, rows={rows}, {xw.dtype})"
         )
-    lstm_recurrence.launches += 1
+    return h_seq, c_seq, hT, cT
+
+
+def _launch_cluster(xw, wh, lengths, h0, c0, mask, reverse_time, return_c_seq, cs, rows):
+    """One launch of K1f's cluster body (bf16; ``cs`` CTAs and ``rows``
+    batch rows a cluster)."""
+    T, B, G = xw.shape
+    H = G // 4
+    fn = load_library("lstm_recurrence").lstm_recurrence_fwd_cluster
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    h_seq = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
+    c_seq = torch.empty_like(h_seq) if return_c_seq else None
+    hT = torch.empty((B, H), dtype=torch.float32, device=xw.device)
+    cT = torch.empty_like(hT)
+    with torch.cuda.device(xw.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            xw.data_ptr(), wh.data_ptr(), lengths.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), mask.data_ptr(), h_seq.data_ptr(),
+            c_seq.data_ptr() if return_c_seq else None, hT.data_ptr(), cT.data_ptr(),
+            T, B, H, int(reverse_time), cs, rows, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"lstm_recurrence_fwd_cluster launch failed with CUDA error {err} "
+            f"(T={T}, B={B}, H={H}, cluster size {cs}, {rows} rows a cluster)"
+        )
     return h_seq, c_seq, hT, cT
 
 
@@ -198,24 +223,33 @@ def lstm_recurrence(
     :func:`lstm_recurrence_reference` for the semantics.
 
     On a CUDA tensor this launches the Hopper kernel (and raises if it
-    cannot be built or launched); on a CPU tensor it runs the reference.
+    cannot be built or launched): the cluster body
+    (``csrc/lstm_fwd_cluster.cuh``) where :func:`plan_fwd_body` picks it,
+    else the rows body (``csrc/lstm_common.cuh::fwd_rows``);
+    ``lstm_recurrence.launches_by_body`` counts each.  On a CPU tensor it
+    runs the reference.
     """
-    _check(xw, wh, lengths, h0, c0, mask)
+    args = (xw, wh, lengths, h0, c0, mask)
+    _check(*args)
     if xw.device.type == "cpu":
-        return lstm_recurrence_reference(
-            xw, wh, lengths, h0, c0, mask, reverse_time, return_c_seq
-        )
+        return lstm_recurrence_reference(*args, reverse_time, return_c_seq)
     if xw.device.type != "cuda":
         raise ValueError(f"lstm_recurrence runs on cuda or cpu, not {xw.device}")
     B, H = h0.shape
     _check_kernel_width("lstm_recurrence", H)
-    return _launch(
-        xw, wh, lengths, h0, c0, mask, reverse_time, return_c_seq,
-        _rows_per_block(B, H, xw.device, waves=2),
-    )
+    plan = _plan_fwd(xw.dtype, B, H, xw.device)
+    if plan["body"] == "cluster":
+        out = _launch_cluster(*args, reverse_time, return_c_seq, plan["cluster_size"],
+                              plan["rows_per_cluster"])
+    else:
+        out = _launch(*args, reverse_time, return_c_seq, plan["rows_per_block"])
+    lstm_recurrence.launches += 1
+    lstm_recurrence.launches_by_body[plan["body"]] += 1
+    return out
 
 
 lstm_recurrence.launches = 0
+lstm_recurrence.launches_by_body = {"cluster": 0, "rows": 0}
 
 
 # --------------------------------------------------------------------------
@@ -372,6 +406,99 @@ def plan_bwd_body(dtype: torch.dtype, B: int, H: int, sms: int, smem_limit: int,
                         "rows_per_cluster": _CLUSTER_ROWS,
                         "clusters": directions * -(-B // _CLUSTER_ROWS), "smem": smem}
     return {"body": "rows", "rows_per_block": _rows_for(B, H, sms, directions)}
+
+
+# A wave of 32-row forward clusters against one of 16-row clusters on a
+# full card, at H=400, T'=104 (PERF.md, section 6: ~0.88-0.93 ms against
+# ~0.52-0.56 ms on an H100)
+_WAVE_COST_32_ROWS = 1.7
+
+
+def _fwd_cluster_smem(H: int, cs: int, rows: int = _CLUSTER_ROWS) -> int:
+    """Shared memory (bytes) of one CTA of the forward cluster body at width
+    ``H``, ``cs`` CTAs and ``rows`` (16 or 32) batch rows a cluster: the
+    resident weight slice (Hp × 4Uc, rows padded as K1b's) and the
+    cluster's ``S(h·mask)`` rows, double-buffered (2 × rows × Hp), as
+    ``csrc/lstm_fwd_cluster.cuh::FwdDims``."""
+    Hp, Uc = _r16(H), _cluster_units(H, cs)
+    return Hp * (_r16(4 * Uc) + 8) * 2 + 2 * rows * (Hp + 8) * 2
+
+
+def _fwd_cluster_sizes(H: int, smem_limit: int) -> list[int]:
+    """The cluster sizes whose forward slice of ``wh`` (at most 256 gate
+    columns a CTA) fits ``smem_limit`` bytes, ascending."""
+    return [cs for cs in _CLUSTER_SIZES
+            if 4 * _cluster_units(H, cs) <= _CLUSTER_MAX_GATE_COLS
+            and _fwd_cluster_smem(H, cs) <= smem_limit]
+
+
+def plan_fwd_body(dtype: torch.dtype, B: int, H: int, sms: int, smem_limit: int,
+                  directions: int = 1, resident: dict | None = None) -> dict:
+    """Which body of the LSTM forward runs, K1f's (``directions=1``) or
+    K4f's (``directions=2``), chosen up front from the dtype and the shape:
+    ``{"body": "cluster", "cluster_size": cs, "rows_per_cluster": r,
+    "clusters": n, "smem": bytes}`` for bf16 where a cluster of ``cs`` in
+    (1, 2, 4, 8) CTAs holds ``wh`` (a slice of at most 256 gate columns
+    that fits ``smem_limit``), else ``{"body": "rows", "rows_per_block":
+    r}``, the CUDA-core body (f32, and H whose slice fits no cluster, H >
+    432).
+
+    The cluster size: the most CTAs whose 16-row clusters all run at once
+    (``n = directions · ceil(B / 16)`` within one wave), since a CTA with
+    fewer units has fewer warps in the serial step's cell; the fewest CTAs
+    that fit where no size runs in one wave (8 at H=400, B=256), or where
+    B < 16 (the tile is mostly padding rows, which skip the cell, and a
+    one-CTA cluster needs only a block barrier).  Rows a cluster: 32 (two
+    tensor-core row tiles) where its clusters run in so many fewer waves
+    than at 16 rows that the slower 32-row wave (``_WAVE_COST_32_ROWS``
+    times a 16-row wave) still wins, else 16.  At B=256, H=400 K1f takes
+    32 rows (1 wave against 2), K4f 16 (3 waves against 2 slower ones).
+    ``resident`` maps a cluster size to how many such clusters the card
+    keeps at once (the H100: 15 of 8), by default ``sms // cs``.  ``sms``
+    and ``smem_limit`` are the card's SM count and per-block shared-memory
+    opt-in, passed in so the plan runs without a card."""
+    fits = _fwd_cluster_sizes(H, smem_limit)
+    if dtype != torch.bfloat16 or not fits:
+        return {"body": "rows",
+                "rows_per_block": _rows_for(B, H, sms, directions, waves=2 if directions == 1 else 1)}
+
+    def waves(cs, rows):
+        at_once = max(1, (resident or {}).get(cs, sms // cs))
+        return -(-directions * -(-B // rows) // at_once)
+
+    one_wave = [cs for cs in fits if waves(cs, _CLUSTER_ROWS) == 1]
+    cs = one_wave[-1] if B >= _CLUSTER_ROWS and one_wave else fits[0]
+    rows = _CLUSTER_ROWS
+    if (_fwd_cluster_smem(H, cs, 2 * rows) <= smem_limit
+            and _WAVE_COST_32_ROWS * waves(cs, 2 * rows) < waves(cs, rows)):
+        rows *= 2
+    return {"body": "cluster", "cluster_size": cs, "rows_per_cluster": rows,
+            "clusters": directions * -(-B // rows), "smem": _fwd_cluster_smem(H, cs, rows)}
+
+
+@functools.cache
+def _fwd_resident(index: int, H: int, cs: int) -> int:
+    """How many clusters of ``cs`` CTAs of the forward cluster body at width
+    ``H`` CUDA device ``index`` keeps resident at once."""
+    fn = load_library("lstm_recurrence").lstm_recurrence_fwd_cluster_max_active
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    with torch.cuda.device(index):
+        n = int(fn(H, cs))
+    if n <= 0:
+        raise RuntimeError(f"cannot read the resident clusters of {cs} CTAs at H={H} "
+                           f"on CUDA device {index} (error {-n})")
+    return n
+
+
+def _plan_fwd(dtype: torch.dtype, B: int, H: int, device: torch.device,
+              directions: int = 1) -> dict:
+    """:func:`plan_fwd_body` on the card of ``device``, with its residency."""
+    sms, smem_limit = _device_limits(device)
+    resident = None
+    if dtype == torch.bfloat16:
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        resident = {cs: _fwd_resident(index, H, cs) for cs in _fwd_cluster_sizes(H, smem_limit)}
+    return plan_fwd_body(dtype, B, H, sms, smem_limit, directions, resident)
 
 
 def _launch_bwd_cluster(xw, wh, hprev, cprev, cseq, lengths, mask, dhseq,
@@ -578,12 +705,13 @@ def _check_grid(xwf, xwb, whf, whb, lengths, maskf, maskb):
         raise ValueError("xwf and xwb must share one shape, dtype and device")
 
 
-def _launch_grid(fn_name, tensors, T, B, H, dtype, device, tile):
+def _launch_grid(fn_name, tensors, T, B, H, dtype, device, *tile):
     """One launch of a ``csrc/bilstm_grid.cu`` entry on ``tensors``
     stacked direction-major; ``tile`` is the rows body's batch rows a
-    block, or the cluster body's CTAs a cluster."""
+    block, K4b's cluster body's CTAs a cluster, or K4f's cluster body's
+    CTAs and batch rows a cluster."""
     fn = getattr(load_library("bilstm_grid"), fn_name)
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * (4 + len(tile)) + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
@@ -591,7 +719,7 @@ def _launch_grid(fn_name, tensors, T, B, H, dtype, device, tile):
     array = (ctypes.c_void_p * len(ptrs))(*ptrs)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(array, T, B, H, int(dtype == torch.bfloat16), tile, stream)
+        err = fn(array, T, B, H, int(dtype == torch.bfloat16), *tile, stream)
     if err != 0:
         raise RuntimeError(
             f"{fn_name} launch failed with CUDA error {err} "
@@ -599,10 +727,11 @@ def _launch_grid(fn_name, tensors, T, B, H, dtype, device, tile):
         )
 
 
-def _launch_grid_fwd(xwf, xwb, whf, whb, lengths, maskf, maskb, return_c_seq, rows):
-    """One K4f launch; the kernel takes each per-direction tensor stacked
-    direction-major, so the inputs are stacked here (one copy each) and
-    the outputs come back as views of stacked tensors."""
+def _launch_grid_fwd(xwf, xwb, whf, whb, lengths, maskf, maskb, return_c_seq, plan):
+    """One K4f launch of the body ``plan`` names; the kernel takes each
+    per-direction tensor stacked direction-major, so the inputs are
+    stacked here (one copy each) and the outputs come back as views of
+    stacked tensors."""
     T, B, G = xwf.shape
     H = G // 4
     seq = lambda: torch.empty((2, T, B, H), dtype=xwf.dtype, device=xwf.device)  # noqa: E731
@@ -610,12 +739,14 @@ def _launch_grid_fwd(xwf, xwb, whf, whb, lengths, maskf, maskb, return_c_seq, ro
     c_seq = seq() if return_c_seq else None
     hT = torch.empty((2, B, H), dtype=torch.float32, device=xwf.device)
     cT = torch.empty_like(hT)
-    _launch_grid(
-        "bilstm_grid_fwd",
-        (torch.stack([xwf, xwb]), torch.stack([whf, whb]), lengths,
-         torch.stack([maskf, maskb]), h_seq, c_seq, hT, cT),
-        T, B, H, xwf.dtype, xwf.device, rows,
-    )
+    tensors = (torch.stack([xwf, xwb]), torch.stack([whf, whb]), lengths,
+               torch.stack([maskf, maskb]), h_seq, c_seq, hT, cT)
+    if plan["body"] == "cluster":
+        _launch_grid("bilstm_grid_fwd_cluster", tensors, T, B, H, xwf.dtype, xwf.device,
+                     plan["cluster_size"], plan["rows_per_cluster"])
+    else:
+        _launch_grid("bilstm_grid_fwd", tensors, T, B, H, xwf.dtype, xwf.device,
+                     plan["rows_per_block"])
     cf, cb = (c_seq[0], c_seq[1]) if return_c_seq else (None, None)
     return h_seq[0], h_seq[1], cf, cb, hT, cT
 
@@ -634,7 +765,11 @@ def bilstm_grid_fwd(
     in one launch — see :func:`bilstm_grid_fwd_reference`.
 
     On a CUDA tensor this launches the Hopper kernel K4f (and raises if it
-    cannot be built or launched); on a CPU tensor it runs the reference.
+    cannot be built or launched): K1f's cluster body with a direction axis
+    (``csrc/lstm_fwd_cluster.cuh`` through ``csrc/bilstm_grid.cu``) where
+    :func:`plan_fwd_body` picks it for two directions, else the rows body;
+    ``bilstm_grid_fwd.launches_by_body`` counts each.  On a CPU tensor it
+    runs the reference.
     """
     _check_grid(xwf, xwb, whf, whb, lengths, maskf, maskb)
     if xwf.device.type == "cpu":
@@ -645,15 +780,15 @@ def bilstm_grid_fwd(
         raise ValueError(f"bilstm_grid_fwd runs on cuda or cpu, not {xwf.device}")
     B, H = maskf.shape
     _check_kernel_width("bilstm_grid_fwd", H)
-    out = _launch_grid_fwd(
-        xwf, xwb, whf, whb, lengths, maskf, maskb, return_c_seq,
-        _rows_per_block(B, H, xwf.device, directions=2),
-    )
+    plan = _plan_fwd(xwf.dtype, B, H, xwf.device, directions=2)
+    out = _launch_grid_fwd(xwf, xwb, whf, whb, lengths, maskf, maskb, return_c_seq, plan)
     bilstm_grid_fwd.launches += 1
+    bilstm_grid_fwd.launches_by_body[plan["body"]] += 1
     return out
 
 
 bilstm_grid_fwd.launches = 0
+bilstm_grid_fwd.launches_by_body = {"cluster": 0, "rows": 0}
 
 
 def bilstm_grid_bwd_reference(

@@ -287,11 +287,13 @@ def test_banded_kernels_take_a_head_dim_that_does_not_divide_256(dtype, Dh):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Dh", [288, 384])
+@pytest.mark.parametrize("Dh", [288, 384, 454, 512])
 def test_fused_kernel_matches_plain_version_above_head_dim_256(dtype, Dh):
-    """K3f at a head dim above 256 (one head: model width 288 or 384):
+    """K3f at a head dim above 256 (one head: model width 288 to 512):
     its projections take two head columns a thread, at the largest query
-    block that fits shared memory, and it matches its plain version."""
+    block that fits shared memory (16 rows at chunk 16 from head dim 384;
+    at 512 with 16-column streamed tiles), and it matches its plain
+    version."""
     _need_cuda()
     from ecog2txt_tpu_torch.ops import attention_kernels as ak
 
@@ -548,6 +550,135 @@ def test_k1b_cluster_sizes_match_plain_version(H, cs, reverse_time):
         torch.testing.assert_close(a.float(), w.float(), **TOL[torch.bfloat16])
 
 
+def _fwd_cluster_case(B, H, T, reverse_time, seed):
+    """K1f inputs in bf16: ragged lengths with a zero (full at B=1), a 0/2
+    mask, a nonzero initial state in forward time (zero in reverse)."""
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    lengths = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    lengths[0] = T if B == 1 else 0
+    mask = (torch.rand((B, H), generator=g) < 0.5).float() * 2.0
+    state = torch.zeros((B, H)) if reverse_time else rand(B, H) * 0.5
+    args = (rand(T, B, 4 * H).bfloat16(), (rand(H, 4 * H) / H ** 0.5).bfloat16(), lengths,
+            state, state * 0.5, mask)
+    return tuple(a.cuda() for a in args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse_time", [False, True])
+@pytest.mark.parametrize("H", [64, 100, 400])
+@pytest.mark.parametrize("B", [1, 17, 256])
+def test_k1f_cluster_body_matches_plain_version(B, H, reverse_time):
+    """The bf16 body of K1f (a cluster of CTAs holding wh in shared memory,
+    h all-gathered through distributed shared memory) against its plain
+    version, padded B (1, 17) and H (100), both time directions; two
+    launches on the same inputs are bit-identical."""
+    _need_cuda()
+    args = _fwd_cluster_case(B, H, 24, reverse_time, seed=B * 1000 + H)
+    before = dict(lstm_kernels.lstm_recurrence.launches_by_body)
+    got = lstm_kernels.lstm_recurrence(*args, reverse_time=reverse_time, return_c_seq=True)
+    again = lstm_kernels.lstm_recurrence(*args, reverse_time=reverse_time, return_c_seq=True)
+    torch.cuda.synchronize()
+    assert lstm_kernels.lstm_recurrence.launches_by_body["cluster"] == before["cluster"] + 2
+    want = lstm_kernels.lstm_recurrence_reference(*args, reverse_time, True)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse_time", [False, True])
+@pytest.mark.parametrize("H, cs, rows", [(400, 8, 16), (400, 8, 32), (100, 2, 16),
+                                         (100, 4, 32), (100, 8, 16), (64, 1, 16), (64, 2, 32),
+                                         (64, 8, 16)])
+def test_k1f_cluster_shapes_match_plain_version(H, cs, rows, reverse_time):
+    """The forward cluster body at every cluster size the planner may pick
+    (1 to 8 CTAs) and both rows a cluster, at B=40 (the last cluster
+    padded), against the plain version; a row's outputs do not depend on
+    the rows a cluster (16 or 32) bit for bit."""
+    _need_cuda()
+    args = _fwd_cluster_case(40, H, 24, reverse_time, seed=H + cs)
+    got = lstm_kernels._launch_cluster(*args, reverse_time, True, cs, rows)
+    other = lstm_kernels._launch_cluster(*args, reverse_time, True, cs, 16 if rows == 32 else 32)
+    torch.cuda.synchronize()
+    want = lstm_kernels.lstm_recurrence_reference(*args, reverse_time, True)
+    for a, b, w in zip(got, other, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 17, 256])
+def test_k4f_cluster_body_equals_two_k1f_launches(B):
+    """K4f's bf16 body (K1f's cluster body with a direction axis) matches
+    its plain version and equals two K1f cluster launches bit for bit, at
+    B=256 although the two plan different cluster sizes (K4f 2 CTAs, K1f
+    4): a unit's product is summed in one order whichever CTA owns it."""
+    _need_cuda()
+    Hw = 100
+    f = _fwd_cluster_case(B, Hw, 24, True, seed=B)
+    b = _fwd_cluster_case(B, Hw, 24, True, seed=B + 1)
+    args = (f[0], b[0], f[1], b[1], f[2], f[5], b[5])
+    before = dict(lstm_kernels.bilstm_grid_fwd.launches_by_body)
+    got = lstm_kernels.bilstm_grid_fwd(*args)
+    torch.cuda.synchronize()
+    assert lstm_kernels.bilstm_grid_fwd.launches_by_body["cluster"] == before["cluster"] + 1
+    want = lstm_kernels.bilstm_grid_fwd_reference(*args)
+    zeros = torch.zeros((B, Hw), device="cuda")
+    hf, cf, hTf, cTf = lstm_kernels.lstm_recurrence(f[0], f[1], f[2], zeros, zeros, f[5],
+                                                    False, True)
+    hb, cb, hTb, cTb = lstm_kernels.lstm_recurrence(b[0], b[1], f[2], zeros, zeros, b[5],
+                                                    True, True)
+    two = (hf, hb, cf, cb, torch.stack([hTf, hTb]), torch.stack([cTf, cTb]))
+    for g, t, w in zip(got, two, want):
+        assert torch.equal(g, t)
+        torch.testing.assert_close(g.float(), w.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [False, True])
+def test_cluster_functions_match_their_plain_versions(grid):
+    """``LSTMRecurrence`` (K1f + K1b) and ``BiLSTMGrid`` (K4f + K4b) in
+    bf16, where both kernels run their cluster bodies, against the same
+    Functions on CPU tensors (the plain versions, the same rounding
+    points): outputs and the gradients of xw elementwise, the recurrent
+    weights' f32 gradients normwise (sums of T'·B products)."""
+    _need_cuda()
+    Bc, Hc, Tc = 17, 100, 24
+    f = _fwd_cluster_case(Bc, Hc, Tc, True, seed=5)
+    b = _fwd_cluster_case(Bc, Hc, Tc, True, seed=6)
+    w_out = torch.randn((2 * Hc if grid else Hc,), generator=torch.Generator().manual_seed(3))
+
+    def run(device):
+        leaves = [a.detach().to(device).requires_grad_() for a in
+                  ((f[0], b[0], f[1].float(), b[1].float()) if grid else (f[0], f[1].float()))]
+        lengths, mf, mb = f[2].to(device), f[5].to(device), b[5].to(device)
+        if grid:
+            out, hT, cT = lstm_kernels.fused_bilstm_grid(*leaves, lengths, mf, mb)
+        else:
+            zeros = torch.zeros((Bc, Hc), device=device)
+            out, hT, cT = lstm_kernels.fused_lstm_recurrence(leaves[0], leaves[1], lengths,
+                                                             zeros, zeros, mf, True)
+        loss = (out.float() * w_out.to(device)).sum() + 2.0 * hT.sum() + 0.5 * (cT ** 2).sum()
+        loss.backward()
+        return [out.detach().cpu(), *(a.grad.cpu() for a in leaves)]
+
+    names = ("K4f", "K4b") if grid else ("K1f", "K1b")
+    wrappers = ((lstm_kernels.bilstm_grid_fwd, lstm_kernels.bilstm_grid_bwd) if grid else
+                (lstm_kernels.lstm_recurrence, lstm_kernels.lstm_recurrence_bwd))
+    before = [dict(w.launches_by_body) for w in wrappers]
+    got = run("cuda")
+    for name, w, b0 in zip(names, wrappers, before):
+        assert w.launches_by_body == {**b0, "cluster": b0["cluster"] + 1}, name
+    want = run("cpu")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == torch.bfloat16 or i == 0:
+            torch.testing.assert_close(g.float(), w.float(), **TOL[torch.bfloat16])
+        else:  # an f32 weight gradient
+            assert g.dtype == torch.float32
+            torch.testing.assert_close(g, w, rtol=0.0, atol=5e-2 * float(w.abs().max()))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_banded_kernels_refuse_a_block_beyond_shared_memory(dtype):
@@ -627,14 +758,20 @@ def test_planners_agree_with_the_kernels_shared_memory():
     cl.argtypes, cl.restype = [ctypes.c_int] * 2, ctypes.c_longlong
     for H, cs in ((400, 8), (100, 2), (64, 1), (17, 4)):
         assert cl(H, cs) == lstm_kernels._cluster_smem(H, cs)
+    fw = _build.load_library("lstm_recurrence").lstm_recurrence_fwd_cluster_smem
+    fw.argtypes, fw.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    for H, cs in ((400, 8), (100, 2), (64, 1), (17, 4)):
+        for rows in (16, 32):
+            assert fw(H, cs, rows) == lstm_kernels._fwd_cluster_smem(H, cs, rows)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_main_paths_select_the_body_by_dtype(dtype):
     """A biLSTM training step and a flash conformer call: bf16 launches
-    the cluster K1b and the tensor-core K2f, f32 the rows K1b and the
-    CUDA-core K2f, every launch counted once in ``launches_by_body``."""
+    the cluster K1f and K1b and the tensor-core K2f, f32 the rows K1f and
+    K1b and the CUDA-core K2f, every launch counted once in
+    ``launches_by_body``."""
     _need_cuda()
     import numpy as np
 
@@ -642,8 +779,9 @@ def test_main_paths_select_the_body_by_dtype(dtype):
     from ecog2txt_tpu_torch.ops import attention_kernels as ak
 
     bf16 = dtype == torch.bfloat16
-    K1b, K2f = lstm_kernels.lstm_recurrence_bwd, ak.banded_attention_fwd
-    b0, f0 = dict(K1b.launches_by_body), dict(K2f.launches_by_body)
+    K1f, K1b, K2f = lstm_kernels.lstm_recurrence, lstm_kernels.lstm_recurrence_bwd, \
+        ak.banded_attention_fwd
+    r0, b0, f0 = (dict(K.launches_by_body) for K in (K1f, K1b, K2f))
     xw, wh, lengths, h0, c0, mask = _inputs(dtype, False)
     leaves = [xw.clone().requires_grad_(), wh.float().clone().requires_grad_()]
     out, _, _ = lstm_kernels.fused_lstm_recurrence(leaves[0], leaves[1], lengths, h0, c0, mask)
@@ -656,8 +794,10 @@ def test_main_paths_select_the_body_by_dtype(dtype):
         y, _ = conformer_encode(params, ccfg, x, torch.tensor([40, 23], dtype=torch.int32,
                                                                device="cuda"), compute_dtype=dtype)
     assert np.isfinite(y.float().cpu().numpy()).all()
+    k1f = {k: K1f.launches_by_body[k] - r0[k] for k in r0}
     k1b = {k: K1b.launches_by_body[k] - b0[k] for k in b0}
     k2f = {k: K2f.launches_by_body[k] - f0[k] for k in f0}
+    assert k1f == ({"cluster": 1, "rows": 0} if bf16 else {"cluster": 0, "rows": 1})
     assert k1b == ({"cluster": 1, "rows": 0} if bf16 else {"cluster": 0, "rows": 1})
     assert k2f == ({"tensor_core": 1, "cuda_core": 0} if bf16 else
                    {"tensor_core": 0, "cuda_core": 1})

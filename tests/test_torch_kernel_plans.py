@@ -61,6 +61,73 @@ def test_cluster_body_needs_the_shared_memory():
     assert lk.plan_bwd_body(torch.bfloat16, 16, 400, SMS, 100 * 1024)["body"] == "rows"
 
 
+H100_RESIDENT = {400: {8: 15}, 64: {1: 132, 2: 66, 4: 30, 8: 15}}  # clusters held at once
+
+
+@pytest.mark.parametrize(
+    "dtype, B, H, directions, want",
+    [(torch.bfloat16, 256, 400, 1, ("cluster", 8, 32)),  # 1 wave of 8, not 2 of 15 + 1
+     (torch.bfloat16, 256, 400, 2, ("cluster", 8, 16)),  # 3 waves, not 2 slower ones
+     (torch.bfloat16, 1, 400, 1, ("cluster", 8, 16)),
+     (torch.bfloat16, 1, 400, 2, ("cluster", 8, 16)),
+     (torch.bfloat16, 17, 400, 1, ("cluster", 8, 16)),
+     (torch.bfloat16, 128, 400, 1, ("cluster", 8, 16)),  # one wave either way
+     (torch.bfloat16, 16, 64, 1, ("cluster", 8, 16)),  # the demo trainer: 8 CTAs of 8 units
+     (torch.bfloat16, 16, 64, 2, ("cluster", 8, 16)),
+     (torch.bfloat16, 1, 64, 1, ("cluster", 1, 16)),  # one real row: one CTA
+     (torch.bfloat16, 256, 64, 1, ("cluster", 4, 16)),  # 16 clusters of 8 take 2 waves
+     (torch.bfloat16, 256, 64, 2, ("cluster", 2, 16)),  # 32 clusters of 4 take 2 waves
+     (torch.float32, 256, 400, 1, ("rows", 1)),
+     (torch.float32, 256, 400, 2, ("rows", 4)),
+     (torch.bfloat16, 256, 512, 1, ("rows", 1)),  # the slice fits no cluster
+     (torch.bfloat16, 16, 1024, 2, ("rows", 1))],
+)
+def test_forward_body_plan(dtype, B, H, directions, want):
+    """K1f (one direction) and K4f (two) plan the cluster body for bf16
+    where a slice of ``wh`` fits: the most CTAs a cluster whose clusters
+    all run at once (fewer units a CTA, fewer warps in the step's cell),
+    else the fewest that fit (8 at H=400), and the fewest where B < 16;
+    32 rows a cluster where that saves enough waves of the clusters the
+    card keeps at once to pay for the slower 32-row wave, else 16; each
+    direction has its own clusters, ``ceil(B / rows)`` of them.  f32 and
+    widths whose slice fits no cluster keep the rows body (two waves of
+    one-row blocks for K1f, one wave for K4f's doubled grid)."""
+    resident = H100_RESIDENT.get(H)
+    plan = lk.plan_fwd_body(dtype, B, H, SMS, SMEM, directions, resident)
+    if want[0] == "rows":
+        assert plan == {"body": "rows", "rows_per_block": want[1]}
+        return
+    _, cs, rows = want
+    assert plan == {"body": "cluster", "cluster_size": cs, "rows_per_cluster": rows,
+                    "clusters": directions * -(-B // rows),
+                    "smem": lk._fwd_cluster_smem(H, cs, rows)}
+    assert plan["smem"] <= SMEM
+    if directions == 2:
+        one = lk.plan_fwd_body(dtype, B, H, SMS, SMEM, 1, resident)
+        assert one["rows_per_cluster"] != rows or plan["clusters"] == 2 * one["clusters"]
+
+
+def test_forward_plan_without_a_residency_count():
+    """Without the card's count the plan takes ``sms // cs`` clusters at
+    once: 16 of 8 at H=400, so B=256 fits one wave of 16-row clusters."""
+    plan = lk.plan_fwd_body(torch.bfloat16, 256, 400, SMS, SMEM)
+    assert (plan["cluster_size"], plan["rows_per_cluster"], plan["clusters"]) == (8, 16, 16)
+
+
+def test_forward_cluster_budget_at_the_headline_width():
+    """H=400, 8 CTAs of 52 units: the resident slice (400 x 216 bf16) and the
+    cluster's S(h·mask) rows double-buffered (2 x 16 x 408 bf16) take 198912
+    bytes at 16 rows a cluster, 225024 at 32; the demo's H=64 on one CTA
+    38400.  No forward cluster plan exceeds the card's 232448."""
+    assert lk._fwd_cluster_smem(400, 8) == 400 * 216 * 2 + 2 * 16 * 408 * 2 == 198912
+    assert lk._fwd_cluster_smem(400, 8, 32) == 400 * 216 * 2 + 2 * 32 * 408 * 2 == 225024
+    assert lk._fwd_cluster_smem(64, 1) == 64 * 264 * 2 + 2 * 16 * 72 * 2 == 38400
+    for H in range(8, 1025, 8):
+        for directions in (1, 2):
+            plan = lk.plan_fwd_body(torch.bfloat16, 256, H, SMS, SMEM, directions)
+            assert plan["body"] == "rows" or plan["smem"] <= SMEM
+
+
 @pytest.mark.parametrize(
     "dtype, QB, W, Dh, body",
     [(torch.bfloat16, 128, 144, 64, "tensor_core"),  # headline, request, long
@@ -85,12 +152,13 @@ def test_k2f_tensor_core_block_is_smaller_than_the_f32_staging():
 
 
 @pytest.mark.parametrize(
-    "Dh, rows", [(64, 128), (96, 128), (128, 96), (288, 32), (384, 16)],
+    "Dh, rows", [(64, 128), (96, 128), (128, 112), (288, 32), (384, 16)],
 )
 def test_k3f_query_block_fits_shared_memory(Dh, rows):
     """The largest multiple of L·C (16) up to 128 rows whose K3f block fits
-    227 KB; head dims above 256 take 2 columns a thread and fit at 32 (288)
-    and 16 (384) rows."""
+    227 KB with 32-column streamed tiles; head dims above 256 take 2 columns
+    a thread and fit at 32 (288) and 16 (384) rows.  The LayerNorm tile
+    holds only the window's rows, so head dim 128 fits 112."""
     QB = ak.plan_fused_query_rows(128, 16, 1, Dh, SMEM)
     assert QB == rows and QB % 16 == 0
     assert ak._fused_smem(QB, QB + 16, Dh) <= SMEM
@@ -102,7 +170,7 @@ def test_k3f_query_block_refuses_what_no_block_fits():
     with pytest.raises(ValueError, match="head dim 640"):
         ak.plan_fused_query_rows(128, 16, 1, 640, SMEM)
     with pytest.raises(ValueError, match="no query block fits"):
-        ak.plan_fused_query_rows(128, 16, 1, 384, 150 * 1024)
+        ak.plan_fused_query_rows(128, 16, 1, 384, 140 * 1024)
 
 
 def test_cuda_core_attention_blocks_against_shared_memory():
@@ -191,20 +259,29 @@ def test_banded_query_block_refuses_what_no_block_fits(dtype):
         ak.plan_banded_query_rows(dtype, 128, 16, 1, 256, 40 * 1024)
 
 
-@pytest.mark.parametrize("C, Dh, rows", [(16, 448, 16), (4, 512, 16)])
+@pytest.mark.parametrize("C, Dh, rows", [(16, 448, 16), (4, 512, 20)])
 def test_k3f_query_block_at_its_widest_head_dims(C, Dh, rows):
     """K3f stages q, k and v of the window in f32 at the full head dim, plus
-    a 32-row f32 weight tile: at chunk 16, left context 1 one 16-row block
-    fits up to head dim 448 (452 too); at chunk 4 head dim 512 fits."""
+    the streamed LayerNorm and weight tiles: at chunk 16, left context 1 one
+    16-row block fits head dim 448; at chunk 4 head dim 512 fits 20 rows
+    (the LayerNorm tile holds the window's 24 rows, not 192)."""
     assert ak.plan_fused_query_rows(128, C, 1, Dh, SMEM) == rows
 
 
 @pytest.mark.parametrize("Dh", [454, 456, 512])
 def test_k3f_refuses_wide_heads_at_chunk_16(Dh):
-    """From head dim 454 not even 16 rows of K3f fit at chunk 16, left
-    context 1: a limit of K3f's f32 staging, not of its projections."""
-    with pytest.raises(ValueError, match="no query block fits"):
-        ak.plan_fused_query_rows(128, 16, 1, Dh, SMEM)
+    """These head dims were once refused at chunk 16, left context 1 (not
+    even 16 rows of K3f's f32 staging fitted).  Now each plans a 16-row
+    block, in either stream dtype (K3f stages in f32 in both): the
+    LayerNorm tile sized by the window's 32 rows brings 454 and 456 in with
+    32-column tiles, and 512 fits with 16-column tiles (a 32-column weight
+    tile of 64 KB would not)."""
+    tile = 16 if Dh == 512 else 32
+    assert ak.plan_fused_query_rows(128, 16, 1, Dh, SMEM) == 16
+    assert ak._fused_tile(16, 32, Dh, SMEM) == tile
+    assert ak._fused_smem(16, 32, Dh, tile) <= SMEM
+    if tile == 16:
+        assert ak._fused_smem(16, 32, Dh, 32) > SMEM
 
 
 def test_flash_attention_values_do_not_depend_on_the_query_block():
@@ -249,3 +326,47 @@ def test_lstm_width_limit_is_the_kernels_alone():
     with pytest.raises(ValueError, match="H=1040 is above the CUDA kernels' limit H <= 1024"):
         lk._check_kernel_width("lstm_recurrence", Hw)
     lk._check_kernel_width("lstm_recurrence", 1024)
+
+
+def test_concurrent_loads_build_a_library_once(tmp_path, monkeypatch):
+    """``_build.load_library`` asked for one library by many threads at once
+    (as ``chip_smoke.py`` builds every source while the LSTM phases load
+    theirs) compiles it once and hands every thread the loaded library."""
+    import sys
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ecog2txt_tpu_torch.ops import _build
+
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "fake.cu").write_text("// a kernel source\n")
+    calls = []
+
+    def fake_compile(source, out):
+        calls.append(source.name)
+        time.sleep(0.05)  # every other thread arrives while this one builds
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text("built")
+
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_compile", fake_compile)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("loaded", path))
+    old_interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    _build.load_library.cache_clear()
+    try:
+        barrier = threading.Barrier(16)
+
+        def load(_):
+            barrier.wait(timeout=10)
+            return _build.load_library("fake")
+
+        with ThreadPoolExecutor(16) as pool:
+            results = list(pool.map(load, range(16), timeout=30))
+    finally:
+        sys.setswitchinterval(old_interval)
+        _build.load_library.cache_clear()
+    assert calls == ["fake.cu"]
+    assert len(set(results)) == 1 and results[0][0] == "loaded"
