@@ -57,7 +57,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 6. attention kernels: K2f, K2b-dq, K2b-dkv and K3f against their plain
    versions in f32 and bf16, full and ragged lengths, at the headline
    conformer's training and serving shape (B=256, T'=104, D=384, H=6,
-   C=16, L=1), the ``ConformerStream`` window (B=1, T'=144, offsets -64
+   C=16, L=1), B=17, the ``ConformerStream`` window (B=1, T'=144, offsets -64
    and 256), the long recording (B=16, T'=8192), the conformer demo
    trainer's own shape and head dims 48 and 96 (B=16, 8 and 4 heads); the two autograd Functions' gradients against
    autograd through the plain forwards (f32); CUDA-event timings beside
@@ -81,24 +81,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
 9. the conformer demo trainer (a main path): ``MultiSubjectTrainer`` on
    the demo experiment with a small flash conformer, bf16: training WER
    must fall, with 2 K2b-dq and 2 K2b-dkv launches per step;
-K1f, K1b, K4f, K4b, K2f, K2b-dq and K2b-dkv have two bodies each, chosen
-up front by dtype (and shape): bf16 runs the cluster bodies of the LSTM
-forward and adjoint (``csrc/lstm_fwd_cluster.cuh``,
+K1f, K1b, K4f, K4b, K2f, K2b-dq, K2b-dkv and K3f have two bodies each,
+chosen up front by dtype (and shape): bf16 runs the cluster bodies of the
+LSTM forward and adjoint (``csrc/lstm_fwd_cluster.cuh``,
 ``csrc/lstm_bwd_cluster.cuh``: K1f / K1b one direction a launch, K4f /
 K4b both with a direction axis) and the attention kernels' tensor-core
-bodies (``csrc/banded_attention_tc.cu``, ``csrc/banded_attention_bwd_tc.cu``),
-f32 the rows and CUDA-core bodies.  Every main path reads
+bodies (``csrc/banded_attention_tc.cu``, ``csrc/banded_attention_bwd_tc.cu``,
+``csrc/fused_attention_tc.cu``), f32 the rows and CUDA-core bodies.  K5b
+has two bodies chosen by the row's width: the registers body (each row
+read once) at every width the conformer uses, the columns body above.  Every main path reads
 ``launches_by_body`` beside its counts and fails unless its bf16 launches
 went through the new body (the f32 cases through the old one).  Phase 2
 holds K1f and K1b at B=1, 16, 17 and 256 (H=400) and the demo width (K1b
 at H=100 too), and K4f and K4b at the same batches at H=400 and H=100,
 bit-identical on repeat (K4f's and K4b's cluster bodies equal to two K1f
 / K1b launches bit for bit; K1f's row 0 alone equal to row 0 in B=17);
-phase 6 holds K3f at head dims 288, 384, 454 and 512 too (512 on 16-column
-streamed tiles), and ``banded_flash_attention`` at head dim 256 in both
-dtypes at the query block it plans; both bodies of K1f, K1b, K4f, K4b, K2f
-and K2b are timed at bf16, in turns (K1f and K4f with cuDNN in the same
-turns, and at 16 and 32 rows a cluster).
+phase 6 holds K3f at head dims 288, 384, 454 and 512 too (at the block
+and body the layer plans: bf16 on the tensor cores; f32 512 on 16-column
+streamed tiles), its tensor-core body bit-identical on repeat and row 0 of
+B=17 equal to B=1 bit for bit, and ``banded_flash_attention`` at head dim
+256 in both dtypes at the query block it plans; both bodies of K1f, K1b,
+K4f, K4b, K2f, K2b, K3f and K5b are timed at bf16, in turns (K1f and K4f
+with cuDNN in the same turns, and at 16 and 32 rows a cluster; K3f at B=1
+at the 128-row block and the one the layer plans).
 Every conformer path also counts its LayerNorm launches: 5 K5f per block
 and encode (4 under 'fused', where K3f normalises inside) and as many K5b
 per training step; the flash training step is timed once more with the
@@ -182,12 +187,15 @@ WRAPPERS = {
     "K4f": lstm_kernels.bilstm_grid_fwd, "K4b": lstm_kernels.bilstm_grid_bwd,
     "K5f": layernorm_kernels.layer_norm_fwd, "K5b": layernorm_kernels.layer_norm_bwd,
 }
-# the kernels with two bodies, chosen up front by dtype and shape; each
-# wrapper counts its launches by body beside its plain count
+# the kernels with two bodies, chosen up front by dtype and shape (K5b: by
+# the row's width); each wrapper counts its launches by body beside its
+# plain count.  A count is one a wrapper call: a K3f tensor-core call and a
+# K5b call are two CUDA launches each and count once.
 BODIES = {"K1f": lstm_kernels.lstm_recurrence, "K1b": lstm_kernels.lstm_recurrence_bwd,
           "K2f": ATTN.banded_attention_fwd, "K4f": lstm_kernels.bilstm_grid_fwd,
           "K4b": lstm_kernels.bilstm_grid_bwd, "K2b-dq": ATTN.banded_attention_dq,
-          "K2b-dkv": ATTN.banded_attention_dkv}
+          "K2b-dkv": ATTN.banded_attention_dkv, "K3f": ATTN.fused_attention_fwd,
+          "K5b": layernorm_kernels.layer_norm_bwd}
 # LayerNorms per conformer block that run K5f/K5b: both FFNs, the
 # attention's (except under 'fused', where K3f normalises inside), the
 # conv module's and the block's output
@@ -255,6 +263,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time (ms) a call of ``fn`` spends in the kernels of
+    category ``kernel`` (``_category``), from ``torch.profiler`` over ``reps``
+    calls after a warm-up: CUDA events around calls of a small kernel would
+    also time the host's launch overhead between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and _category(ev.key) == kernel)
+    check(total > 0, f"device_ms: no {kernel} kernel in the trace")
+    return total / 1e3 / reps
+
+
+def _device_in_turns(fns: dict, reps: int, order, kernel: str) -> dict:
+    """``_in_turns`` with ``device_ms``: device time in the kernels of
+    ``kernel`` of each of ``fns``, in the given order."""
+    ms: dict = {name: [] for name in fns}
+    for name in order:
+        ms[name].append(device_ms(fns[name], reps, kernel))
+    return {name: float(np.mean(v)) for name, v in ms.items()}
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict,
@@ -1025,37 +1062,76 @@ def _ln_inputs(rows, D, dtype, seed):
 
 
 def _ln_timings(label: str, rows: int, D: int) -> dict:
-    """K5f and K5b at one shape, bf16: CUDA-event times beside the plain
-    versions, the bounds and ``F.layer_norm`` (forward; its backward as
-    (forward+backward) - forward)."""
+    """K5f and K5b at one shape, bf16: device times (and CUDA-event times,
+    host included) beside the plain versions, the bounds and
+    ``F.layer_norm`` (forward; its backward as (forward+backward) -
+    forward)."""
     F = torch.nn.functional
     dtype = torch.bfloat16
     x, dy, lng, lnb = _ln_inputs(rows, D, dtype, 77)
     LN = layernorm_kernels
     bounds = _ln_bounds(rows, D, dtype)
-    t = {"K5f": {"ms": cuda_ms(lambda: LN.layer_norm_fwd(x, lng, lnb), 20),
+    vec = LN._vec_rows(x, dy)
+    # K5b as the wrapper runs it (the registers body, then the sum of its
+    # partials), in turns with the registers body alone and the columns body
+    # alone (the previous body, timed without its sum as before): device
+    # time from the profiler, since at the headline rows the host's launch
+    # overhead is longer than the kernel; and the CUDA-event time of the
+    # wrapper as before
+    k5b_fns = {"wrapper": lambda: LN.layer_norm_bwd(x, dy, lng),
+               "registers": lambda: LN._launch_k5b("registers", x, dy, lng, 1e-6, vec,
+                                                   reduce=False),
+               "columns": lambda: LN._launch_k5b("columns", x, dy, lng, 1e-6, vec,
+                                                 reduce=False)}
+    turns = ("columns", "registers", "wrapper", "wrapper", "registers", "columns")
+    k5b = _device_in_turns(k5b_fns, 20, turns, "K5b")
+    k5b_events = _in_turns(k5b_fns, 20, turns)
+    # K5f and its library call by device time too, for the same reason
+    k5f = lambda: LN.layer_norm_fwd(x, lng, lnb)  # noqa: E731
+    t = {"K5f": {"ms": device_ms(k5f, 20, "K5f"), "event_ms_with_host": cuda_ms(k5f, 20),
                  "plain_ms": cuda_ms(lambda: LN.layer_norm_fwd_reference(x, lng, lnb), 5, 1)},
-         "K5b": {"ms": cuda_ms(lambda: LN.layer_norm_bwd(x, dy, lng), 20),
+         "K5b": {"ms": k5b["wrapper"], "ms_registers_body_alone": k5b["registers"],
+                 "ms_columns_body_alone": k5b["columns"],
+                 "event_ms_with_host": k5b_events,
                  "plain_ms": cuda_ms(lambda: LN.layer_norm_bwd_reference(x, dy, lng), 5, 1)}}
     # the library call takes its affine parameters in the stream dtype
     gl, bl = lng.to(dtype), lnb.to(dtype)
     with torch.no_grad():
-        t["K5f"]["library_ms"] = cuda_ms(lambda: F.layer_norm(x, (D,), gl, bl, 1e-6), 20)
+        lib = lambda: F.layer_norm(x, (D,), gl, bl, 1e-6)  # noqa: E731
+        t["K5f"]["library_ms"] = device_ms(lib, 20, "other kernels")
+        t["K5f"]["library_event_ms_with_host"] = cuda_ms(lib, 20)
     xl, gq, bq = (a.detach().clone().requires_grad_() for a in (x, gl, bl))
 
     def lib_fwd_bwd():
+        for a in (xl, gq, bq):  # no accumulation into earlier calls' gradients
+            a.grad = None
         F.layer_norm(xl, (D,), gq, bq, 1e-6).backward(dy)
 
     with torch.enable_grad():
         both = cuda_ms(lib_fwd_bwd, 20)
         lib_fwd = cuda_ms(lambda: F.layer_norm(xl, (D,), gq, bq, 1e-6), 20)
-    t["K5b"]["library_ms"] = both - lib_fwd
+        # its device time too, as K5b's ms is (every kernel of the call is
+        # PyTorch's, "other kernels" to _category)
+        both_dev = device_ms(lib_fwd_bwd, 20, "other kernels")
+        fwd_dev = device_ms(lambda: F.layer_norm(xl, (D,), gq, bq, 1e-6), 20, "other kernels")
+    t["K5b"]["library_ms"] = both_dev - fwd_dev
+    t["K5b"]["library_event_ms_with_host"] = both - lib_fwd
     for name in ("K5f", "K5b"):
         t[name]["bound_ms"], t[name]["bound_by"] = bounds[name]
         r = t[name]
-        print(f"timing {name} {label} rows={rows} D={D} bf16: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library (F.layer_norm{'' if name == 'K5f' else ' backward'}"
-              f") {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"timing {name} {label} rows={rows} D={D} bf16: kernel {r['ms']:.4f} ms (device "
+              f"time), plain {r['plain_ms']:.4f} ms, library (F.layer_norm"
+              f"{'' if name == 'K5f' else ' backward'}, device time) {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f"; CUDA events around the calls (host included): kernel "
+                 f"{r['event_ms_with_host']:.4f} ms, library "
+                 f"{r['library_event_ms_with_host']:.4f} ms" if name == "K5f" else "")
+              + (f"; kernel = device time of the registers body + the sum of its partials; in "
+                 f"turns the registers body alone {r['ms_registers_body_alone']:.4f} ms, the "
+                 f"columns body alone {r['ms_columns_body_alone']:.4f} ms; CUDA events around "
+                 "the calls (host included): " + ", ".join(
+                     f"{k} {v:.4f} ms" for k, v in r["event_ms_with_host"].items())
+                 if name == "K5b" else ""))
     return t
 
 
@@ -1113,23 +1189,31 @@ def grid_and_layernorm_kernel_phase(demo_shapes) -> dict:
             seed += 1
             x, dy, lng, lnb = _ln_inputs(rows, D, dtype, seed)
             y = LN.layer_norm_fwd(x, lng, lnb)
+            before = read_bodies()["K5b"]["registers"]
             dx, dg, db = LN.layer_norm_bwd(x, dy, lng)
+            again = LN.layer_norm_bwd(x, dy, lng)
             torch.cuda.synchronize()
+            check(read_bodies()["K5b"]["registers"] == before + 2,
+                  f"K5b rows={rows} D={D} {dtype}: launches by body {read_bodies()['K5b']}, "
+                  "expected the registers body")
+            check(all(torch.equal(a, b) for a, b in zip((dx, dg, db), again)),
+                  f"K5b rows={rows} D={D} {dtype}: two launches differ")
             ry = LN.layer_norm_fwd_reference(x, lng, lnb)
             rdx, rdg, rdb = LN.layer_norm_bwd_reference(x, dy, lng)
             case = f"{label} rows={rows} D={D} {str(dtype)[6:]}"
             a, _ = compare(f"K5f {case} y", y, ry, TOL[dtype])
             errs["K5f"][dtype] = max(errs["K5f"][dtype], a)
             worst = compare(f"K5b {case} dx", dx, rdx, TOL[dtype])[0]
-            # dg and db: per-block partials summed here, against one sum
-            # over every row: held normwise
+            # dg and db: the kernel's sums of its per-block partials,
+            # against one sum over every row: held normwise
             for name, g, w in (("dg", dg.sum(0), rdg.sum(0)), ("db", db.sum(0), rdb.sum(0))):
                 check(g.dtype == torch.float32, f"K5b {case} {name}: {g.dtype}")
                 worst = max(worst, compare(f"K5b {case} {name}", g, w, TOL[torch.float32],
                                            normwise=True)[0])
             errs["K5b"][dtype] = max(errs["K5b"][dtype], worst)
-            print(f"kernels K5f/K5b {case}: max abs err {a:.3e} / {worst:.3e}")
-            del x, dy, y, dx, ry, rdx
+            print(f"kernels K5f/K5b {case}: max abs err {a:.3e} / {worst:.3e} (K5b registers "
+                  "body, bit-identical on repeat)")
+            del x, dy, y, dx, ry, rdx, again
     ln_grad_err = _ln_function_grads()
     timings = {B: _grid_timings(B) for B in (1, 256)}
     ln_timings = {"headline": _ln_timings("headline", 256 * T_STEPS, 384),
@@ -1273,11 +1357,13 @@ _KERNEL_CATEGORIES = (
     ("banded_attention_fwd_kernel", "K2f"), ("banded_attention_fwd_tc_kernel", "K2f"),
     ("banded_attention_dq_kernel", "K2b-dq"), ("banded_attention_dq_tc_kernel", "K2b-dq"),
     ("banded_attention_dkv_kernel", "K2b-dkv"), ("banded_attention_dkv_tc_kernel", "K2b-dkv"),
-    ("fused_attention_fwd_kernel", "K3f"),
+    ("fused_attention_fwd_kernel", "K3f"), ("fused_attention_fwd_tc_kernel", "K3f"),
+    ("fused_attention_prep_kernel", "K3f"),
     ("bilstm_grid_fwd_kernel", "K4f"), ("bilstm_grid_fwd_cluster_kernel", "K4f"),
     ("bilstm_grid_bwd_kernel", "K4b"),
     ("bilstm_grid_bwd_cluster_kernel", "K4b"),
     ("layer_norm_fwd_kernel", "K5f"), ("layer_norm_bwd_kernel", "K5b"),
+    ("layer_norm_bwd_rows_kernel", "K5b"), ("layer_norm_bwd_sum_kernel", "K5b"),
 )
 
 
@@ -1717,9 +1803,12 @@ def _check_attention_case(case: str, c: dict, dtype, errs: dict) -> None:
     hold("K2b-dkv", "dk", dk, r_dk, rows=False)
     hold("K2b-dkv", "dv", dv, r_dv, rows=False)
     fused = (c["x"], c["xw"], c["ln_g"], c["ln_b"], *args)
+    before = read_bodies()["K3f"][body]
     got = ATTN.fused_attention_fwd(*fused, True)
     (unsaved,) = ATTN.fused_attention_fwd(*fused, False)
     torch.cuda.synchronize()
+    check(read_bodies()["K3f"][body] == before + 2,
+          f"{case} K3f: launches by body {read_bodies()['K3f']}, expected the {body} body")
     want = ATTN.fused_attention_fwd_reference(*fused, True)
     for name, a, b in zip(("out", "q", "k", "v", "lse"), got, want):
         hold("K3f", name, a, b, rows=name in ("out", "lse"),
@@ -1728,13 +1817,17 @@ def _check_attention_case(case: str, c: dict, dtype, errs: dict) -> None:
 
 
 def _check_fused_wide_head(Dh: int, dtype, seed: int) -> float:
-    """K3f at a head dim above 256 (one head of width ``Dh``; the
-    projections take two head columns a thread) at the query block
-    ``fused_attention_layer`` picks on the card and the streamed tile width
-    that block fits, B=16, T'=104, ragged lengths, against its plain
-    version; returns the largest error."""
+    """K3f at a head dim above 256 (one head of width ``Dh``) at the query
+    block and body ``fused_attention_layer`` plans on the card (bf16: the
+    tensor-core body; f32: the CUDA-core body, whose projections take two
+    head columns a thread, with the streamed tile width its block fits),
+    B=16, T'=104, ragged lengths, against its plain version; the planned
+    body must launch.  Returns the largest error."""
     B, T, C, L = 16, 104, 16, 1
-    QB = ATTN._fit_query_rows(128, C, L, Dh, torch.device("cuda"))
+    QB, body = ATTN.plan_fused_layer(dtype, B, T, 1, 128, C, L, Dh,
+                                     ATTN._smem_limit("cuda"), ATTN._sm_count("cuda"))
+    want_body = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    check(body == want_body, f"K3f head dim {Dh} {dtype}: planned the {body} body")
     tile = ATTN._fused_tile(QB, QB + L * C, Dh, ATTN._smem_limit("cuda"))
     T1 = -(-T // QB) * QB
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1746,8 +1839,11 @@ def _check_fused_wide_head(Dh: int, dtype, seed: int) -> float:
     lengths = torch.randint(T // 2, T + 1, (B,), generator=g, device="cuda").to(torch.int32)
     valid = (torch.arange(T1, device="cuda")[None] < lengths[:, None])[..., None]
     args = (0, lengths, C, L, T, QB, 1)
+    before = read_bodies()["K3f"][body]
     got = ATTN.fused_attention_fwd(x, xw, ln_g, ln_b, *args, True)
     torch.cuda.synchronize()
+    check(read_bodies()["K3f"][body] == before + 1,
+          f"K3f head dim {Dh}: launches by body {read_bodies()['K3f']}, expected {body}")
     want = ATTN.fused_attention_fwd_reference(x, xw, ln_g, ln_b, *args, True)
     err = 0.0
     for name, a, b in zip(("out", "q", "k", "v", "lse"), got, want):
@@ -1756,9 +1852,10 @@ def _check_fused_wide_head(Dh: int, dtype, seed: int) -> float:
         tol = TOL[torch.float32] if name == "lse" and dtype == torch.float32 else TOL[dtype]
         e, _ = compare(f"K3f head dim {Dh} {str(dtype)[6:]} {name}", a, b, tol)
         err = max(err, e)
-    print(f"attention kernels K3f head dim {Dh} (one head, query block {QB}, {tile}-column "
-          f"streamed tiles) "
-          f"{str(dtype)[6:]}: max abs err {err:.3e}")
+    how = "64-column tiles on the tensor cores" if body == "tensor_core" else (
+        f"{tile}-column streamed tiles")
+    print(f"attention kernels K3f head dim {Dh} (one head, query block {QB}, {body} body, "
+          f"{how}) {str(dtype)[6:]}: max abs err {err:.3e}")
     return err
 
 
@@ -1885,11 +1982,11 @@ def _attention_bounds(c: dict, B: int, D: int, H: int, dtype) -> dict:
         "K2f": (4 * seq + rows + 4 * B, 4 * Dh * H * pairs),
         "K2b-dq": (5 * seq + 2 * rows + 4 * B, 6 * Dh * H * pairs),
         "K2b-dkv": (6 * seq + 2 * rows + 4 * B, 8 * Dh * H * pairs),
-        # x, five (D, D) weights, ln g/b and frequencies in, out; the q, k
-        # and v projections of every row (W@R is a signed column
-        # permutation of W, so its product is a copy, not work), then the
-        # attention
-        "K3f": (2 * seq + 5 * D * D * es + 3 * D * 4 + 4 * B,
+        # x, the (D, D) weights Wq, Wk and Wv, ln g/b and frequencies in,
+        # out; the q, k and v projections of every row, then the attention.
+        # Wq@R and Wk@R are signed column permutations of Wq and Wk, so the
+        # function needs neither their bytes nor their products.
+        "K3f": (2 * seq + 3 * D * D * es + 3 * D * 4 + 4 * B,
                 2.0 * B * T1 * D * 3 * D + 4 * Dh * H * pairs),
     }
     out = {}
@@ -1953,13 +2050,14 @@ def _attention_timings(label: str, B: int, T: int) -> dict:
     }
     bounds = _attention_bounds(c, B, D, H, dtype)
     lib = _sdpa_ms(c, B, D, H)
-    # the CUDA-core bodies (the previous bf16 bodies of K2f and K2b) in turns
-    # with the tensor-core bodies: old, new, new, old
+    # the CUDA-core bodies (the previous bf16 bodies of K2f, K2b and K3f) in
+    # turns with the tensor-core bodies: old, new, new, old
     old_new = {
         "K2f": (lambda: ATTN._launch_k2f("cuda_core", c["q"], c["k"], c["v"], *args),
                 calls["K2f"][0]),
         "K2b-dq": (lambda: ATTN._launch_k2b("dq", "cuda_core", *bwd), calls["K2b-dq"][0]),
         "K2b-dkv": (lambda: ATTN._launch_k2b("dkv", "cuda_core", *bwd), calls["K2b-dkv"][0]),
+        "K3f": (lambda: ATTN._launch_k3f("cuda_core", *fused, False), calls["K3f"][0]),
     }
     in_turns = {}
     for name, (old, new) in old_new.items():
@@ -2003,6 +2101,75 @@ def _attention_timings(label: str, B: int, T: int) -> dict:
     return timings
 
 
+def _k3f_bit_checks(seed: int) -> float:
+    """K3f's tensor-core body at the headline head dim, B=17, ragged
+    lengths, at the query block the layer plans for B=17: it matches its
+    plain version at that block, two launches agree bit for bit, out
+    without residuals equals out with them, and batch row 0 run alone (B=1)
+    equals row 0 of B=17 bit for bit.  Returns the largest error."""
+    D, H, C, L, T = 384, 6, 16, 1, 104
+    QB, body = ATTN.plan_fused_layer(torch.bfloat16, 17, T, H, 128, C, L, D // H,
+                                     ATTN._smem_limit("cuda"), ATTN._sm_count("cuda"))
+    check(body == "tensor_core", f"K3f B=17: planned the {body} body")
+    c = _attention_case(17, T, D, H, C, L, 0, torch.bfloat16, True, seed)
+    check(c["T1"] % QB == 0, f"K3f B=17: T1={c['T1']} is not a multiple of {QB}")
+    offset, lengths = c["args"][:2]
+    args = (offset, lengths, C, L, T, QB, H)
+    w = (c["xw"], c["ln_g"], c["ln_b"])
+    before = read_bodies()["K3f"]["tensor_core"]
+    first = ATTN.fused_attention_fwd(c["x"], *w, *args, True)
+    again = ATTN.fused_attention_fwd(c["x"], *w, *args, True)
+    (unsaved,) = ATTN.fused_attention_fwd(c["x"], *w, *args, False)
+    alone = ATTN.fused_attention_fwd(c["x"][:1].contiguous(), *w, offset,
+                                     lengths[:1].contiguous(), *args[2:], True)
+    torch.cuda.synchronize()
+    check(read_bodies()["K3f"]["tensor_core"] == before + 4,
+          f"K3f B=17: launches by body {read_bodies()['K3f']}")
+    for name, a, b, r in zip(("out", "q", "k", "v", "lse"), first, again, alone):
+        check(torch.equal(a, b), f"K3f B=17 {name}: two launches differ")
+        check(torch.equal(a[:1], r), f"K3f {name}: row 0 alone differs from row 0 of B=17")
+    check(torch.equal(unsaved, first[0]), "K3f B=17: out without residuals differs")
+    want = ATTN.fused_attention_fwd_reference(c["x"], *w, *args, True)
+    err = 0.0
+    for name, a, b in zip(("out", "q", "k", "v", "lse"), first, want):
+        if name in ("out", "lse"):
+            a, b = torch.where(c["valid"], a.float(), 0.0), torch.where(c["valid"], b.float(), 0.0)
+        err = max(err, compare(f"K3f B=17 (query block {QB}) {name}", a, b,
+                               TOL[torch.bfloat16])[0])
+    print(f"K3f tensor-core body B=17 T'={T} ragged, query block {QB}: max abs err {err:.3e}; "
+          "bit-identical on repeat; out with and without residuals equal; row 0 alone equals "
+          "row 0 of B=17 bit for bit")
+    return err
+
+
+def _k3f_batch_1_timings() -> dict:
+    """K3f at a B=1 request (T'=104, bf16, full length), in turns: the
+    tensor-core body at the default 128-row query block (6 blocks) and at
+    the block the layer plans for B=1 (32 rows: 24 blocks), and the
+    CUDA-core body at 128 rows; with the bound."""
+    D, H, C, L, T = 384, 6, 16, 1, 104
+    c = _attention_case(1, T, D, H, C, L, 0, torch.bfloat16, False, 950)
+    planned, _ = ATTN.plan_fused_layer(torch.bfloat16, 1, T, H, 128, C, L, D // H,
+                                       ATTN._smem_limit("cuda"), ATTN._sm_count("cuda"))
+    offset, lengths = c["args"][:2]
+    w = (c["x"], c["xw"], c["ln_g"], c["ln_b"], offset, lengths, C, L, T)
+    fns = {"tensor_core_128": lambda: ATTN._launch_k3f("tensor_core", *w, 128, H, False),
+           f"tensor_core_{planned}": lambda: ATTN._launch_k3f("tensor_core", *w, planned, H,
+                                                               False),
+           "cuda_core_128": lambda: ATTN._launch_k3f("cuda_core", *w, 128, H, False)}
+    names = list(fns)
+    # device time (both of the tensor-core body's launches): CUDA events
+    # around a B=1 launch time the host's launch overhead too
+    ms = _device_in_turns(fns, 20, names + names[::-1], "K3f")
+    bound, by = _attention_bounds(c, 1, D, H, torch.bfloat16)["K3f"]
+    print(f"timing K3f B=1 T'={T} bf16 (device time, in turns): tensor-core body "
+          + ", ".join(f"{k[12:]} rows {v:.4f} ms" for k, v in ms.items() if k[:12] == "tensor_core_")
+          + f"; CUDA-core body 128 rows {ms['cuda_core_128']:.4f} ms; planned block {planned}; "
+          f"bound {bound:.4f} ms ({by})")
+    return {"ms_by_query_block": ms, "planned_query_block": planned, "bound_ms": bound,
+            "bound_by": by}
+
+
 def attention_kernel_phase(demo_shape) -> dict:
     """K2f, K2b-dq, K2b-dkv and K3f against their plain versions in f32
     and bf16, full and ragged lengths, at the headline training and
@@ -2013,6 +2180,7 @@ def attention_kernel_phase(demo_shape) -> dict:
     shapes = [
         ("headline", 256, 104, D, H, C, L, 0),
         ("serving request", 1, 104, D, H, C, L, 0),
+        ("batch 17", 17, 104, D, H, C, L, 0),
         ("stream window", 1, 144, D, H, C, L, -64),
         ("stream window", 1, 144, D, H, C, L, 256),
         ("long", LONG_B, LONG_T, D, H, C, L, 0),
@@ -2049,9 +2217,13 @@ def attention_kernel_phase(demo_shape) -> dict:
         seed += 1
         e = _check_flash_wide_head(dtype, seed)
         flash_wide[str(dtype)[6:]] = e
+    seed += 1
+    e = _k3f_bit_checks(seed)
+    errs["K3f"][torch.bfloat16] = max(errs["K3f"][torch.bfloat16], e)
     grad_err = _function_grads()
     timings = {"headline": _attention_timings("headline", 256, 104),
-               "long": _attention_timings("long", LONG_B, LONG_T)}
+               "long": _attention_timings("long", LONG_B, LONG_T),
+               "k3f_batch_1": _k3f_batch_1_timings()}
     return {"errs": errs, "grad_err": grad_err, "timings": timings, "k3f_wide_head": wide,
             "flash_head_dim_256": flash_wide}
 
@@ -2099,8 +2271,9 @@ def conformer_serving_phase(params) -> dict:
         bodies = read_bodies()
         # --------------------------------------------------------------
         encodes = calls * ENCODES_PER_CALL
-        check_bodies(f"conformer serving ({impl}, bf16)", bodies, "K2f", "tensor_core",
-                     counts["K2f"])
+        for k in ("K2f", "K3f"):
+            check_bodies(f"conformer serving ({impl}, bf16)", bodies, k, "tensor_core",
+                         counts[k])
         check_counts(f"conformer serving ({impl})", counts,
                      {kernel: encodes * nb, "K5f": encodes * nb * LN_PER_BLOCK[impl]})
         _check_response(out, 1, f"conformer {impl} single")
@@ -2207,7 +2380,7 @@ def _conformer_f32_kernel_vs_plain(params, data, idx) -> float:
         loss, _ = seq2seq_loss(p, cfg, batch, gen, train=True, penalty_scales=PENALTIES)
         loss.backward()
         out[impl] = (loss.detach(), [t.grad for t in tree_leaves(p)])
-    for kernel in ("K2b-dq", "K2b-dkv"):
+    for kernel in ("K2b-dq", "K2b-dkv", "K3f"):
         f32_bodies = {b: n - before[kernel][b] for b, n in read_bodies()[kernel].items()}
         check(f32_bodies["tensor_core"] == 0 and f32_bodies["cuda_core"] > 0,
               f"conformer f32 training: {kernel} launches by body {f32_bodies}, expected the "
@@ -2267,9 +2440,11 @@ def conformer_training_phase(params) -> dict:
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         # ------------------------------------------------------------------
         want = TRAIN_STEPS * nb
-        for k in ("K2f", "K2b-dq", "K2b-dkv"):
+        for k in ("K2f", "K2b-dq", "K2b-dkv", "K3f"):
             check_bodies(f"conformer training ({impl}, bf16)", bodies, k, "tensor_core",
                          counts[k])
+        check_bodies(f"conformer training ({impl}, bf16)", bodies, "K5b", "registers",
+                     counts["K5b"])
         ln = want * LN_PER_BLOCK[impl]
         check_counts(f"conformer training ({impl})", counts,
                      {kernel: want, "K2b-dq": want, "K2b-dkv": want, "K5f": ln, "K5b": ln})
@@ -2370,6 +2545,7 @@ def long_recording_phase(params) -> dict:
     nb = ccfg.num_blocks
     for kernel in ("K2f", "K2b-dq", "K2b-dkv"):
         check_bodies("long recording (bf16)", bodies, kernel, "tensor_core", counts[kernel])
+    check_bodies("long recording (bf16)", bodies, "K5b", "registers", counts["K5b"])
     ln = nb * LN_PER_BLOCK["flash"]
     check_counts("long recording", counts,
                  {"K2f": 2 * iters * nb, "K2b-dq": iters * nb, "K2b-dkv": iters * nb,
@@ -2430,6 +2606,7 @@ def conformer_trainer_phase(trainer: MultiSubjectTrainer) -> dict:
     # ------------------------------------------------------------------
     for kernel in ("K2f", "K2b-dq", "K2b-dkv"):
         check_bodies("conformer trainer (bf16)", bodies, kernel, "tensor_core", counts[kernel])
+    check_bodies("conformer trainer (bf16)", bodies, "K5b", "registers", counts["K5b"])
     check(counts["K2b-dq"] == counts["K2b-dkv"] == steps * nb,
           f"conformer trainer: K2b launched {counts} in {steps} steps; expected "
           f"{steps * nb} of each")
@@ -2590,6 +2767,7 @@ def main() -> int:
                      "launches_training_fused": ctrain["fused"]["counts"]["K5f"],
                      "launches_long": clong["counts"]["K5f"],
                      "launches_demo_trainer": ctrainer["counts"]["K5f"],
+                     "ms_is": "device time (torch.profiler), as library_ms",
                      "library": "F.layer_norm forward (bf16 affine parameters)"}),
         ln_entry("layer_norm_bwd", "K5b", f"{pallas_ln}:119",
                  ctrain["flash"]["counts"]["K5b"], {
@@ -2599,7 +2777,20 @@ def main() -> int:
                      "launches_demo_trainer": ctrainer["counts"]["K5b"],
                      "flash_step_ms_plain_layernorm": ctrain["plain_layernorm"]["plain_ms"],
                      "flash_step_ms_k5": ctrain["plain_layernorm"]["K5_ms"],
-                     "library": "F.layer_norm backward, (forward+backward)-forward"}),
+                     "body": "registers (a row in a warp's registers, read once) where a lane "
+                             "holds at most 4 chunks of the row, columns otherwise",
+                     "launches_by_body": {
+                         "flash_training": ctrain["flash"]["bodies"]["K5b"],
+                         "fused_training": ctrain["fused"]["bodies"]["K5b"],
+                         "long": clong["bodies"]["K5b"],
+                         "demo_trainer": ctrainer["bodies"]["K5b"]},
+                     "ms_is": "registers body + the sum of its partials (two launches)",
+                     "ms_registers_body_alone": gridk["ln_timings"]["headline"]["K5b"][
+                         "ms_registers_body_alone"],
+                     "ms_columns_body_alone": gridk["ln_timings"]["headline"]["K5b"][
+                         "ms_columns_body_alone"],
+                     "library": "F.layer_norm backward: device time of (forward+backward) - "
+                                "forward, no gradient accumulation"}),
     ]
     sdpa = "scaled_dot_product_attention with a boolean band mask"
     attention_entries = [
@@ -2643,13 +2834,21 @@ def main() -> int:
                                          "computes dq, dk and dv together"})
           for key, line in (("K2b-dq", 290), ("K2b-dkv", 302))),
         attention_entry("fused_attention_fwd", "K3f",
-                        "ecog2txt_tpu_torch/csrc/fused_attention.cu", f"{pallas}:550",
+                        "ecog2txt_tpu_torch/csrc/fused_attention_tc.cu", f"{pallas}:550",
                         cserve["fused"]["counts"]["K3f"], {
                             "launches_per_request": ENCODES_PER_CALL * nb,
                             "launches_training": ctrain["fused"]["counts"]["K3f"],
                             "ms_with_residuals": attn["timings"]["headline"]["K3f"][
                                 "ms_with_residuals"],
                             "max_abs_err_head_dim_above_256": attn["k3f_wide_head"],
+                            "body": "tensor_core for bf16 (csrc/fused_attention_tc.cu), "
+                                    "cuda_core for f32 (csrc/fused_attention.cu)",
+                            "launches_by_body": {
+                                "fused_serving": cserve["fused"]["bodies"]["K3f"],
+                                "fused_training": ctrain["fused"]["bodies"]["K3f"]},
+                            "ms_cuda_core_body": attn["timings"]["headline"]["K3f"][
+                                "ms_cuda_core_body"],
+                            "at_batch_1": attn["timings"]["k3f_batch_1"],
                             "library": "none: no single library call computes LayerNorm, "
                                        "the rotary projections and the banded attention"}),
     ]

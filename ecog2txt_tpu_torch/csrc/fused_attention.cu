@@ -1,4 +1,4 @@
-// The fused attention layer for Hopper (sm_90a): K3f.
+// The fused attention layer for Hopper (sm_90a): K3f's CUDA-core body.
 //
 // Replaces ecog2txt_tpu/ops/pallas_attention.py::_fused_fwd_call (the
 // pallas_call at :579): LayerNorm (f32 statistics, eps 1e-6) -> the q,
@@ -35,9 +35,12 @@
 //
 // Bound on the card: at the conformer's shapes the projections dominate
 // (~2*(2*QB + 3*W)*D*Dh operations per block and head, recomputing the
-// L*C previous rows' k/v), which is below the bf16 tensor-core ridge of
-// bytes moved; this simple kernel runs them on the CUDA cores from
-// shared memory.  wgmma and TMA are later work.
+// L*C previous rows' k/v).  This body runs them on the CUDA cores from
+// shared memory: it is K3f's f32 body (the tensor cores have no f32
+// product, and TF32 would break the f32 tolerance), and bf16's only where
+// the tensor-core body's block does not fit.  bf16 streams run the
+// tensor-core body, fused_attention_tc.cu (ops/attention_kernels.py::
+// plan_k3f_body).
 
 #include "attention_common.cuh"
 

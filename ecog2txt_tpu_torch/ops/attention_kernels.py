@@ -23,10 +23,13 @@ The port of ``ecog2txt_tpu/ops/pallas_attention.py``:
 On a CUDA tensor each wrapper launches its kernel (``csrc/
 banded_attention.cu``; for bf16 the tensor-core bodies ``csrc/
 banded_attention_tc.cu`` of K2f and ``csrc/banded_attention_bwd_tc.cu``
-of K2b; ``csrc/fused_attention.cu``) or raises; on a CPU
+of K2b; ``csrc/fused_attention.cu``, for bf16 its tensor-core body
+``csrc/fused_attention_tc.cu``) or raises; on a CPU
 tensor it runs its plain version (``*_reference``), which computes what
 the kernel computes at the same rounding points.  ``<wrapper>.launches``
-counts kernel launches.  Tensors are ``(B, T1, D)`` with ``D = H·Dh``
+counts the wrapper's calls that launch its kernel, one a call: a call of
+K3f's tensor-core body is two CUDA launches (the rows normalised, then the
+fused kernel) and counts once.  Tensors are ``(B, T1, D)`` with ``D = H·Dh``
 heads on the last axis and ``T1`` a multiple of QB; the LSE and delta
 are ``(B, T1, H)`` f32.  :func:`banded_flash_attention` and
 :func:`fused_attention_layer` are the differentiable entry points with
@@ -258,7 +261,8 @@ def _fused_tile(QB: int, W: int, Dh: int, smem_limit: int) -> int | None:
 
 
 def plan_fused_query_rows(QB: int, C: int, L: int, Dh: int, smem_limit: int) -> int:
-    """K3f's query block on the card: the largest multiple of ``L·C`` up to
+    """The query block of K3f's CUDA-core body (f32 streams, and bf16 where
+    the tensor-core body fits no block): the largest multiple of ``L·C`` up to
     ``QB`` whose block fits ``smem_limit`` bytes with 32-column streamed
     tiles, else with 16-column tiles (the window rows are staged for q, k
     and v: a head dim above ~110 does not fit ~128 rows; at chunk 16, left
@@ -286,10 +290,70 @@ def plan_fused_query_rows(QB: int, C: int, L: int, Dh: int, smem_limit: int) -> 
     )
 
 
-def _smem_limit(device) -> int:
+def _fused_tc_smem(QB: int, W: int, Dh: int) -> int:
+    """Shared memory (bytes) of one block of K3f's tensor-core body
+    (``csrc/fused_attention_tc.cu::Layout``), all bf16 but the last three
+    terms: the double-buffered tiles of the normalised rows (``XR`` rows,
+    the window's and the query rows' padded to 16, by 64 + 8 columns) and
+    64-row slices of Wq, Wk and Wv (64 + 8 columns); q (QB rows) and k and v
+    (W rows) at row stride ``Dhp + 8``; the keys' chunk ids, the window's
+    uniform average and a flag."""
+    QBp, Wp, Dhp = _r16(QB), _r16(W), _r16(Dh)
+    XR = _r16(W - QB + QBp)
+    return 2 * (2 * XR * 72 + 6 * 64 * 72 + (QBp + 2 * Wp) * (Dhp + 8)) + 4 * (Wp + Dhp) + 16
+
+
+def plan_k3f_body(dtype: torch.dtype, QB: int, W: int, Dh: int, smem_limit: int) -> str:
+    """K3f's body, chosen up front: ``"tensor_core"`` for bf16 streams whose
+    block fits ``smem_limit`` bytes of shared memory (head dims up to
+    512), else ``"cuda_core"`` (f32 streams: the tensor cores have no f32
+    product, and TF32 would break the f32 tolerance)."""
+    if (dtype == torch.bfloat16 and Dh <= _FUSED_MAX_HEAD_DIM
+            and _fused_tc_smem(QB, W, Dh) <= smem_limit):
+        return "tensor_core"
+    return "cuda_core"
+
+
+# the query block K3f's tensor-core body takes where its default block's grid
+# leaves SMs idle (a B=1 request: 6 blocks of 128 rows on 132 SMs)
+_K3F_SMALL_GRID_ROWS = 32
+
+
+def plan_fused_layer(dtype: torch.dtype, B: int, T: int, H: int, QB: int, C: int, L: int,
+                     Dh: int, smem_limit: int, sms: int) -> tuple[int, str]:
+    """K3f's query block and body on the card, ``(rows, body)``, before any
+    launch.  bf16: the largest multiple of ``L·C`` up to ``QB`` whose
+    tensor-core block fits ``smem_limit`` bytes; where that block's grid
+    (``ceil(T / rows)·H·B`` blocks) has fewer blocks than the card's ``sms``,
+    the multiple of ``L·C`` from ``_K3F_SMALL_GRID_ROWS`` rows, so that more
+    blocks run.  Where not even ``L·C`` rows fit the tensor-core body, and
+    for f32, the CUDA-core body at :func:`plan_fused_query_rows`'s block.
+    The query block tiles the work only; each row sees the same keys
+    whatever it is.  Raises ``ValueError`` where no block fits."""
+    step = L * C
+    if dtype == torch.bfloat16 and Dh <= _FUSED_MAX_HEAD_DIM:
+        rows = QB
+        while rows > step and _fused_tc_smem(rows, rows + step, Dh) > smem_limit:
+            rows -= step
+        if _fused_tc_smem(rows, rows + step, Dh) <= smem_limit:
+            small = -(-_K3F_SMALL_GRID_ROWS // step) * step
+            if small < rows and -(-T // rows) * H * B < sms:
+                rows = small
+            return rows, "tensor_core"
+    return plan_fused_query_rows(QB, C, L, Dh, smem_limit), "cuda_core"
+
+
+def _device_index(device) -> int:
     device = torch.device(device)
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return device_smem_optin(index)
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _smem_limit(device) -> int:
+    return device_smem_optin(_device_index(device))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(_device_index(device)).multi_processor_count
 
 
 # --------------------------------------------------------------------------
@@ -638,13 +702,61 @@ banded_attention_dkv.launches = 0
 banded_attention_dkv.launches_by_body = {"tensor_core": 0, "cuda_core": 0}
 
 
+def _launch_k3f(body, x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, save):
+    """One K3f launch of ``body`` ("tensor_core": bf16 only, reading wq, wk
+    and wv of ``xw`` alone, or "cuda_core"); checked inputs, no count."""
+    B, T1, D = x.shape
+    Dh = D // H
+    freq = _rope_freq_tensor(H, D, x.device)
+    out = torch.empty_like(x)
+    if save:
+        qs, ks, vs = (torch.empty_like(x) for _ in range(3))
+        lse = torch.empty((B, T1, H), dtype=torch.float32, device=x.device)
+    else:
+        qs = ks = vs = lse = None
+    ints = [B, T1, H, Dh, C, L, t_real, QB, offset]
+    what = f"B={B} T1={T1} D={D} H={H} QB={QB} {x.dtype} save={save} {body} body"
+    if body == "tensor_core":
+        # the first launch's normalised rows and rotary table
+        lnx = torch.empty_like(x)
+        rot = torch.empty((T1 + L * C, D, 2), dtype=torch.bfloat16, device=x.device)
+        _call("fused_attention_tc", "fused_attention_fwd_tc", 15, 10,
+              [_ptr(a) for a in (x, xw[0], xw[2], xw[4], lng, lnb, freq, lengths, out, qs, ks,
+                                 vs, lse, lnx, rot)],
+              [*ints, int(save)], [_scale(Dh), _LN_EPS], x.device, what)
+    else:
+        limit = _smem_limit(x.device)
+        tile = _fused_tile(QB, QB + L * C, Dh, limit)
+        if Dh > _FUSED_MAX_HEAD_DIM or tile is None:
+            raise ValueError(
+                f"fused_attention_fwd: a query block of {QB} rows at head dim {Dh} does not "
+                f"fit the CUDA-core body ({_fused_smem(QB, QB + L * C, Dh, _FUSED_TILES[-1])} "
+                f"bytes of shared memory, {limit} available; head dims up to "
+                f"{_FUSED_MAX_HEAD_DIM}); fused_attention_layer picks a query block that fits"
+            )
+        _call("fused_attention", "fused_attention_fwd", 15, 12,
+              [_ptr(a) for a in (x, *xw, lng, lnb, freq, lengths, out, qs, ks, vs, lse)],
+              [*ints, int(x.dtype == torch.bfloat16), int(save), tile],
+              [_scale(Dh), _LN_EPS], x.device, f"{what} tile={tile}")
+    return (out, qs, ks, vs, lse) if save else (out,)
+
+
 def fused_attention_fwd(x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, save):
     """``(out,)`` or, with ``save``, ``(out, q, k, v, lse)`` of the fused
     attention layer (K3f) — see :func:`fused_attention_fwd_reference`.
     ``xw = (wq, wq@R, wk, wk@R, wv)`` in the stream dtype (each ``(D,
-    D)``, contiguous), ``lng``/``lnb`` ``(D,)`` f32.  Launches the Hopper
-    kernel on a CUDA tensor (or raises), runs the plain version on a CPU
-    tensor."""
+    D)``, contiguous), ``lng``/``lnb`` ``(D,)`` f32.
+
+    On a CUDA tensor this launches the Hopper kernel (and raises if it
+    cannot be built or launched): the tensor-core body
+    (``csrc/fused_attention_tc.cu``) for bf16, the CUDA-core body
+    (``csrc/fused_attention.cu``) for f32, as :func:`plan_k3f_body` picks;
+    ``fused_attention_fwd.launches_by_body`` counts each.  The tensor-core
+    body reads wq, wk and wv alone and forms the rotary's ``W@R`` products
+    from them (a signed column permutation, exact after rounding), so
+    ``xw[1]`` and ``xw[3]`` must be what :func:`_split_rot_weights` makes
+    of them, as on every path of the port.  On a CPU tensor it runs the
+    plain version."""
     offset = int(offset)
     _check("fused_attention_fwd", (x,), H, QB, C, L, t_real, lengths)
     B, T1, D = x.shape
@@ -665,35 +777,15 @@ def fused_attention_fwd(x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, s
         return fused_attention_fwd_reference(
             x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, save
         )
-    limit = _smem_limit(x.device)
-    tile = _fused_tile(QB, QB + L * C, Dh, limit)
-    if Dh > _FUSED_MAX_HEAD_DIM or tile is None:
-        raise ValueError(
-            f"fused_attention_fwd: a query block of {QB} rows at head dim {Dh} does not "
-            f"fit the kernel ({_fused_smem(QB, QB + L * C, Dh, _FUSED_TILES[-1])} bytes of "
-            f"shared memory, {limit} available; head dims up to {_FUSED_MAX_HEAD_DIM}); "
-            "fused_attention_layer picks a query block that fits"
-        )
-    freq = _rope_freq_tensor(H, D, x.device)
-    out = torch.empty_like(x)
-    if save:
-        qs, ks, vs = (torch.empty_like(x) for _ in range(3))
-        lse = torch.empty((B, T1, H), dtype=torch.float32, device=x.device)
-    else:
-        qs = ks = vs = lse = None
-    _call(
-        "fused_attention", "fused_attention_fwd", 15, 12,
-        [_ptr(a) for a in (x, *xw, lng, lnb, freq, lengths, out, qs, ks, vs, lse)],
-        [B, T1, H, D // H, C, L, t_real, QB, offset,
-         int(x.dtype == torch.bfloat16), int(save), tile],
-        [_scale(D // H), _LN_EPS], x.device,
-        f"B={B} T1={T1} D={D} H={H} QB={QB} tile={tile} {x.dtype} save={save}",
-    )
+    body = plan_k3f_body(x.dtype, QB, QB + L * C, Dh, _smem_limit(x.device))
+    outs = _launch_k3f(body, x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H, save)
     fused_attention_fwd.launches += 1
-    return (out, qs, ks, vs, lse) if save else (out,)
+    fused_attention_fwd.launches_by_body[body] += 1
+    return outs
 
 
 fused_attention_fwd.launches = 0
+fused_attention_fwd.launches_by_body = {"tensor_core": 0, "cuda_core": 0}
 
 
 # --------------------------------------------------------------------------
@@ -833,11 +925,6 @@ class FusedAttentionLayer(torch.autograd.Function):
         )
 
 
-def _fit_query_rows(QB: int, C: int, L: int, Dh: int, device) -> int:
-    """:func:`plan_fused_query_rows` against the shared memory of ``device``."""
-    return plan_fused_query_rows(QB, C, L, Dh, _smem_limit(device))
-
-
 def fused_attention_layer(
     wqkv: torch.Tensor,  # (D, 3D) parameter dtype, cast inside
     ln_g: torch.Tensor,  # (D,)
@@ -856,12 +943,15 @@ def fused_attention_layer(
     apply ``wo`` and the residual outside.  Differentiable in ``wqkv``,
     ``ln_g``, ``ln_b`` and ``x``.  With no gradient wanted it runs K3f
     without saving q, k, v or the LSE.  On the card the default query
-    block shrinks where a wide head's block would not fit."""
+    block and the body are planned by :func:`plan_fused_layer` (a smaller
+    block where a wide head's would not fit, or where the grid would leave
+    SMs idle)."""
     B, T, D = x.shape
     C, L, H = chunk_size, left_context, num_heads
     QB = _pick_query_rows(C, L, query_rows)
     if x.is_cuda and query_rows is None:
-        QB = _fit_query_rows(QB, C, L, D // H, x.device)
+        QB, _ = plan_fused_layer(x.dtype, B, T, H, QB, C, L, D // H, _smem_limit(x.device),
+                                 _sm_count(x.device))
     T1 = -(-T // QB) * QB
     x1 = F.pad(x, (0, 0, 0, T1 - T)).contiguous()
     lens = _lengths_or_max(lengths, B, x.device)

@@ -6,18 +6,22 @@ is ``_ln_fwd`` (K5f) and ``layer_norm_bwd`` is ``_ln_bwd`` (K5b).  Over
 the last axis, with f32 statistics whatever the stream dtype, f32 affine
 parameters and the result cast back to the stream dtype: the function of
 ``models/conformer._layernorm``.  The backward recomputes the statistics
-from ``x`` and returns per-block f32 partials of ``dg``/``db`` that the
-caller sums.
+from ``x`` and returns ``dg``/``db`` as ``(1, D)`` f32 rows (on the card
+K5b's second launch sums its per-block partials in a fixed order).
 
-On a CUDA tensor each wrapper launches its kernel (``csrc/layer_norm.cu``)
-or raises; on a CPU tensor it runs its plain version (``*_reference``).
-``<wrapper>.launches`` counts kernel launches.  :func:`layer_norm` is the
+On a CUDA tensor each wrapper launches its kernel (``csrc/layer_norm.cu``;
+K5b in one of two bodies, :func:`plan_k5b_body`) or raises; on a CPU
+tensor it runs its plain version (``*_reference``).
+``<wrapper>.launches`` counts the wrapper's calls that launch its kernel,
+one a call: a K5b call is two CUDA launches (its body, then the sum of the
+body's partials) and counts once.  :func:`layer_norm` is the
 differentiable entry point.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -107,36 +111,127 @@ def layer_norm_fwd(x, g, b, eps: float = 1e-6):
 layer_norm_fwd.launches = 0
 
 
+_MAX_CHUNKS = 4  # chunks of a row a lane holds in K5b's registers body
+
+
+def plan_k5b_body(dtype: torch.dtype, D: int, vec: bool) -> str:
+    """K5b's body, chosen up front from the row's width: ``"registers"``
+    (``csrc/layer_norm.cu::layer_norm_bwd_rows_kernel``: a warp holds a row
+    in registers, each lane up to four chunks of 16-byte vectors where
+    ``vec``, else of single elements: bf16 rows up to 1024 wide, f32 up to
+    512, and up to 128 without vectors), else ``"columns"``
+    (``layer_norm_bwd_kernel``, any width).  ``vec``: x and dy are 16-byte
+    aligned and a row is a whole number of 16-byte chunks."""
+    per_chunk = 16 // (torch.finfo(dtype).bits // 8) if vec else 1
+    fits = D % per_chunk == 0 and -(-D // per_chunk) <= 32 * _MAX_CHUNKS
+    return "registers" if fits else "columns"
+
+
+def _vec_rows(x, dy) -> bool:
+    """Rows of ``x`` and ``dy`` load as 16-byte vectors: both 16-byte
+    aligned and a row a whole number of 16 bytes."""
+    return (x.shape[1] * x.element_size()) % 16 == 0 and all(
+        a.data_ptr() % 16 == 0 for a in (x, dy))
+
+
+def _c_fn(name, argtypes):
+    fn = getattr(load_library("layer_norm"), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+_K5B_WARPS = 8  # csrc/layer_norm.cu::kWarps, the rows a K5b block takes at once
+
+
+@functools.cache
+def _rows_wave(D: int, bf16: bool, vec: bool, device_index: int) -> int:
+    """The blocks of one wave of the registers body on ``device_index``: the
+    blocks the card keeps resident (``layer_norm_bwd_rows_wave``)."""
+    fn = _c_fn("layer_norm_bwd_rows_wave", [ctypes.c_int] * 3)
+    with torch.cuda.device(device_index):
+        wave = int(fn(D, int(bf16), int(vec)))
+    if wave <= 0:
+        raise RuntimeError(f"layer_norm_bwd: no grid for D={D} ({wave})")
+    return wave
+
+
+def _rows_blocks(rows: int, D: int, bf16: bool, vec: bool, device_index: int) -> int:
+    """The registers body's grid: one wave of resident blocks, at most one
+    warp a row."""
+    return min(-(-rows // _K5B_WARPS), _rows_wave(D, bf16, vec, device_index))
+
+
 def layer_norm_bwd(x, dy, g, eps: float = 1e-6):
     """``(dx, dg_part, db_part)`` of the row LayerNorm — see
-    :func:`layer_norm_bwd_reference`; on the card the partials hold one
-    row per block of K5b, ``(ceil(rows / rows_per_block), D)`` f32.
-    Launches K5b on a CUDA tensor (or raises), runs the plain version on a
-    CPU tensor."""
+    :func:`layer_norm_bwd_reference`; the partials are ``(1, D)`` f32, the
+    sums over every row.
+
+    On a CUDA tensor this launches K5b (and raises if it cannot be built or
+    launched): the registers body, which reads each row once, for the
+    widths :func:`plan_k5b_body` gives it (every width of the conformer),
+    else the columns body, each followed by K5b's second launch, which sums
+    the body's per-block partials in a fixed order;
+    ``layer_norm_bwd.launches_by_body`` counts each body.  On a CPU tensor
+    it runs the plain version."""
     _check("layer_norm_bwd", x, (g,), (dy,))
     if x.device.type == "cpu":
         return layer_norm_bwd_reference(x, dy, g, eps)
+    vec = _vec_rows(x, dy)
+    body = plan_k5b_body(x.dtype, x.shape[1], vec)
+    out = _launch_k5b(body, x, dy, g, eps, vec)
+    layer_norm_bwd.launches += 1
+    layer_norm_bwd.launches_by_body[body] += 1
+    return out
+
+
+def _launch_k5b(body, x, dy, g, eps, vec, reduce=True):
+    """One K5b launch of ``body``, then (with ``reduce``) the sum of its
+    per-block partials, ``(dx, dg (1, D), db (1, D))``; without, ``(dx,
+    dg_part, db_part)`` with one partial row per block.  Checked inputs, no
+    count."""
     rows, D = x.shape
-    per_block = load_library("layer_norm").layer_norm_bwd_rows_per_block
-    per_block.argtypes = []
-    per_block.restype = ctypes.c_int
-    blocks = -(-rows // per_block())
+    bf16 = x.dtype == torch.bfloat16
+    if body == "registers":
+        blocks = _rows_blocks(rows, D, bf16, vec, x.device.index or 0) if rows else 0
+    else:
+        blocks = -(-rows // _c_fn("layer_norm_bwd_rows_per_block", [])())
     dx = torch.empty_like(x)
     dg = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
     db = torch.empty_like(dg)
-    _launch("layer_norm_bwd",
-            [x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(), dg.data_ptr(),
-             db.data_ptr()], rows, D, x, eps)
-    layer_norm_bwd.launches += 1
-    return dx, dg, db
+    ptrs = [x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+            db.data_ptr()]
+    if body == "registers":
+        fn = _c_fn("layer_norm_bwd_rows", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+        with torch.cuda.device(x.device):
+            err = fn(*ptrs, rows, D, int(bf16), int(vec), blocks, eps,
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"layer_norm_bwd_rows launch failed with CUDA error {err} "
+                               f"(rows={rows}, D={D}, {x.dtype}, blocks={blocks})")
+    else:
+        _launch("layer_norm_bwd", ptrs, rows, D, x, eps)
+    if not reduce:
+        return dx, dg, db
+    sums = torch.empty((2, 1, D), dtype=torch.float32, device=x.device)
+    fn = _c_fn("layer_norm_bwd_sum", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+               + [ctypes.c_void_p] * 3)
+    with torch.cuda.device(x.device):
+        err = fn(dg.data_ptr(), db.data_ptr(), blocks, D, sums[0].data_ptr(),
+                 sums[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"layer_norm_bwd_sum launch failed with CUDA error {err} "
+                           f"(blocks={blocks}, D={D})")
+    return dx, sums[0], sums[1]
 
 
 layer_norm_bwd.launches = 0
+layer_norm_bwd.launches_by_body = {"registers": 0, "columns": 0}
 
 
 class LayerNorm(torch.autograd.Function):
-    """K5f forward, K5b backward plus one sum of its partials: the port of
-    the custom VJP of ``pallas_layernorm.layer_norm``.  Saves ``x``, not
+    """K5f forward, K5b backward (the sum of its partials included): the
+    port of the custom VJP of ``pallas_layernorm.layer_norm``.  Saves ``x``, not
     the statistics (K5b recomputes them).  ``g`` and ``b`` enter as f32
     and their gradients come back f32; ``dx`` comes back in the dtype of
     ``x``."""
@@ -155,7 +250,7 @@ class LayerNorm(torch.autograd.Function):
         x2, g = ctx.saved_tensors
         dy2 = dy.reshape(x2.shape).to(x2.dtype).contiguous()
         dx, dg, db = layer_norm_bwd(x2, dy2, g.contiguous(), ctx.eps)
-        return dx.reshape(ctx.shape), dg.sum(dim=0), db.sum(dim=0), None
+        return dx.reshape(ctx.shape), dg[0], db[0], None
 
 
 def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-6):

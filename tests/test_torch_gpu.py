@@ -298,7 +298,7 @@ def test_fused_kernel_matches_plain_version_above_head_dim_256(dtype, Dh):
     from ecog2txt_tpu_torch.ops import attention_kernels as ak
 
     C, L = 16, 1
-    QB = ak._fit_query_rows(128, C, L, Dh, torch.device("cuda"))
+    QB = ak.plan_fused_query_rows(128, C, L, Dh, ak._smem_limit(torch.device("cuda")))
     g = torch.Generator().manual_seed(Dh)
     B, T = 2, 100
     T1 = -(-T // QB) * QB
@@ -342,7 +342,7 @@ def test_fused_attention_layer_fits_a_wide_head():
     lengths = torch.tensor([T, 77], dtype=torch.int32)
     valid = torch.arange(T)[None, :, None] < lengths[:, None, None]
     cot = torch.randn((B, T, D), generator=g) * valid
-    assert ak._fit_query_rows(128, C, L, D // H, torch.device("cuda")) < 128
+    assert ak.plan_fused_query_rows(128, C, L, D // H, ak._smem_limit(torch.device("cuda"))) < 128
 
     def run(device):
         ls = [a.to(device).requires_grad_() for a in leaves]
@@ -754,6 +754,11 @@ def test_planners_agree_with_the_kernels_shared_memory():
         fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
         for QB, W, Dh in ((128, 144, 64), (40, 48, 20), (96, 112, 256), (128, 132, 16)):
             assert fn(QB, W, Dh) == _k2b_tc_smem(f"K2b-{kernel}", QB, W, Dh)
+    fu = _build.load_library("fused_attention_tc").fused_attention_fwd_tc_smem
+    fu.argtypes, fu.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for QB, W, Dh in ((128, 144, 64), (32, 48, 64), (128, 132, 16), (20, 24, 48),
+                      (32, 48, 454), (32, 48, 512)):
+        assert fu(QB, W, Dh) == ak._fused_tc_smem(QB, W, Dh)
     cl = _build.load_library("lstm_bwd_cluster").lstm_recurrence_bwd_cluster_smem
     cl.argtypes, cl.restype = [ctypes.c_int] * 2, ctypes.c_longlong
     for H, cs in ((400, 8), (100, 2), (64, 1), (17, 4)):
@@ -1112,3 +1117,148 @@ def test_lstm_kernels_refuse_a_width_above_1024():
     assert counts == [w.launches for w in (
         lstm_kernels.lstm_recurrence, lstm_kernels.lstm_recurrence_bwd,
         lstm_kernels.bilstm_grid_fwd, lstm_kernels.bilstm_grid_bwd)]
+
+
+def _fused_case(B, T, H, Dh, C, L, offset, ragged, seed):
+    """bf16 K3f inputs (x, weights, LayerNorm parameters) at T1 a multiple
+    of the query block :func:`plan_fused_layer` takes on the card, lengths
+    full or ragged (row 0 ends 5 steps early, inside a chunk), and the
+    valid-row mask."""
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    D = H * Dh
+    QB, body = ak.plan_fused_layer(torch.bfloat16, B, T, H, 128, C, L, Dh,
+                                   ak._smem_limit("cuda"), ak._sm_count("cuda"))
+    T1 = -(-T // QB) * QB
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, T1, D), generator=g).bfloat16().cuda()
+    xw = ak._split_rot_weights((torch.randn((D, 3 * D), generator=g) / D ** 0.5).cuda(), H,
+                               torch.bfloat16)
+    ln = ((1 + 0.1 * torch.randn((D,), generator=g)).cuda(),
+          (0.1 * torch.randn((D,), generator=g)).cuda())
+    lengths = torch.full((B,), T, dtype=torch.int32)
+    if ragged:
+        lengths = torch.randint(max(T // 2, 1), T + 1, (B,), generator=g, dtype=torch.int32)
+        lengths[0] = T - 5
+    lengths = (lengths + offset).cuda()
+    pos = torch.arange(T1).cuda() + offset
+    valid = ((torch.arange(T1).cuda()[None] < T) & (pos[None] >= 0)
+             & (pos[None] < lengths[:, None]))[..., None]
+    return x, xw, ln, valid, (offset, lengths, C, L, T, QB, H), body
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B, T, H, Dh, C, L, offset, ragged",
+    [(1, 104, 6, 64, 16, 1, 0, False), (17, 104, 6, 64, 16, 1, 0, True),
+     (256, 104, 6, 64, 16, 1, 0, True), (2, 144, 6, 64, 16, 1, 256, True),
+     (3, 100, 8, 48, 16, 1, 0, True), (3, 100, 4, 96, 16, 1, 32, False),
+     (16, 24, 4, 16, 4, 1, 0, True),
+     (2, 100, 1, 288, 16, 1, 0, True), (2, 100, 1, 384, 16, 1, 0, True),
+     (2, 100, 1, 454, 16, 1, 0, True), (2, 100, 1, 512, 16, 1, 0, True)],
+)
+def test_k3f_tensor_core_body_matches_plain_version(B, T, H, Dh, C, L, offset, ragged):
+    """The bf16 body of K3f on the tensor cores, at the query block the layer
+    plans (the headline head dim at B=1, 17 and 256; a chunk-aligned
+    offset; head dims 48, 96, the demo's 16 and the wide 288-512 at chunk
+    16): it is the planned body, it launches once, and out, q, k, v and lse
+    match the plain version within the bf16 tolerance (out and lse on valid
+    rows: the scores come from bf16 q and k whose products sum in another
+    order), with and without saving the residuals."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    x, xw, (ln_g, ln_b), valid, args, body = _fused_case(B, T, H, Dh, C, L, offset, ragged,
+                                                         B * 1000 + Dh)
+    assert body == "tensor_core"
+    before = dict(ak.fused_attention_fwd.launches_by_body)
+    got = ak.fused_attention_fwd(x, xw, ln_g, ln_b, *args, True)
+    (unsaved,) = ak.fused_attention_fwd(x, xw, ln_g, ln_b, *args, False)
+    torch.cuda.synchronize()
+    assert ak.fused_attention_fwd.launches_by_body == {
+        "tensor_core": before["tensor_core"] + 2, "cuda_core": before["cuda_core"]}
+    want = ak.fused_attention_fwd_reference(x, xw, ln_g, ln_b, *args, True)
+    rows = lambda a: torch.where(valid, a.float(), 0.0)  # noqa: E731
+    assert torch.equal(unsaved, got[0])
+    for name, a, w in zip(("out", "q", "k", "v", "lse"), got, want):
+        assert bool(torch.isfinite(a.float()).all()), name
+        if name in ("out", "lse"):
+            a, w = rows(a), rows(w)
+        torch.testing.assert_close(a.float(), w.float(), **TOL[torch.bfloat16], msg=name)
+
+
+@pytest.mark.gpu
+def test_k3f_tensor_core_body_repeats_and_keeps_rows_apart():
+    """The tensor-core K3f at the headline head dim, ragged lengths: two
+    launches agree bit for bit, and batch row 0 of B=17 equals the same row
+    run alone (B=1) bit for bit, at one query block."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import attention_kernels as ak
+
+    x, xw, (ln_g, ln_b), _, args, _ = _fused_case(17, 104, 6, 64, 16, 1, 0, True, 5)
+    a = ak.fused_attention_fwd(x, xw, ln_g, ln_b, *args, True)
+    b = ak.fused_attention_fwd(x, xw, ln_g, ln_b, *args, True)
+    offset, lengths, *rest = args
+    one = ak.fused_attention_fwd(x[:1].contiguous(), xw, ln_g, ln_b, offset,
+                                 lengths[:1].contiguous(), *rest, True)
+    torch.cuda.synchronize()
+    for p, q, r in zip(a, b, one):
+        assert torch.equal(p, q)
+        assert torch.equal(p[:1], r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows, D", [(37, 100), (389, 64), (26624, 384), (131072, 384)])
+def test_k5b_registers_body_matches_plain_version(dtype, rows, D):
+    """K5b's registers body (each row read once) at an odd width, the demo's
+    width and the headline and long-recording rows: it is the planned body,
+    dx matches the plain version within the dtype's tolerance and dg, db
+    (sums of the per-block partials) within f32's, held normwise (they sum
+    every row in another order), and a second launch agrees bit for bit."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import layernorm_kernels as ln
+
+    g = torch.Generator().manual_seed(rows + D)
+    x = (torch.randn((rows, D), generator=g) * 3 + 1).to(dtype).cuda()
+    dy = torch.randn((rows, D), generator=g).to(dtype).cuda()
+    lng = (1 + 0.2 * torch.randn((D,), generator=g)).cuda()
+    before = dict(ln.layer_norm_bwd.launches_by_body)
+    dx, dg, db = ln.layer_norm_bwd(x, dy, lng)
+    dx2, dg2, db2 = ln.layer_norm_bwd(x, dy, lng)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_bwd.launches_by_body == {"registers": before["registers"] + 2,
+                                                  "columns": before["columns"]}
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2) and torch.equal(db, db2)
+    rdx, rdg, rdb = ln.layer_norm_bwd_reference(x, dy, lng)
+    torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dtype])
+    tol = TOL[torch.float32]
+    for got, want in ((dg.sum(0), rdg.sum(0)), (db.sum(0), rdb.sum(0))):
+        assert float((got - want).abs().max()) <= tol["atol"] + tol["rtol"] * float(
+            want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5b_columns_body_takes_wide_rows(dtype):
+    """Rows too wide for a warp's registers (D=1040: five 16-byte chunks a
+    lane in bf16, nine in f32) run K5b's columns body, summed by the same
+    second launch, and match the plain version."""
+    _need_cuda()
+    from ecog2txt_tpu_torch.ops import layernorm_kernels as ln
+
+    rows, D = 50, 1040
+    g = torch.Generator().manual_seed(7)
+    x = (torch.randn((rows, D), generator=g) * 3 + 1).to(dtype).cuda()
+    dy = torch.randn((rows, D), generator=g).to(dtype).cuda()
+    lng = (1 + 0.2 * torch.randn((D,), generator=g)).cuda()
+    before = dict(ln.layer_norm_bwd.launches_by_body)
+    dx, dg, db = ln.layer_norm_bwd(x, dy, lng)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_bwd.launches_by_body == {"registers": before["registers"],
+                                                  "columns": before["columns"] + 1}
+    assert dg.shape == db.shape == (1, D)
+    rdx, rdg, rdb = ln.layer_norm_bwd_reference(x, dy, lng)
+    torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dtype])
+    for got, want in ((dg, rdg), (db, rdb)):
+        torch.testing.assert_close(got, want, **TOL[torch.float32])

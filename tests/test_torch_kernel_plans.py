@@ -1,7 +1,7 @@
 """The host-side planners that choose, before a launch, which body of a
 kernel runs and how its grid is cut: K1b's and K4b's cluster body (cluster
-size, rows per cluster), K2f's and K2b's tensor-core bodies, the query
-block of ``banded_flash_attention`` and K3f's.  They take the card's SM
+size, rows per cluster), K2f's, K2b's and K3f's tensor-core bodies, the
+query block of ``banded_flash_attention`` and K3f's, K5b's registers body.  They take the card's SM
 count and shared-memory limit as arguments, so they run here without a
 card; the H100's figures are 132 SMs and 227 KB (232448 bytes) of opt-in
 shared memory a block.
@@ -10,8 +10,10 @@ shared memory a block.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from ecog2txt_tpu_torch.ops import attention_kernels as ak
+from ecog2txt_tpu_torch.ops import layernorm_kernels as lnk
 from ecog2txt_tpu_torch.ops import lstm_kernels as lk
 
 SMS, SMEM = 132, 232448
@@ -271,11 +273,11 @@ def test_k3f_query_block_at_its_widest_head_dims(C, Dh, rows):
 @pytest.mark.parametrize("Dh", [454, 456, 512])
 def test_k3f_refuses_wide_heads_at_chunk_16(Dh):
     """These head dims were once refused at chunk 16, left context 1 (not
-    even 16 rows of K3f's f32 staging fitted).  Now each plans a 16-row
-    block, in either stream dtype (K3f stages in f32 in both): the
-    LayerNorm tile sized by the window's 32 rows brings 454 and 456 in with
-    32-column tiles, and 512 fits with 16-column tiles (a 32-column weight
-    tile of 64 KB would not)."""
+    even 16 rows of K3f's f32 staging fitted).  Now the CUDA-core body (f32
+    streams; it stages in f32) plans a 16-row block for each: the LayerNorm
+    tile sized by the window's 32 rows brings 454 and 456 in with 32-column
+    tiles, and 512 fits with 16-column tiles (a 32-column weight tile of 64
+    KB would not).  bf16 plans the tensor-core body (below)."""
     tile = 16 if Dh == 512 else 32
     assert ak.plan_fused_query_rows(128, 16, 1, Dh, SMEM) == 16
     assert ak._fused_tile(16, 32, Dh, SMEM) == tile
@@ -370,3 +372,105 @@ def test_concurrent_loads_build_a_library_once(tmp_path, monkeypatch):
         _build.load_library.cache_clear()
     assert calls == ["fake.cu"]
     assert len(set(results)) == 1 and results[0][0] == "loaded"
+
+
+def test_k3f_tensor_core_block_at_the_headline_shape():
+    """The bf16 block at QB=128, window 144, head dim 64: the tiles of the
+    normalised rows (2 x 144 rows x 72) and the slices of Wq, Wk, Wv (2 x 3 x
+    64 x 72), q (128 rows) and k, v (144) at a 72-element stride, all bf16;
+    the keys' chunk ids, the window's average and a flag: 157520 bytes, one
+    block an SM, with room for the rotary table's slice (144 x 64 pairs)."""
+    assert ak._fused_tc_smem(128, 144, 64) == (2 * (2 * 144 * 72 + 6 * 64 * 72 + 416 * 72)
+                                               + 4 * (144 + 64) + 16) == 157520
+    assert 157520 + 144 * 64 * 4 <= SMEM < 2 * 157520
+    # q rows past the window's padded rows: the tiles cover L·C + QBp rows
+    assert ak._fused_tc_smem(20, 24, 48) == (2 * (2 * 48 * 72 + 6 * 64 * 72 + (32 + 64) * 56)
+                                             + 4 * (32 + 48) + 16)
+
+
+@pytest.mark.parametrize(
+    "dtype, QB, W, Dh, body",
+    [(torch.bfloat16, 128, 144, 64, "tensor_core"),  # headline, B=256
+     (torch.bfloat16, 32, 48, 64, "tensor_core"),  # a B=1 request
+     (torch.bfloat16, 32, 48, 454, "tensor_core"),
+     (torch.bfloat16, 32, 48, 512, "tensor_core"),
+     (torch.bfloat16, 128, 144, 512, "cuda_core"),  # does not fit
+     (torch.bfloat16, 16, 32, 514, "cuda_core"),  # above the kernels' 512
+     (torch.float32, 128, 144, 64, "cuda_core"),
+     (torch.float32, 16, 32, 454, "cuda_core")],
+)
+def test_k3f_body_by_dtype_and_shape(dtype, QB, W, Dh, body):
+    assert ak.plan_k3f_body(dtype, QB, W, Dh, SMEM) == body
+
+
+@pytest.mark.parametrize(
+    "B, T, H, Dh, rows",
+    [(256, 104, 6, 64, 128),  # 1536 blocks of 128 rows fill the card
+     (1, 104, 6, 64, 32),  # a B=1 request: 6 blocks of 128 rows would idle 126 SMs
+     (17, 104, 6, 64, 32),
+     (16, 8192, 6, 64, 128),  # the long recording
+     (256, 104, 1, 454, 32), (256, 104, 1, 512, 32),  # the widest that fits
+     (256, 104, 1, 288, 64)],
+)
+def test_k3f_query_block_by_batch(B, T, H, Dh, rows):
+    """bf16: the largest multiple of L·C up to 128 whose tensor-core block
+    fits, or 32 rows where that block's grid has fewer blocks than the
+    card's 132 SMs."""
+    assert ak.plan_fused_layer(torch.bfloat16, B, T, H, 128, 16, 1, Dh, SMEM, SMS) == (
+        rows, "tensor_core")
+    assert ak._fused_tc_smem(rows, rows + 16, Dh) <= SMEM
+
+
+def test_every_even_head_dim_to_512_gets_a_k3f_plan():
+    """At chunk 16, left context 1 every even head dim up to 512 plans a
+    block: bf16 on the tensor cores, f32 on the CUDA cores (its own block)."""
+    for Dh in range(2, 513, 2):
+        rows, body = ak.plan_fused_layer(torch.bfloat16, 256, 104, 1, 128, 16, 1, Dh, SMEM, SMS)
+        assert body == "tensor_core" and rows % 16 == 0
+        assert ak.plan_k3f_body(torch.bfloat16, rows, rows + 16, Dh, SMEM) == "tensor_core"
+        f32 = ak.plan_fused_layer(torch.float32, 256, 104, 1, 128, 16, 1, Dh, SMEM, SMS)
+        assert f32 == (ak.plan_fused_query_rows(128, 16, 1, Dh, SMEM), "cuda_core")
+
+
+def test_k3f_plan_takes_the_cuda_core_body_where_no_tensor_core_block_fits():
+    """With too little shared memory for even 16 rows on the tensor cores,
+    bf16 plans the CUDA-core body at its own block; f32 plans it always."""
+    tight = ak._fused_tc_smem(16, 32, 64) - 1
+    assert ak._fused_smem(16, 32, 64, 32) <= tight
+    assert ak.plan_fused_layer(torch.bfloat16, 256, 104, 6, 128, 16, 1, 64, tight, SMS) == (
+        ak.plan_fused_query_rows(128, 16, 1, 64, tight), "cuda_core")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D, H", [(64, 4), (384, 6), (96, 2), (100, 2)])
+def test_rotary_product_is_a_signed_permutation_of_the_plain_product(dtype, D, H):
+    """K3f's tensor-core body forms ``S(lnx·(W@R))`` from ``S(lnx·W)``
+    instead of a second product: on the port's plain path the two agree bit
+    for bit (negation commutes with the f32 sums and the rounding)."""
+    rng = np.random.default_rng(D)
+    lnx = torch.from_numpy(rng.standard_normal((2, 24, D), dtype=np.float32)).to(dtype)
+    wqkv = torch.from_numpy(rng.standard_normal((D, 3 * D), dtype=np.float32)) / D ** 0.5
+    wq, wqr, wk, wkr, _ = ak._split_rot_weights(wqkv, H, dtype)
+    mm = lambda w: (lnx.float() @ w.float()).to(dtype)  # noqa: E731
+    assert torch.equal(mm(wqr), ak._rot_half(mm(wq), H))
+    assert torch.equal(mm(wkr), ak._rot_half(mm(wk), H))
+
+
+@pytest.mark.parametrize(
+    "dtype, D, vec, body",
+    [(torch.bfloat16, 384, True, "registers"),  # the conformer's width, 2 chunks a lane
+     (torch.bfloat16, 64, True, "registers"),  # the demo's
+     (torch.bfloat16, 1024, True, "registers"),
+     (torch.bfloat16, 1032, True, "columns"),
+     (torch.bfloat16, 100, False, "registers"),  # 200-byte rows: single elements
+     (torch.bfloat16, 384, False, "columns"),  # unaligned: 12 elements a lane
+     (torch.float32, 100, True, "registers"),
+     (torch.float32, 512, True, "registers"),
+     (torch.float32, 1024, True, "columns"),
+     (torch.float32, 37, False, "registers")],
+)
+def test_k5b_body_by_width(dtype, D, vec, body):
+    """K5b's registers body takes a row whose lanes hold at most four chunks
+    (16-byte vectors, else single elements); wider rows run the columns
+    body."""
+    assert lnk.plan_k5b_body(dtype, D, vec) == body
