@@ -109,8 +109,40 @@ and encode (4 under 'fused', where K3f normalises inside) and as many K5b
 per training step; the flash training step is timed once more with the
 LayerNorm swapped back to the plain math, in turns with K5.
 
-10. the ``kernels`` JSON line (all ten kernels), the card's name and
-   power limit, and as the last line ``{"ok": true, "device": {...}}``.
+10. beam search (a main path): ``models.beam.beam_decode`` (width 4,
+   alpha 0.6) over the full-width biLSTM at B=256 x 1248 samples and B=1
+   under True (6 K1f a call: one encode) and 'bi_grid' (3 K4f), timed
+   beside the greedy decode; width 1 equals the greedy decode in f32; then
+   over the headline conformer under 'fused' (4 K3f);
+11. the conformer session (a main path): ``StreamingConformerSession``
+   over the headline conformer with a CTC head (the bench's MLP of 225
+   units, 21 classes: the phonemes of ``vocab.demo-phonemes.20`` and the
+   blank), bf16, B=1, under 'flash' (4 K2f a window encode) and 'fused' (4
+   K3f), K5f on every other LayerNorm: ragged packets of a 1248-sample
+   utterance with two mid-stream ``decode()``s that must agree, then a
+   recording 8x as long a chunk at a time, ``partial()`` greedy and with
+   the lexicon of ``vocab.demo.36`` after each chunk (the carried beam
+   must equal the from-scratch search); median per-chunk and ``partial()``
+   latencies; in f32 the endpoints equal the offline greedy decode;
+12. the pool (a main path): ``StreamingSessionPool`` at capacity 8 over the
+   same model, a seeded schedule of joins, ragged pushes and leaves: 20 K5f
+   a tick and no other kernel (the window's attention is pinned to the
+   plain 'dense'); each stream's endpoint against a dedicated session under
+   the same impl (bf16 encoder outputs normwise within the bf16 tolerance;
+   f32 tokens exact); ``host_upload='int8'`` equal to its session and to
+   the offline decode of the dequantized input; the tick time at capacity 8;
+13. CTC training (a main path): the same model at B=256, bf16, dropout on,
+   a few steps under 'flash' (4 K2f + 4 K2b-dq + 4 K2b-dkv + 20 K5f + 20
+   K5b a step), a falling loss; ``ctc_loss`` on the card against the same
+   recursion on the CPU, value and gradient (f32);
+14. export (a main path): ``export_predictor`` of the full-width biLSTM
+   predictor under True and 'bi_grid', loaded back in the same process:
+   12 K1f or 6 K4f a call through the program, tokens equal to the live
+   predictor's;
+
+15. the ``kernels`` JSON line (all ten kernels, with the launches of
+   phases 10-14 beside the earlier ones), the card's name and power limit,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is
 present.
@@ -121,6 +153,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -130,12 +163,23 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ecog2txt_tpu_torch import text_dir
 from ecog2txt_tpu_torch.convert import tree_leaves, tree_map
+from ecog2txt_tpu_torch.datagen import word_to_phonemes
 from ecog2txt_tpu_torch.demo import make_demo_experiment
+from ecog2txt_tpu_torch.models.beam import beam_decode
+from ecog2txt_tpu_torch.models.ctc import (
+    LexiconTrie,
+    _load_native,
+    build_lexicon,
+    ctc_loss,
+    ctc_word_beam_search,
+)
 from ecog2txt_tpu_torch.models.seq2seq import (
     AuxHead,
     Seq2SeqConfig,
     encode,
+    greedy_decode,
     init_seq2seq,
     seq2seq_loss,
 )
@@ -147,7 +191,16 @@ from ecog2txt_tpu_torch.models.conformer import (
 from ecog2txt_tpu_torch.models import conformer as conformer_module
 from ecog2txt_tpu_torch.ops import _build, attention_kernels, layernorm_kernels, lstm_kernels
 from ecog2txt_tpu_torch.ops.lstm import init_lstm_params
-from ecog2txt_tpu_torch.serve import OnlinePredictor, StreamingSession
+from ecog2txt_tpu_torch.serve import (
+    OnlinePredictor,
+    StreamingConformerSession,
+    StreamingSession,
+    StreamingSessionPool,
+    _quantize_host_block,
+    export_predictor,
+    load_exported_predictor,
+)
+from ecog2txt_tpu_torch.tokenizers import read_vocab_file
 from ecog2txt_tpu_torch.train import (
     MultiSubjectTrainer,
     TrainState,
@@ -2638,6 +2691,434 @@ def conformer_trainer_phase(trainer: MultiSubjectTrainer) -> dict:
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# 10. beam search, the conformer session and pool, CTC training, export:
+#     main paths
+# --------------------------------------------------------------------------
+
+SPC = 12 * HEADLINE_CONFORMER["chunk_size"]  # raw samples a streamed chunk
+TARGETS = ["<pad>", "<EOS>", "<OOV>"] + [f"w{i}_" for i in range(3, 1809)]
+
+
+def _demo_phonemes() -> list:
+    return read_vocab_file(os.path.join(text_dir, "vocab.demo-phonemes.20"))
+
+
+def ctc_config(dtype=torch.bfloat16, impl: str = "flash") -> Seq2SeqConfig:
+    """The headline conformer with a CTC aux head (the bench's MLP of 225
+    units, one class a phoneme of ``vocab.demo-phonemes.20`` and the blank)."""
+    head = AuxHead("encoder_1_targets", "CTC", len(_demo_phonemes()) + 1)
+    return dataclasses.replace(conformer_config(dtype, impl), aux_heads=(head,))
+
+
+def _cuda_batch(x: np.ndarray):
+    lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device="cuda")
+    return torch.from_numpy(x).cuda(), lengths
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def beam_phase(conf_params) -> dict:
+    """``beam_decode`` (width 4, alpha 0.6) over the full-width biLSTM at
+    B=256 x 1248 samples and B=1, under True (6 K1f a call: one encode) and
+    'bi_grid' (3 K4f), timed beside the greedy decode; width 1 equals the
+    greedy decode in f32; then the headline conformer under 'fused' (K3f)."""
+    x256, l256 = _cuda_batch(np.random.default_rng(0).standard_normal(
+        (256, T_RAW, 469), dtype=np.float32))
+    x1, l1 = x256[:1], l256[:1]
+    results = {}
+    for mode, kernel, per_call in ((True, "K1f", LAUNCHES_PER_ENCODE), ("bi_grid", "K4f", 3)):
+        config = serving_config(use_pallas_lstm=mode)
+        params = init_seq2seq(config, torch.Generator().manual_seed(0), device="cuda")
+
+        def beam(x, lens):
+            with torch.inference_mode():
+                return beam_decode(params, config, x, lens, 0, beam_width=4, alpha=0.6)
+
+        def greedy(x, lens):
+            with torch.inference_mode():
+                return greedy_decode(params, config, x, lens, 0, temperature=0.0)
+
+        beam(x256, l256), greedy(x256, l256)  # warm-up
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        b1, b1_s = _timed(lambda: beam(x1, l1))
+        b256, b256_s = _timed(lambda: beam(x256, l256))
+        counts = read_counts()
+        bodies = read_bodies()
+        # --------------------------------------------------------------
+        check_counts(f"beam ({mode})", counts, {kernel: 2 * per_call})
+        check_bodies(f"beam ({mode}, bf16)", bodies, kernel, "cluster", 2 * per_call)
+        g256, g256_s = _timed(lambda: greedy(x256, l256))
+        for name, out, B in (("B=1", b1, 1), ("B=256", b256, 256)):
+            check(tuple(out.shape) == (B, 20), f"beam {mode} {name}: shape {tuple(out.shape)}")
+            check(bool(((out >= 0) & (out < 1809)).all()), f"beam {mode} {name}: ids")
+        agree = float((b256 == g256).float().mean())
+        print(f"beam ({mode}, bf16, width 4, alpha 0.6): {counts[kernel]} {kernel} launches "
+              f"in 2 calls ({per_call} a call), 0 of every other kernel; B=1 "
+              f"{1e3 * b1_s:.2f} ms; B=256 {1e3 * b256_s:.2f} ms = {256 / b256_s:.2f} "
+              f"sentences/s beside greedy's {1e3 * g256_s:.2f} ms = {256 / g256_s:.2f}; "
+              f"tokens equal to greedy's {100 * agree:.1f} %  [{gpu_line()}]")
+        results[str(mode)] = {"counts": counts, "bodies": bodies, "b1_ms": 1e3 * b1_s,
+                              "sentences_per_s_b256": 256 / b256_s,
+                              "greedy_sentences_per_s_b256": 256 / g256_s}
+    f32 = serving_config(torch.float32)
+    p32 = init_seq2seq(f32, torch.Generator().manual_seed(0), device="cuda")
+    with torch.inference_mode():
+        beam1 = beam_decode(p32, f32, x256[:16], l256[:16], 0, beam_width=1, alpha=0.0)
+        greedy = greedy_decode(p32, f32, x256[:16], l256[:16], 0, temperature=0.0)
+    check(torch.equal(beam1, greedy), "beam width 1 (f32) != greedy decode")
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    fused = conformer_config(impl="fused")
+
+    def conformer_beam():
+        with torch.inference_mode():
+            return beam_decode(conf_params, fused, x256, l256, 0, beam_width=4, alpha=0.6)
+
+    conformer_beam()  # warm-up
+    reset_counts()
+    cb, cb_s = _timed(conformer_beam)
+    counts = read_counts()
+    check_counts("beam (conformer, fused)", counts, {"K3f": nb, "K5f": nb * LN_PER_BLOCK["fused"]})
+    check(tuple(cb.shape) == (256, 20), "beam (conformer): shape")
+    print(f"beam over the headline conformer ('fused', bf16) B=256: {counts['K3f']} K3f + "
+          f"{counts['K5f']} K5f launches, {1e3 * cb_s:.2f} ms = {256 / cb_s:.2f} sentences/s; "
+          "width 1 (f32, True) == greedy")
+    results["conformer_fused"] = {"counts": counts, "sentences_per_s_b256": 256 / cb_s}
+    return results
+
+
+def _ragged(x: np.ndarray, rng) -> list:
+    cuts = np.cumsum(rng.integers(40, 400, size=len(x) // 40))
+    return np.split(x, cuts[cuts < len(x)])
+
+
+def _stream_offline(params, config, raw: np.ndarray):
+    """The offline greedy decode of one utterance, padded to a multiple of
+    the decimation factor (as the pipeline pads it)."""
+    L = len(raw)
+    padded = np.zeros((1, -(-L // 12) * 12, raw.shape[1]), np.float32)
+    padded[0, :L] = raw
+    x = torch.from_numpy(padded).cuda()
+    lens = torch.tensor([L], dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        return greedy_decode(params, config, x, lens, 0, temperature=0.0).cpu().numpy()
+
+
+def session_phase(params) -> dict:
+    """``StreamingConformerSession`` over the headline conformer with a CTC
+    head, bf16, B=1, under 'flash' (K2f) and 'fused' (K3f): ragged packets
+    of a 1248-sample utterance with two mid-stream ``decode()``s, then a
+    recording 8x as long a chunk at a time with ``partial()`` greedy and
+    with the demo lexicon after each chunk; then in f32 the endpoints
+    against the offline decode, exactly."""
+    phonemes = _demo_phonemes()
+    words = read_vocab_file(os.path.join(text_dir, "vocab.demo.36"))
+    lexicon = LexiconTrie(build_lexicon(words, word_to_phonemes, phonemes))
+    rng = np.random.default_rng(3)
+    utt = rng.standard_normal((T_RAW, 469), dtype=np.float32)
+    rec = rng.standard_normal((8 * T_RAW, 469), dtype=np.float32)  # 52 chunks
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    results = {"native_beam": _load_native() is not None}
+    for impl, kernel in (("flash", "K2f"), ("fused", "K3f")):
+        session = StreamingConformerSession(params, ctc_config(impl=impl), TARGETS,
+                                            phoneme_list=phonemes, device="cuda")
+        session.push(utt[:SPC])  # warm-up
+        session.partial(lexicon=lexicon)
+        session.reset()
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        encodes = 0
+        for i, pkt in enumerate(_ragged(utt, rng)):
+            before = len(session._enc_outs)
+            session.push(pkt)
+            encodes += len(session._enc_outs) - before
+            if i == 3:
+                encodes += 2 * bool(session._raw_samples)
+                a, b = session.decode(), session.decode()
+                check(np.array_equal(a["tokens"], b["tokens"]), f"session {impl}: decode repeats")
+        encodes += bool(session._raw_samples)
+        utt_out = session.endpoint()
+        chunk_s, greedy_s, lex_s = [], [], []
+        for lo in range(0, len(rec), SPC):
+            _, dt = _timed(lambda: session.push(rec[lo: lo + SPC]))
+            chunk_s.append(dt)
+            encodes += 1
+            _, dt = _timed(session.partial)
+            greedy_s.append(dt)
+            live, dt = _timed(lambda: session.partial(lexicon=lexicon))
+            lex_s.append(dt)
+        logp = np.concatenate(session._ctc_logps, axis=0)[: session._enc_steps]
+        scratch = ctc_word_beam_search(logp[:, 0], lexicon, beam_width=8)
+        rec_out = session.endpoint()
+        counts = read_counts()
+        bodies = read_bodies()
+        # --------------------------------------------------------------
+        check_counts(f"session ({impl})", counts,
+                     {kernel: encodes * nb, "K5f": encodes * nb * LN_PER_BLOCK[impl]})
+        check_bodies(f"session ({impl}, bf16)", bodies, kernel, "tensor_core", counts[kernel])
+        check(live["words"][0] == scratch, f"session {impl}: carried lexicon beam != from scratch")
+        check(live["num_steps"] == 8 * T_RAW // 12, f"session {impl}: {live['num_steps']} steps")
+        for name, out in (("utterance", utt_out), ("recording", rec_out)):
+            check(out["tokens"].shape == (1, 20), f"session {impl} {name}: tokens shape")
+            check(bool(np.isfinite(out["encoder_outputs"]).all()), f"session {impl} {name}")
+        med = {k: 1e3 * float(np.median(v)) for k, v in
+               (("chunk", chunk_s), ("greedy", greedy_s), ("lexicon", lex_s))}
+        print(f"session ({impl}, bf16, B=1, CTC head of {len(phonemes) + 1} classes): "
+              f"{encodes} window encodes, {counts[kernel]} {kernel} + {counts['K5f']} K5f "
+              f"launches; per chunk of {SPC} samples median {med['chunk']:.3f} ms; partial() "
+              f"median greedy {med['greedy']:.3f} ms, lexicon ({len(lexicon.root) - 1} first "
+              f"phonemes, beam 8, {'C++' if results['native_beam'] else 'Python'} search) "
+              f"{med['lexicon']:.3f} ms; carried lexicon beam == from scratch  [{gpu_line()}]")
+        # ---- f32: the endpoints against the offline decode, exactly ----
+        f32 = ctc_config(torch.float32, impl)
+        s32 = StreamingConformerSession(params, f32, TARGETS, phoneme_list=phonemes,
+                                        device="cuda")
+        for raw in (utt, rec):
+            for pkt in _ragged(raw, rng):
+                s32.push(pkt)
+            got = s32.endpoint()["tokens"]
+            check(np.array_equal(got, _stream_offline(params, f32, raw)),
+                  f"session {impl} f32 ({len(raw)} samples): endpoint != offline decode")
+        print(f"session ({impl}, f32): endpoint tokens == offline greedy_decode for "
+              f"{T_RAW} and {8 * T_RAW} samples")
+        results[impl] = {"counts": counts, "bodies": bodies, "encodes": encodes,
+                         "chunk_ms": med["chunk"], "partial_greedy_ms": med["greedy"],
+                         "partial_lexicon_ms": med["lexicon"]}
+    return results
+
+
+def _pool_schedule(pool, rng, events: int = 40) -> tuple:
+    """A seeded schedule of joins, ragged pushes and endpoints: each
+    finished stream's samples and pooled endpoint."""
+    live, done = {}, []
+    for _ in range(events):
+        roll = rng.random()
+        if (roll < 0.3 and len(live) < pool.capacity) or not live:
+            live[pool.add()] = []
+        elif roll < 0.85:
+            slot = int(rng.choice(list(live)))
+            pkt = rng.standard_normal((int(rng.integers(20, 500)), 469), dtype=np.float32)
+            live[slot].append(pkt)
+            pool.push(slot, pkt)
+        else:
+            slot = int(rng.choice(list(live)))
+            done.append((np.concatenate(live.pop(slot) or [np.zeros((0, 469), np.float32)]),
+                         pool.endpoint(slot)))
+    for slot in list(live):
+        done.append((np.concatenate(live.pop(slot) or [np.zeros((0, 469), np.float32)]),
+                     pool.endpoint(slot)))
+    return done
+
+
+def _dedicated(params, config, samples, **kw) -> dict:
+    session = StreamingConformerSession(params, config, TARGETS, device="cuda", **kw)
+    if len(samples):
+        session.push(samples)
+    return session.endpoint()
+
+
+def pool_phase(params) -> dict:
+    """``StreamingSessionPool`` at capacity 8 over the headline conformer
+    (the window's attention pinned to 'dense', its LayerNorms on K5f): a
+    random schedule of joins, ragged pushes and leaves; each stream's
+    endpoint against a dedicated session under the same pinned impl
+    (bf16: encoder outputs within the bf16 tolerance; f32: tokens exact);
+    the int8 upload against its session and the offline decode of the
+    dequantized input; the tick time at capacity 8."""
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    dense16, dense32 = ctc_config(impl="dense"), ctc_config(torch.float32, "dense")
+    pool = StreamingSessionPool(params, ctc_config(), TARGETS, capacity=8, device="cuda")
+    ticks = 0
+    tick = pool._tick
+
+    def counted_tick(*args, **kwargs):
+        nonlocal ticks
+        ticks += 1
+        return tick(*args, **kwargs)
+
+    pool._tick = counted_tick
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    done = _pool_schedule(pool, np.random.default_rng(5))
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    check_counts(f"pool ({ticks} ticks)", counts, {"K5f": ticks * nb * LN_PER_BLOCK["flash"]})
+    enc_err = 0.0
+    for samples, got in done:
+        want = _dedicated(params, dense16, samples)
+        if got["tokens"] is None:
+            check(want["tokens"] is None, "pool bf16: an empty stream decoded")
+            continue
+        # normwise: the batched window's products round in another order
+        # than a B=1 window's, and four bf16 blocks carry each rounding on
+        # at the scale of the row, not of the element
+        a, _ = compare("pool bf16 endpoint vs session", torch.from_numpy(got["encoder_outputs"]),
+                       torch.from_numpy(want["encoder_outputs"]), TOL[torch.bfloat16],
+                       normwise=True)
+        enc_err = max(enc_err, a)
+    pool32 = StreamingSessionPool(params, ctc_config(torch.float32), TARGETS, capacity=8,
+                                  device="cuda")
+    done32 = _pool_schedule(pool32, np.random.default_rng(6))
+    for samples, got in done32:
+        want = _dedicated(params, dense32, samples)
+        check(np.array_equal(got["tokens"], want["tokens"]) if got["tokens"] is not None
+              else want["tokens"] is None, "pool f32: tokens != dedicated session's")
+    # int8 upload: pool == session == offline on the dequantized input (f32)
+    raw = np.random.default_rng(7).standard_normal((1000, 469), dtype=np.float32)
+    pool8 = StreamingSessionPool(params, dense32, TARGETS, capacity=2, device="cuda",
+                                 host_upload="int8")
+    slot = pool8.add()
+    for pkt in np.split(raw, [333, 500, 777]):
+        pool8.push(slot, pkt)
+    got = pool8.endpoint(slot)["tokens"]
+    dq = np.zeros_like(raw)
+    for lo in range(0, len(raw), SPC):
+        block = np.zeros((1, SPC, 469), np.float32)
+        n = min(SPC, len(raw) - lo)
+        block[0, :n] = raw[lo: lo + n]
+        q, scales = _quantize_host_block(block)
+        dq[lo: lo + n] = (q.astype(np.float32) * scales[:, None, :])[0, :n]
+    check(np.array_equal(got, _dedicated(params, dense32, raw, host_upload="int8")["tokens"]),
+          "pool int8: tokens != dedicated int8 session's")
+    check(np.array_equal(got, _stream_offline(params, dense32, dq)),
+          "pool int8: tokens != offline decode of the dequantized input")
+    # the tick at capacity 8 (bf16): seven slots hold a chunk, the eighth's
+    # push runs the batched tick
+    timing = StreamingSessionPool(params, ctc_config(), TARGETS, capacity=8, device="cuda")
+    slots = [timing.add() for _ in range(8)]
+    chunk = np.random.default_rng(8).standard_normal((SPC, 469), dtype=np.float32)
+    tick_s = []
+    for _ in range(12):
+        for s in slots[:-1]:
+            timing.push(s, chunk)
+        _, dt = _timed(lambda: timing.push(slots[-1], chunk))
+        tick_s.append(dt)
+    tick_ms = 1e3 * float(np.median(tick_s[2:]))
+    print(f"pool (capacity 8, bf16, window attention pinned 'dense'): {len(done)} streams, "
+          f"{ticks} ticks, {counts['K5f']} K5f launches ({nb * LN_PER_BLOCK['flash']} a tick), "
+          f"0 of every other kernel; endpoints vs dedicated sessions: bf16 encoder max abs err "
+          f"{enc_err:.3e}, f32 tokens identical over {len(done32)} streams; int8 upload == "
+          f"session == offline on the dequantized input; tick at capacity 8 median "
+          f"{tick_ms:.3f} ms  [{gpu_line()}]")
+    return {"counts": counts, "ticks": ticks, "tick_ms": tick_ms, "enc_err_bf16": enc_err}
+
+
+def ctc_training_phase(params) -> dict:
+    """The headline conformer with the CTC head, B=256, bf16, dropout on,
+    TRAIN_STEPS steps under 'flash': a falling loss; then ``ctc_loss`` on
+    the card (the plain recursion in torch) against the same on the CPU,
+    value and gradient, f32."""
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    config = ctc_config()
+    p = tree_map(lambda t: t.detach().clone(), params)
+    data = _random_corpus(config)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n_classes = len(_demo_phonemes())
+    data["encoder_1_targets"] = torch.randint(0, n_classes, (1, N_TRIALS, 24), generator=g,
+                                              device="cuda", dtype=torch.int32)
+    # at most 24 labels in at least 52 encoder steps: every row can be aligned
+    data["encoder_1_targets_lengths"] = torch.randint(4, 25, (1, N_TRIALS), generator=g,
+                                                      device="cuda", dtype=torch.int32)
+    state = TrainState(p, tree_map(lambda t: t.detach().clone(), p), make_optimizer(p, 1e-3), 0)
+    runner = make_segment_runner(config, PENALTIES, 0.99)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    subject = np.zeros((1,), np.int32)
+
+    def step() -> tuple:
+        nonlocal state
+        idx = rng.permutation(N_TRIALS)[:B_TRAIN][None]
+        state, metrics = runner(state, data, subject, idx, gen, 0)
+        return float(metrics["loss_total"]), float(metrics["loss_encoder_1_targets"])
+
+    losses = [step()]
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t0)
+    counts = read_counts()
+    bodies = read_bodies()
+    # ------------------------------------------------------------------
+    want = TRAIN_STEPS * nb
+    ln = want * LN_PER_BLOCK["flash"]
+    check_counts("CTC training (flash)", counts,
+                 {"K2f": want, "K2b-dq": want, "K2b-dkv": want, "K5f": ln, "K5b": ln})
+    for k in ("K2f", "K2b-dq", "K2b-dkv"):
+        check_bodies("CTC training (bf16)", bodies, k, "tensor_core", counts[k])
+    total = [t for t, _ in losses]
+    check(all(np.isfinite(total)), f"CTC training: non-finite loss {losses}")
+    check(total[-1] < total[0], f"CTC training: loss did not fall: {losses}")
+    ms = 1e3 * float(np.mean(step_s))
+    # ctc_loss on the card against the same recursion on the CPU
+    logits = torch.randn((T_STEPS, B_TRAIN, n_classes + 1), generator=g, device="cuda")
+    lens = torch.randint(T_STEPS // 2, T_STEPS + 1, (B_TRAIN,), generator=g, device="cuda")
+    labels, lab_l = data["encoder_1_targets"][0, :B_TRAIN], data["encoder_1_targets_lengths"][0, :B_TRAIN]
+    errs = []
+    for dev in ("cuda", "cpu"):
+        x = logits.detach().to(dev, copy=True).requires_grad_(True)
+        loss = ctc_loss(x, lens.to(dev), labels.to(dev), lab_l.to(dev))
+        loss.backward()
+        errs.append((loss.detach().cpu(), x.grad.cpu()))
+    compare("ctc_loss card vs CPU", errs[0][0], errs[1][0], TOL[torch.float32])
+    grad_err, _ = compare("ctc_loss gradient card vs CPU", errs[0][1], errs[1][1],
+                          TOL[torch.float32])
+    loss_ms = cuda_ms(lambda: ctc_loss(logits, lens, labels, lab_l), 5)
+    print(f"CTC training ('flash', B={B_TRAIN}, bf16, dropout on): (total, CTC) losses "
+          + ", ".join(f"({t:.4f}, {c:.4f})" for t, c in losses)
+          + f"; per step {nb} K2f + {nb} K2b-dq + {nb} K2b-dkv + {nb * 5} K5f + {nb * 5} K5b; "
+          f"mean step {ms:.2f} ms = {B_TRAIN / (ms / 1e3):.2f} sentences/s; ctc_loss on the card "
+          f"== the CPU recursion (gradient max abs err {grad_err:.3e}), forward {loss_ms:.3f} ms "
+          f"at T'={T_STEPS} B={B_TRAIN}  [{gpu_line()}]")
+    return {"counts": counts, "bodies": bodies, "ms": ms, "losses": losses,
+            "ctc_loss_fwd_ms": loss_ms, "grad_err": grad_err}
+
+
+def export_phase() -> dict:
+    """``export_predictor`` of the full-width biLSTM predictor under True and
+    'bi_grid', loaded back in the same process: its tokens equal the live
+    predictor's, and its calls launch K1f / K4f through the program."""
+    rng = np.random.default_rng(9)
+    requests = [rng.standard_normal((T_RAW, 469), dtype=np.float32),
+                rng.standard_normal((4, 1000, 469), dtype=np.float32),
+                rng.standard_normal((600, 469), dtype=np.float32)]
+    results = {}
+    for mode, kernel, per_call in ((True, "K1f", ENCODES_PER_CALL * LAUNCHES_PER_ENCODE),
+                                   ("bi_grid", "K4f", ENCODES_PER_CALL * 3)):
+        config = serving_config(use_pallas_lstm=mode)
+        params = init_seq2seq(config, torch.Generator().manual_seed(0), device="cuda")
+        live = OnlinePredictor(params, config, TARGETS, max_samples=T_RAW, device="cuda")
+        with tempfile.TemporaryDirectory() as path:
+            t0 = time.perf_counter()
+            export_predictor(live, path)
+            export_s = time.perf_counter() - t0
+            loaded = load_exported_predictor(path)
+            loaded(requests[0])  # warm-up
+            # ---- the main path: counts reset just before, read just after ----
+            reset_counts()
+            outs = [loaded(x) for x in requests]
+            counts = read_counts()
+            # ------------------------------------------------------------------
+        check_counts(f"exported predictor ({mode})", counts, {kernel: per_call * len(requests)})
+        for x, out in zip(requests, outs):
+            check(np.array_equal(out["tokens"], live(x)["tokens"]),
+                  f"exported predictor ({mode}): tokens != the live predictor's")
+        print(f"export ({mode}): exported and saved in {export_s:.1f} s; loaded in the same "
+              f"process, {len(requests)} calls launched {counts[kernel]} {kernel} "
+              f"({per_call} a call) through the program; tokens == the live predictor's")
+        results[str(mode)] = {"counts": counts, "export_s": export_s}
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a GPU",
@@ -2673,6 +3154,13 @@ def main() -> int:
         ctrain = conformer_training_phase(conf_params)
         clong = long_recording_phase(conf_params)
         ctrainer = conformer_trainer_phase(conf_trainer)
+        beam = beam_phase(conf_params)
+        del conf_params
+        ctc_params = init_seq2seq(ctc_config(), torch.Generator().manual_seed(0), device="cuda")
+        session = session_phase(ctc_params)
+        pool = pool_phase(ctc_params)
+        ctc_train = ctc_training_phase(ctc_params)
+        exported = export_phase()
     t256, t1 = kern["timings"][256], kern["timings"][1]
     b256 = kern_b["timings"][256]
     nb = HEADLINE_CONFORMER["num_blocks"]
@@ -2917,7 +3405,41 @@ def main() -> int:
                     "training_sentences_per_s": B_TRAIN / (gtrain["ms"] / 1e3)},
         "long_recording": {"train_tokens_per_s": clong["train_tokens_per_s"],
                            "forward_tokens_per_s": clong["fwd_tokens_per_s"]},
-        "conformer_demo_wers": ctrainer["wers"]}
+        "conformer_demo_wers": ctrainer["wers"],
+        "beam": {mode: {k: v for k, v in r.items() if k not in ("counts", "bodies")}
+                 for mode, r in beam.items()},
+        "session": {impl: {k: session[impl][k] for k in
+                           ("chunk_ms", "partial_greedy_ms", "partial_lexicon_ms", "encodes")}
+                    for impl in ("flash", "fused")},
+        "pool": {"capacity": 8, "tick_ms": pool["tick_ms"], "ticks": pool["ticks"]},
+        "ctc_training": {"step_ms": ctc_train["ms"],
+                         "sentences_per_s": B_TRAIN / (ctc_train["ms"] / 1e3),
+                         "ctc_loss_fwd_ms": ctc_train["ctc_loss_fwd_ms"]},
+        "export_s": {mode: r["export_s"] for mode, r in exported.items()}}
+    # the launches of this slice's main paths, beside each kernel's earlier ones
+    slice_paths = {
+        "K1f": {"launches_beam": beam["True"]["counts"]["K1f"],
+                "launches_export": exported["True"]["counts"]["K1f"]},
+        "K4f": {"launches_beam": beam["bi_grid"]["counts"]["K4f"],
+                "launches_export": exported["bi_grid"]["counts"]["K4f"]},
+        "K2f": {"launches_session": session["flash"]["counts"]["K2f"],
+                "launches_ctc_training": ctc_train["counts"]["K2f"]},
+        "K3f": {"launches_session": session["fused"]["counts"]["K3f"],
+                "launches_beam_conformer": beam["conformer_fused"]["counts"]["K3f"]},
+        "K5f": {"launches_session": {i: session[i]["counts"]["K5f"] for i in ("flash", "fused")},
+                "launches_pool": pool["counts"]["K5f"],
+                "launches_beam_conformer": beam["conformer_fused"]["counts"]["K5f"],
+                "launches_ctc_training": ctc_train["counts"]["K5f"]},
+        **{k: {"launches_ctc_training": ctc_train["counts"][k]}
+           for k in ("K2b-dq", "K2b-dkv", "K5b")},
+    }
+    ids = {"lstm_recurrence_fwd": "K1f", "lstm_recurrence_bwd": "K1b",
+           "banded_attention_fwd": "K2f", "banded_attention_dq": "K2b-dq",
+           "banded_attention_dkv": "K2b-dkv", "fused_attention_fwd": "K3f",
+           "bilstm_grid_fwd": "K4f", "bilstm_grid_bwd": "K4b", "layer_norm_fwd": "K5f",
+           "layer_norm_bwd": "K5b"}
+    for entry in line["kernels"]:
+        entry.update(slice_paths.get(ids[entry["name"]], {}))
     print(json.dumps(line))
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,15 @@ Package layout (the slices ported so far):
     subjects    — ECoGSubject, SequenceDataManifest
     pipeline    — records → padded, stacked corpus arrays + schedules
     demo        — a synthetic demo experiment on disk
-    ops         — LSTM scans + the hand-written Hopper recurrence kernels
-                  (forward K1f, adjoint K1b)
-    models      — seq2seq encoder-decoder, LSTM family, training + inference
+    ops         — LSTM scans + the hand-written Hopper kernels (LSTM
+                  recurrences, banded attention, LayerNorm)
+    models      — seq2seq encoder-decoder (biLSTM and conformer families),
+                  beam search, the CTC head and its lexicon search
     train       — MultiSubjectTrainer, segment runner, EMA, assessment
     assess      — WER / accuracy / confusions
     convert     — parameter trees across the two packages, checkpoints
-    serve       — online predictor and streaming session
+    serve       — online predictor and its export, the streaming sessions
+                  and the streaming pool
 
 Entry points that create tensors default to ``device="cuda"`` and raise
 when no GPU is present unless the caller asks for the CPU explicitly.

@@ -1,5 +1,7 @@
 """Model cores (functional: explicit parameter trees + apply functions)."""
 
+from .beam import beam_decode  # noqa: F401
+
 from .conformer import (  # noqa: F401
     ConformerConfig,
     ConformerStream,

@@ -157,31 +157,45 @@ def _ffn(p, x, cd):
 
 def _rotary(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """Rotary position embedding over the head dim.  x: (B, T, H, Dh);
-    positions: (T,).  Angles in f32, the rotation in the stream dtype."""
+    positions: (T,), or (B, T) with per-row offsets.  Angles in f32, the
+    rotation in the stream dtype."""
     Dh = x.shape[-1]
     half = Dh // 2
     freq = 1.0 / (10000.0 ** (torch.arange(half, device=x.device) / half))
-    angles = positions.float()[:, None] * freq[None, :]  # (T, half)
-    cos = torch.cos(angles)[None, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[None, :, None, :].to(x.dtype)
+    angles = positions.float()[..., None] * freq  # (T, half) or (B, T, half)
+    if angles.dim() == 2:
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
 def _chunk_causal_mask(positions: torch.Tensor, chunk: int, left_context: int):
-    """(T, T) bool: the query at t sees keys in its own chunk and up to
-    ``left_context`` chunks back, by ABSOLUTE position; keys at negative
-    positions are invalid."""
-    q_chunk = torch.div(positions[:, None], chunk, rounding_mode="floor")
-    k_chunk = torch.div(positions[None, :], chunk, rounding_mode="floor")
+    """(T, T) bool ((B, T, T) for per-row positions): the query at t sees
+    keys in its own chunk and up to ``left_context`` chunks back, by
+    ABSOLUTE position; keys at negative positions are invalid."""
+    q_chunk = torch.div(positions[..., :, None], chunk, rounding_mode="floor")
+    k_chunk = torch.div(positions[..., None, :], chunk, rounding_mode="floor")
     return (
         (k_chunk <= q_chunk)
         & (k_chunk >= q_chunk - left_context)
-        & (positions[None, :] >= 0)
+        & (positions[..., None, :] >= 0)
     )
 
 
-def _positions(T: int, offset: int, device) -> torch.Tensor:
+def _per_row(offset) -> bool:
+    """Whether ``offset`` gives each batch row its own position offset."""
+    return torch.is_tensor(offset) and offset.dim() == 1
+
+
+def _positions(T: int, offset, device) -> torch.Tensor:
+    """Absolute positions of T steps: (T,) from an int offset, (B, T) from
+    a (B,) tensor of per-row offsets."""
+    if _per_row(offset):
+        return offset.to(device=device, dtype=torch.long)[:, None] + torch.arange(
+            T, device=device
+        )
     return torch.arange(T, device=device) + offset
 
 
@@ -204,11 +218,11 @@ def _attention_dense(p, x, config: ConformerConfig, lengths, offset: int, cd):
     # scores in the stream dtype, softmax in f32; head-minor (b, t, s, h)
     logits = torch.einsum("bthd,bshd->btsh", q, k).float() / np.sqrt(Dh)
     mask = _chunk_causal_mask(positions, config.chunk_size, config.left_context)
+    if mask.dim() == 2:
+        mask = mask[None]
     if lengths is not None:
-        mask = mask[None] & (positions[None, None, :] < lengths[:, None, None])
-        mask = mask[..., None]  # (B, T, S, 1)
-    else:
-        mask = mask[None, :, :, None]
+        mask = mask & (positions[..., None, :] < lengths[:, None, None])
+    mask = mask[..., None]  # (B or 1, T, S, 1)
     logits = torch.where(mask, logits, -1e9)
     attn = torch.softmax(logits, dim=2).to(cd)
     out = torch.einsum("btsh,bshd->bthd", attn, v).reshape(B, T, D)
@@ -245,36 +259,47 @@ def _attention_banded(p, x, config: ConformerConfig, lengths, offset: int, cd):
         return torch.cat([prev, blocks], dim=2)
 
     kw, vw = windows(k), windows(v)
-    sentinel = torch.full((pad,), -1, dtype=positions.dtype, device=x.device)
-    pos_ext = torch.cat([positions, sentinel])
+    # key positions by window, (P, NB, W): P = B for per-row offsets, else 1
+    pos = positions if positions.dim() == 2 else positions[None]
+    P = pos.shape[0]
+    sentinel = torch.full((P, pad), -1, dtype=pos.dtype, device=x.device)
+    pos_ext = torch.cat([pos, sentinel], dim=1)
     front = torch.cat([
-        torch.full((L * C,), -1, dtype=positions.dtype, device=x.device),
-        pos_ext[: Tp - L * C or None],
-    ])[: NB * Q * C]
+        torch.full((P, L * C), -1, dtype=pos.dtype, device=x.device),
+        pos_ext[:, : Tp - L * C or None],
+    ], dim=1)[:, : NB * Q * C]
     kposw = torch.cat(
-        [front.reshape(NB, Q * C)[:, : L * C], pos_ext.reshape(NB, Q * C)], dim=1
-    )  # (NB, W)
+        [front.reshape(P, NB, Q * C)[:, :, : L * C], pos_ext.reshape(P, NB, Q * C)], dim=2
+    )
     logits = torch.einsum("bnchd,bnwhd->bhncw", qb, kw).float() / np.sqrt(Dh)
     # intra-tile band: query local chunk qi sees window chunk kj iff
     # qi <= kj <= qi + L
     qi = torch.arange(Q * C, device=x.device)[:, None] // C
     kj = torch.arange(W, device=x.device)[None, :] // C
     band = (kj >= qi) & (kj <= qi + L)  # (Q·C, W)
-    mask = band[None] & (kposw[:, None, :] >= 0)  # (NB, Q·C, W)
+    mask = band & (kposw[:, :, None, :] >= 0)  # (P, NB, Q·C, W)
     if lengths is not None:
-        mask = mask[None] & (kposw[None, :, None, :] < lengths[:, None, None, None])
-        mask = mask[:, None]  # (B, 1, NB, Q·C, W)
-    else:
-        mask = mask[None, None]
+        mask = mask & (kposw[:, :, None, :] < lengths[:, None, None, None])
+    mask = mask[:, None]  # (B or 1, 1, NB, Q·C, W)
     logits = torch.where(mask, logits, -1e9)
     attn = torch.softmax(logits, dim=-1).to(cd)
     out = torch.einsum("bhncw,bnwhd->bnchd", attn, vw).reshape(B, Tp, D)[:, :T]
     return _dot(out, p["wo"], cd)
 
 
+def _scalar_offset(impl: str, offset) -> None:
+    """The kernels take one offset for the batch: refuse per-row ones."""
+    if _per_row(offset):
+        raise ValueError(
+            f"attention_impl={impl!r} takes one int position offset; per-row "
+            "offsets run the plain 'dense' or 'banded' attention"
+        )
+
+
 def _attention_flash(p, x, config: ConformerConfig, lengths, offset: int, cd):
     """The banded attention through the Hopper kernels (forward K2f,
     backward K2b); queries are contiguous from ``offset``."""
+    _scalar_offset("flash", offset)
     B, T, D = x.shape
     q, k, v = _qkv(p, x, config, offset, cd)
     out = banded_flash_attention(
@@ -288,6 +313,7 @@ def _attention_fused(p, x, config: ConformerConfig, lengths, offset: int, cd):
     """LayerNorm → qkv → rotary → banded attention in one kernel (K3f);
     the output projection and the residual stay outside.  The f32
     ``wqkv`` and LayerNorm parameters go in as they are (cast inside)."""
+    _scalar_offset("fused", offset)
     att = fused_attention_layer(
         p["wqkv"], p["ln"]["g"], p["ln"]["b"], x, offset, lengths,
         chunk_size=config.chunk_size, left_context=config.left_context,
@@ -310,20 +336,20 @@ def _attention(p, x, config: ConformerConfig, lengths, offset: int, cd):
         if x.shape[1] <= _AUTO_DENSE_MAX_STEPS:
             impl = "dense"
         else:
-            impl = "flash" if x.is_cuda else "banded"
+            impl = "flash" if x.is_cuda and not _per_row(offset) else "banded"
     return _ATTENTION_IMPLS[impl](p, x, config, lengths, offset, cd)
 
 
 def _conv_module(p, x, tail=None, cd=torch.float32, valid=None):
     """Depthwise-causal conv module.  ``tail``: (B, K-1, D) carried
-    samples; ``valid``: (T,) bool zeroing steps at negative positions so
-    their taps equal the offline encode's zero left-pad.  Returns (out,
-    new_tail)."""
+    samples; ``valid``: (T,) bool, or (B, T) for per-row offsets, zeroing
+    steps at negative positions so their taps equal the offline encode's
+    zero left-pad.  Returns (out, new_tail)."""
     B, T, D = x.shape
     K = p["dw"].shape[0]
     h = F.glu(_dot(_layernorm(p["ln"], x), p["pw1"], cd), dim=-1)  # (B, T, D)
     if valid is not None:
-        h = h * valid[None, :, None].to(h.dtype)
+        h = h * (valid if valid.dim() == 2 else valid[None])[..., None].to(h.dtype)
     if tail is None:
         tail = torch.zeros((B, K - 1, D), dtype=h.dtype, device=h.device)
     h_padded = torch.cat([tail, h], dim=1)  # (B, T+K-1, D)
@@ -356,7 +382,7 @@ def conformer_encode(
     config: ConformerConfig,
     xs: torch.Tensor,  # (B, T, in_dim): already downsampled features
     lengths: torch.Tensor | None = None,
-    position_offset: int = 0,
+    position_offset: int | torch.Tensor = 0,
     carry: list | None = None,
     compute_dtype=torch.float32,
     mask_invalid: bool = False,
@@ -364,12 +390,15 @@ def conformer_encode(
     """Full-sequence (training) or continuation (streaming) encode.
 
     ``position_offset`` is the absolute position of step 0 (an int,
-    chunk-aligned); ``carry`` the per-block conv tails; ``mask_invalid``
+    chunk-aligned), or a (B,) tensor of chunk-aligned per-row offsets
+    (what the JAX package gets by ``vmap``-ping one window over the slots
+    of a serving pool), which only the plain 'dense' and 'banded'
+    attention take; ``carry`` the per-block conv tails; ``mask_invalid``
     zeroes the conv input at negative positions.  Returns (out (B, T, D),
     new_carry).  ``remat`` recomputes each block in the backward."""
     cd = compute_dtype
     x = _dot(xs.to(cd), params["in_proj"]["w"], cd) + params["in_proj"]["b"].to(cd)
-    offset = int(position_offset)
+    offset = position_offset if _per_row(position_offset) else int(position_offset)
     valid = _positions(x.shape[1], offset, x.device) >= 0 if mask_invalid else None
     new_carry = []
     for bi, block in enumerate(params["blocks"]):

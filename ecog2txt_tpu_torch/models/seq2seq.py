@@ -22,15 +22,15 @@ tree (nested dicts and lists, the same keys and shapes, weights stored
   sampled;
 * training: feed-forward dropout after the conv and between stacked
   layers, variational recurrent dropout (one mask per sequence, layer
-  and direction), and :func:`seq2seq_loss` with categorical, Gaussian and
-  Rayleigh auxiliary heads beside the decoder cross-entropy.
+  and direction), and :func:`seq2seq_loss` with categorical, CTC
+  (``models.ctc``), Gaussian and Rayleigh auxiliary heads beside the
+  decoder cross-entropy.
 
 Sequences are time-major ``(T, B, F)``.  Products round their operands
 to ``compute_dtype`` and accumulate in f32 (``ops.lstm.dot_f32``).
 Where JAX takes an ``rng`` key the port takes a ``torch.Generator`` on
 the device of the tensors; the draws differ from JAX's, their rates and
-scaling do not.  The CTC head is a later slice of the port: it raises
-``NotImplementedError``.
+scaling do not.
 """
 
 from __future__ import annotations
@@ -52,8 +52,7 @@ from ..ops.lstm import (
     reverse_padded,
 )
 from .conformer import ConformerConfig, conformer_encode, init_conformer
-
-_NOT_PORTED = "is not ported yet (see ROADMAP.md, Queue 1)"
+from .ctc import ctc_loss
 
 
 class AuxHead(NamedTuple):
@@ -522,7 +521,7 @@ def seq2seq_loss(
     'decoder_targets' (B,L) EOS-terminated, 'decoder_lengths' (B,),
     'subject_idx' scalar int, plus one entry per aux head (per-sample
     targets at the raw rate: categorical (B,T), Gaussian/Rayleigh
-    (B,T,F)).  ``penalty_scales``: loss weight per aux head name and for
+    (B,T,F); CTC: label sequences (B,N) beside '<name>_lengths' (B,)).  ``penalty_scales``: loss weight per aux head name and for
     'decoder_targets'.  Metrics: ``loss_<head>``, ``loss_decoder``,
     ``token_accuracy``, ``loss_total``.
     """
@@ -548,10 +547,12 @@ def seq2seq_loss(
         raw = batch[head.name]
         scale = penalty_scales.get(head.name, 1.0)
         if head.distribution == "CTC":
-            raise NotImplementedError(
-                f"aux head {head.name!r}: the CTC loss (models/ctc.py) "
-                f"{_NOT_PORTED}, item 4"
-            )
+            # alignment-free phoneme loss (models/ctc.py); pred covers the
+            # phonemes and the trailing blank
+            loss = ctc_loss(pred, enc_lengths, raw, batch[f"{head.name}_lengths"])
+            metrics[f"loss_{head.name}"] = loss
+            total = total + scale * loss
+            continue
         if head.distribution not in ("categorical", "Gaussian", "Rayleigh"):
             raise ValueError(
                 f"aux head {head.name!r}: unknown distribution "

@@ -633,6 +633,26 @@ banded_attention_fwd.launches = 0
 banded_attention_fwd.launches_by_body = {"tensor_core": 0, "cuda_core": 0}
 
 
+# The no-gradient forwards of K2f and K3f as operators of their own, so
+# that ``torch.export`` records each as one node of the graph: running the
+# node calls the wrapper, which launches and counts the kernel (or runs the
+# plain version on the CPU).
+@torch.library.custom_op(
+    "ecog2txt_tpu_torch::banded_attention_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, int offset, Tensor lengths, int C, int L, "
+           "int t_real, int QB, int H) -> Tensor",
+)
+def banded_attention_fwd_op(q, k, v, offset, lengths, C, L, t_real, QB, H):
+    """``out`` of :func:`banded_attention_fwd` (K2f)."""
+    out, _ = banded_attention_fwd(q, k, v, offset, lengths, C, L, t_real, QB, H)
+    return out
+
+
+@banded_attention_fwd_op.register_fake
+def _(q, k, v, offset, lengths, C, L, t_real, QB, H):
+    return torch.empty_like(q)
+
+
 def _launch_k2b(kernel, body, q, k, v, g, lse, delta, offset, lengths, C, L, t_real, QB, H):
     """One K2b-dq (``kernel="dq"``) or K2b-dkv (``"dkv"``) launch of
     ``body`` ("tensor_core": bf16 only, or "cuda_core"); checked inputs, no
@@ -788,6 +808,25 @@ fused_attention_fwd.launches = 0
 fused_attention_fwd.launches_by_body = {"tensor_core": 0, "cuda_core": 0}
 
 
+@torch.library.custom_op(
+    "ecog2txt_tpu_torch::fused_attention_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor[] xw, Tensor lng, Tensor lnb, int offset, Tensor lengths, "
+           "int C, int L, int t_real, int QB, int H) -> Tensor",
+)
+def fused_attention_fwd_op(x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H):
+    """``out`` of :func:`fused_attention_fwd` (K3f) without saving q, k,
+    v or the LSE (see :func:`banded_attention_fwd_op`)."""
+    (out,) = fused_attention_fwd(
+        x, tuple(xw), lng, lnb, offset, lengths, C, L, t_real, QB, H, save=False
+    )
+    return out
+
+
+@fused_attention_fwd_op.register_fake
+def _(x, xw, lng, lnb, offset, lengths, C, L, t_real, QB, H):
+    return torch.empty_like(x)
+
+
 # --------------------------------------------------------------------------
 # the differentiable entry points
 # --------------------------------------------------------------------------
@@ -867,7 +906,7 @@ def banded_flash_attention(
     if wants_grad:
         out = BandedAttention.apply(q3, k3, v3, lens, *args)
     else:
-        out, _ = banded_attention_fwd(q3, k3, v3, offset, lens, C, L, T, QB, H)
+        out = banded_attention_fwd_op(q3, k3, v3, int(offset), lens, C, L, T, QB, H)
     return out[:, :T].reshape(B, T, H, Dh)
 
 
@@ -964,8 +1003,8 @@ def fused_attention_layer(
         )
     else:
         xw = _split_rot_weights(wqkv, H, x.dtype)
-        (out,) = fused_attention_fwd(
-            x1, xw, ln_g.float().contiguous(), ln_b.float().contiguous(),
-            offset, lens, C, L, T, QB, H, save=False,
+        out = fused_attention_fwd_op(
+            x1, list(xw), ln_g.float().contiguous(), ln_b.float().contiguous(),
+            int(offset), lens, C, L, T, QB, H,
         )
     return out[:, :T]

@@ -111,6 +111,24 @@ def layer_norm_fwd(x, g, b, eps: float = 1e-6):
 layer_norm_fwd.launches = 0
 
 
+# The no-gradient forward of K5f as an operator of its own, so that
+# ``torch.export`` records it as one node of the graph: running the node
+# calls the wrapper, which launches and counts the kernel (or runs the plain
+# version on the CPU).
+@torch.library.custom_op(
+    "ecog2txt_tpu_torch::layer_norm_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor g, Tensor b, float eps) -> Tensor",
+)
+def layer_norm_fwd_op(x, g, b, eps):
+    """:func:`layer_norm_fwd` (K5f)."""
+    return layer_norm_fwd(x, g, b, eps)
+
+
+@layer_norm_fwd_op.register_fake
+def _(x, g, b, eps):
+    return torch.empty_like(x)
+
+
 _MAX_CHUNKS = 4  # chunks of a row a lane holds in K5b's registers body
 
 
@@ -261,7 +279,7 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1
     wants_grad = torch.is_grad_enabled() and any(a.requires_grad for a in (x, g, b))
     if not wants_grad:
         shape = x.shape
-        return layer_norm_fwd(
+        return layer_norm_fwd_op(
             x.reshape(-1, shape[-1]).contiguous(), g.contiguous(), b.contiguous(), eps
         ).reshape(shape)
     return LayerNorm.apply(x, g, b, eps)

@@ -252,6 +252,29 @@ lstm_recurrence.launches = 0
 lstm_recurrence.launches_by_body = {"cluster": 0, "rows": 0}
 
 
+# The no-gradient forwards of K1f and K4f as operators of their own, so
+# that ``torch.export`` records each as one node of the graph
+# (``serve.export_predictor``): running the node calls the wrapper, which
+# launches and counts the kernel (or runs the plain version on the CPU).
+@torch.library.custom_op(
+    "ecog2txt_tpu_torch::lstm_recurrence", mutates_args=(),
+    schema="(Tensor xw, Tensor wh, Tensor lengths, Tensor h0, Tensor c0, Tensor mask, "
+           "bool reverse_time) -> (Tensor, Tensor, Tensor)",
+)
+def lstm_recurrence_op(xw, wh, lengths, h0, c0, mask, reverse_time):
+    """``(h_seq, hT, cT)`` of :func:`lstm_recurrence` (K1f), no ``c_seq``."""
+    h_seq, _, hT, cT = lstm_recurrence(xw, wh, lengths, h0, c0, mask, reverse_time)
+    return h_seq, hT, cT
+
+
+@lstm_recurrence_op.register_fake
+def _(xw, wh, lengths, h0, c0, mask, reverse_time):
+    T, B, G = xw.shape
+    f32 = dict(dtype=torch.float32)
+    return xw.new_empty((T, B, G // 4)), h0.new_empty((B, G // 4), **f32), \
+        h0.new_empty((B, G // 4), **f32)
+
+
 # --------------------------------------------------------------------------
 # adjoint (K1b)
 # --------------------------------------------------------------------------
@@ -659,11 +682,9 @@ def fused_lstm_recurrence(
         a.requires_grad for a in (xw, wh, h0, c0)
     )
     if not wants_grad:
-        h_seq, _, hT, cT = lstm_recurrence(
-            xw, wh.to(xw.dtype).contiguous(), lengths, h0, c0, mask,
-            reverse_time,
-        )
-        return h_seq, hT, cT
+        return tuple(lstm_recurrence_op(
+            xw, wh.to(xw.dtype).contiguous(), lengths, h0, c0, mask, reverse_time,
+        ))
     return LSTMRecurrence.apply(xw, wh, lengths, h0, c0, mask, reverse_time)
 
 
@@ -789,6 +810,33 @@ def bilstm_grid_fwd(
 
 bilstm_grid_fwd.launches = 0
 bilstm_grid_fwd.launches_by_body = {"cluster": 0, "rows": 0}
+
+
+@torch.library.custom_op(
+    "ecog2txt_tpu_torch::bilstm_grid_fwd", mutates_args=(),
+    schema="(Tensor xwf, Tensor xwb, Tensor whf, Tensor whb, Tensor lengths, Tensor maskf, "
+           "Tensor maskb) -> (Tensor, Tensor, Tensor)",
+)
+def bilstm_grid_fwd_op(xwf, xwb, whf, whb, lengths, maskf, maskb):
+    """``(h_seq (T, B, 2H), hT (B, 2H), cT (B, 2H))`` of :func:`bilstm_grid_fwd`
+    (K4f), the two directions side by side, no ``c_seq`` (see
+    :func:`lstm_recurrence_op`; the kernel's outputs are views of one
+    buffer, which an operator may not return)."""
+    hf, hb, _, _, hT, cT = bilstm_grid_fwd(
+        xwf, xwb, whf, whb, lengths, maskf, maskb, return_c_seq=False
+    )
+    return (
+        torch.cat([hf, hb], dim=-1),
+        torch.cat([hT[0], hT[1]], dim=-1),
+        torch.cat([cT[0], cT[1]], dim=-1),
+    )
+
+
+@bilstm_grid_fwd_op.register_fake
+def _(xwf, xwb, whf, whb, lengths, maskf, maskb):
+    T, B, G = xwf.shape
+    state = maskf.new_empty((B, G // 2), dtype=torch.float32)
+    return xwf.new_empty((T, B, G // 2)), state, state.new_empty(state.shape)
 
 
 def bilstm_grid_bwd_reference(
@@ -954,13 +1002,8 @@ def fused_bilstm_grid(
     )
     if not wants_grad:
         stream = xwf.dtype
-        hf, hb, _, _, hT, cT = bilstm_grid_fwd(
+        return tuple(bilstm_grid_fwd_op(
             xwf, xwb, whf.to(stream).contiguous(), whb.to(stream).contiguous(),
-            lengths, maskf, maskb, return_c_seq=False,
-        )
-        return (
-            torch.cat([hf, hb], dim=-1),
-            torch.cat([hT[0], hT[1]], dim=-1),
-            torch.cat([cT[0], cT[1]], dim=-1),
-        )
+            lengths, maskf, maskb,
+        ))
     return BiLSTMGrid.apply(xwf, xwb, whf, whb, lengths, maskf, maskb)

@@ -87,10 +87,9 @@ def _trial_from_example(
         if manifest.distribution == "CTC":
             # alignment-free target: collapse frame-aligned labels to
             # the label sequence (models/ctc.py)
-            raise NotImplementedError(
-                f"{key}: CTC targets (models/ctc.py) are not ported yet "
-                "(see ROADMAP.md, Queue 1, item 4)"
-            )
+            from .models.ctc import collapse_alignment
+
+            trial[key] = collapse_alignment(value)
         else:
             trial[key] = value[: len(enc)]
     trial["decoder_targets"] = example["decoder_targets"]

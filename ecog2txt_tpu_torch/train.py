@@ -12,7 +12,8 @@ The twin of ``ecog2txt_tpu/train.py`` on the resident path:
   0.999, eps 1e-8, optax's defaults) → EMA ``d * e + (1 - d) * p``;
 * an assessment interval of epochs is one call of the segment runner,
   which returns the segment's mean metrics; assessment greedy-decodes
-  (or temperature-samples) with the EMA weights.
+  (or temperature-samples), or beam-searches when ``beam_width`` > 1
+  (``models/beam.py``), with the EMA weights.
 
 Checkpoints are ``convert.save_checkpoint`` files (``ckpt-<epoch>.pt``).
 What ``fit`` does beyond the resident path (host-sharded and lazy
@@ -36,6 +37,7 @@ from . import DATA_PARTITIONS, EOS_token, TOKEN_TYPES, pad_token, resolve_device
 from .assess import confusion_matrix, sequence_accuracy, wer_vector
 from .config import Manifest, load_experiment_manifest
 from .convert import load_checkpoint, save_checkpoint, tree_leaves, tree_map
+from .models.beam import beam_decode
 from .models.conformer import ConformerConfig
 from .models.seq2seq import (
     AuxHead,
@@ -567,12 +569,11 @@ class MultiSubjectTrainer:
         use_ema: bool = True,
         params: Any = None,
     ) -> dict[str, dict]:
-        """Greedy-decode (temperature-sample when ``temperature`` > 0)
-        each partition with the (EMA) weights; returns per-partition WER /
+        """Greedy-decode (temperature-sample when ``temperature`` > 0; beam
+        search when ``beam_width`` > 1) each partition with the (EMA)
+        weights; returns per-partition WER /
         accuracy / confusions.  Every decode is launched before any
         result is copied to the host."""
-        if self.beam_width > 1:
-            raise NotImplementedError(f"beam_width > 1 (models/beam.py) {_NOT_PORTED}")
         if params is None:
             params = self.state.ema if use_ema else self.state.params
         dec_list = self.target_subject.data_manifests["decoder_targets"].feature_list
@@ -590,11 +591,17 @@ class MultiSubjectTrainer:
                         self.seed * 7919 + s * 7
                         + list(DATA_PARTITIONS).index(partition)
                     )
-                    tokens = greedy_decode(
-                        params, self.net_config, dev["encoder_inputs"][s],
-                        dev["encoder_lengths"][s], s, generator,
-                        self.temperature,
-                    )
+                    inputs, lengths = dev["encoder_inputs"][s], dev["encoder_lengths"][s]
+                    if self.beam_width > 1:
+                        tokens = beam_decode(
+                            params, self.net_config, inputs, lengths, s,
+                            beam_width=self.beam_width, temperature=self.temperature,
+                        )
+                    else:
+                        tokens = greedy_decode(
+                            params, self.net_config, inputs, lengths, s, generator,
+                            self.temperature,
+                        )
                     pending[partition].append((s, n, tokens))
         out: dict[str, dict] = {}
         for partition in partitions:

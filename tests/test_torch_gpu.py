@@ -10,6 +10,8 @@ Without a CUDA device every test here skips.  Tolerances as in
 ``chip_smoke.py``: f32 rtol 1e-4 / atol 1e-5, bf16 rtol 5e-2 / atol 2e-2.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -1262,3 +1264,167 @@ def test_k5b_columns_body_takes_wide_rows(dtype):
     torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dtype])
     for got, want in ((dg, rdg), (db, rdb)):
         torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+# --------------------------------------------------------------------------
+# beam search, the conformer session and pool, export: the card's paths
+# --------------------------------------------------------------------------
+
+
+def _serving_config(dtype=torch.bfloat16, use_pallas_lstm=True, **extra):
+    """The JAX benchmark's biLSTM at full width (bench.py:46-63)."""
+    from ecog2txt_tpu_torch.models.seq2seq import AuxHead, Seq2SeqConfig
+
+    return Seq2SeqConfig(
+        vocab_size=1809, in_channels=469, conv_sizes=(100,), decimation_factor=12,
+        rnn_sizes=(400, 400, 400), aux_proj_sizes=(225,),
+        aux_heads=(AuxHead("encoder_1_targets", "categorical", 45),),
+        dec_embedding_size=150, dec_rnn_sizes=(800,), max_dec_len=20,
+        compute_dtype=dtype, use_pallas_lstm=use_pallas_lstm, **extra,
+    )
+
+
+def _ctc_conformer_config(dtype, impl):
+    """The headline conformer (bench.py:149-157) with a CTC head of 21 classes."""
+    from ecog2txt_tpu_torch.models.conformer import ConformerConfig
+    from ecog2txt_tpu_torch.models.seq2seq import AuxHead
+
+    conformer = ConformerConfig(num_blocks=4, model_dim=384, num_heads=6, ffn_dim=1536,
+                                conv_kernel=8, chunk_size=16, left_context=1,
+                                attention_impl=impl)
+    return dataclasses.replace(
+        _serving_config(dtype, False, encoder_type="conformer", conformer=conformer),
+        aux_heads=(AuxHead("encoder_1_targets", "CTC", 21),),
+    )
+
+
+_TARGETS = ["<pad>", "<EOS>", "<OOV>"] + [f"w{i}_" for i in range(3, 1809)]
+
+
+def _params(config):
+    from ecog2txt_tpu_torch.models.seq2seq import init_seq2seq
+
+    return init_seq2seq(config, torch.Generator().manual_seed(0), device="cuda")
+
+
+def _raw(n, seed=0, rows=None):
+    g = torch.Generator().manual_seed(seed)
+    shape = (n, 469) if rows is None else (rows, n, 469)
+    return torch.randn(shape, generator=g).numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,kernel,per_encode", [(True, "lstm_recurrence", 6),
+                                                    ("bi_grid", "bilstm_grid_fwd", 3)])
+def test_beam_decode_launches_the_lstm_kernels(mode, kernel, per_encode):
+    from ecog2txt_tpu_torch.models.beam import beam_decode
+    from ecog2txt_tpu_torch.models.seq2seq import greedy_decode
+
+    _need_cuda()
+    wrapper = getattr(lstm_kernels, kernel)
+    x = torch.from_numpy(_raw(1248, rows=4)).cuda()
+    lens = torch.tensor([1248, 1000, 700, 1248], dtype=torch.int32, device="cuda")
+    config = _serving_config(use_pallas_lstm=mode)
+    params = _params(config)
+    before = wrapper.launches
+    with torch.inference_mode():
+        hyps, scores = beam_decode(params, config, x, lens, 0, beam_width=4, return_all=True)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + per_encode
+    assert tuple(hyps.shape) == (4, 4, 20) and bool(torch.isfinite(scores).all())
+    assert bool((scores[:, 1:] <= scores[:, :-1] + 1e-6).all())
+    f32 = _serving_config(torch.float32, mode)
+    p32 = _params(f32)
+    with torch.inference_mode():
+        beam1 = beam_decode(p32, f32, x, lens, 0, beam_width=1, alpha=0.0)
+        greedy = greedy_decode(p32, f32, x, lens, 0, temperature=0.0)
+    assert torch.equal(beam1, greedy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,kernel", [("flash", "banded_attention_fwd"),
+                                         ("fused", "fused_attention_fwd")])
+def test_streaming_session_endpoint_equals_the_offline_decode(impl, kernel):
+    import numpy as np
+
+    from ecog2txt_tpu_torch.models.seq2seq import greedy_decode
+    from ecog2txt_tpu_torch.ops import attention_kernels
+    from ecog2txt_tpu_torch.serve import StreamingConformerSession
+
+    _need_cuda()
+    wrapper = getattr(attention_kernels, kernel)
+    config = _ctc_conformer_config(torch.float32, impl)
+    params = _params(config)
+    raw = _raw(1000, seed=1)
+    session = StreamingConformerSession(params, config, _TARGETS, device="cuda")
+    before = wrapper.launches
+    for pkt in np.split(raw, [130, 333, 500, 777]):
+        session.push(pkt)
+    a, b = session.decode(), session.decode()
+    np.testing.assert_array_equal(a["tokens"], b["tokens"])
+    got = session.endpoint()
+    # 5 whole chunks and the flushed remainder three times: 8 window encodes
+    assert wrapper.launches == before + 8 * 4
+    padded = np.zeros((1, 1008, 469), np.float32)
+    padded[0, :1000] = raw
+    with torch.inference_mode():
+        want = greedy_decode(params, config, torch.from_numpy(padded).cuda(),
+                             torch.tensor([1000], device="cuda"), 0, temperature=0.0)
+    np.testing.assert_array_equal(got["tokens"], want.cpu().numpy())
+    np.testing.assert_array_equal(a["tokens"], got["tokens"])
+
+
+@pytest.mark.gpu
+def test_pool_equals_dedicated_sessions_on_the_card():
+    import numpy as np
+
+    from ecog2txt_tpu_torch.ops import attention_kernels, layernorm_kernels
+    from ecog2txt_tpu_torch.serve import StreamingConformerSession, StreamingSessionPool
+
+    _need_cuda()
+    config = _ctc_conformer_config(torch.float32, "flash")
+    dense = _ctc_conformer_config(torch.float32, "dense")
+    params = _params(config)
+    pool = StreamingSessionPool(params, config, _TARGETS, capacity=8, device="cuda")
+    raws = [_raw(n, seed=s) for s, n in enumerate((1248, 700, 431))]
+    slots = [pool.add() for _ in raws]
+    k2f, k5f = attention_kernels.banded_attention_fwd.launches, layernorm_kernels.layer_norm_fwd.launches
+    for lo in range(0, 1248, 97):
+        for slot, raw in zip(slots, raws):
+            if lo < len(raw):
+                pool.push(slot, raw[lo: lo + 97])
+    outs = [pool.endpoint(slot) for slot in slots]
+    assert attention_kernels.banded_attention_fwd.launches == k2f  # the window is pinned dense
+    assert layernorm_kernels.layer_norm_fwd.launches > k5f
+    for raw, got in zip(raws, outs):
+        session = StreamingConformerSession(params, dense, _TARGETS, device="cuda")
+        session.push(raw)
+        want = session.endpoint()
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        torch.testing.assert_close(torch.from_numpy(got["encoder_outputs"]),
+                                   torch.from_numpy(want["encoder_outputs"]), **TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,kernel,per_call", [(True, "lstm_recurrence", 12),
+                                                  ("bi_grid", "bilstm_grid_fwd", 6)])
+def test_exported_predictor_launches_the_kernels(tmp_path, mode, kernel, per_call):
+    import numpy as np
+
+    from ecog2txt_tpu_torch.serve import (
+        OnlinePredictor,
+        export_predictor,
+        load_exported_predictor,
+    )
+
+    _need_cuda()
+    wrapper = getattr(lstm_kernels, kernel)
+    config = _serving_config(use_pallas_lstm=mode)
+    live = OnlinePredictor(_params(config), config, _TARGETS, max_samples=1248, device="cuda")
+    loaded = load_exported_predictor(export_predictor(live, str(tmp_path / "artifact")))
+    assert loaded.meta["platforms"] == ["cuda"]
+    for x in (_raw(1248, seed=2), _raw(900, seed=3, rows=3)):
+        before = wrapper.launches
+        got = loaded(x)
+        assert wrapper.launches == before + per_call
+        np.testing.assert_array_equal(got["tokens"], live(x)["tokens"])

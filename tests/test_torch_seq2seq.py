@@ -217,7 +217,7 @@ def test_unported_paths_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ts.Seq2SeqConfig(vocab_size=20, encoder_type="conformer",
                          conformer=ts.ConformerConfig(moe_experts=4))
-    # the CTC aux head (models/ctc.py) is not ported yet
+    # the CTC aux head (models/ctc.py) is ported: the loss runs
     _, tcfg = _configs("plain")
     tcfg = dataclasses.replace(tcfg, aux_heads=(ts.AuxHead("ph", "CTC", 4),))
     tp = ts.init_seq2seq(tcfg, torch.Generator().manual_seed(0), "cpu")
@@ -227,8 +227,9 @@ def test_unported_paths_name_the_roadmap():
         "decoder_targets": torch.ones((B, 2), dtype=torch.int32),
         "decoder_lengths": torch.full((B,), 2, dtype=torch.int32),
         "subject_idx": 0, "ph": torch.zeros((B, 3), dtype=torch.int32),
+        "ph_lengths": torch.full((B,), 2, dtype=torch.int32),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.seq2seq_loss(tp, tcfg, batch, train=False)
+    loss, metrics = ts.seq2seq_loss(tp, tcfg, batch, train=False)
+    assert torch.isfinite(loss) and torch.isfinite(metrics["loss_ph"])
     with pytest.raises(TypeError):
         ts.Seq2SeqConfig(vocab_size=20, compute_dtype=jnp.float32)

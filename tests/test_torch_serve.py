@@ -124,6 +124,7 @@ def test_entry_points_raise_without_a_gpu(setup, tmp_path):
         pytest.skip("a CUDA device is present")
     _, tree = setup
     cfg = ts.Seq2SeqConfig(**KW)
+    conformer = ts.Seq2SeqConfig(**{**KW, "encoder_type": "conformer"})
     params = convert.params_from_numpy(tree, device="cpu")
     path = convert.save_checkpoint(str(tmp_path / "c.pt"), params)
     calls = [
@@ -132,6 +133,8 @@ def test_entry_points_raise_without_a_gpu(setup, tmp_path):
         lambda: tserve.OnlinePredictor(params, cfg, TARGETS),
         lambda: tserve.OnlinePredictor.from_checkpoint(path, cfg, TARGETS),
         lambda: convert.load_checkpoint(path),
+        lambda: tserve.StreamingConformerSession(params, conformer, TARGETS),
+        lambda: tserve.StreamingSessionPool(params, conformer, TARGETS),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -153,7 +156,8 @@ def test_port_imports_with_jax_blocked():
         "    importlib.import_module(name)\n"
         "need = {'train', 'pipeline', 'records', 'datagen', 'subjects', "
         "'demo', 'config', 'assess', 'tokenizers', 'geometry', 'audio', "
-        "'serve', 'convert', 'ops.lstm_kernels', 'models.seq2seq'}\n"
+        "'serve', 'convert', 'ops.lstm_kernels', 'models.seq2seq', 'models.ctc', "
+        "'models.beam', 'models.conformer'}\n"
         "assert need <= {n.split('.', 1)[1] for n in names}, names\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
