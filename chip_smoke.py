@@ -140,8 +140,38 @@ LayerNorm swapped back to the plain math, in turns with K5.
    12 K1f or 6 K4f a call through the program, tokens equal to the live
    predictor's;
 
-15. the ``kernels`` JSON line (all ten kernels, with the launches of
-   phases 10-14 beside the earlier ones), the card's name and power limit,
+15. MoE serving (a main path): the headline conformer with an 8-expert
+   top-2 mixture-of-experts second FFN (no-drop), bf16, B=1 and B=256 x
+   1248 samples through ``OnlinePredictor`` under 'fused' (4 K3f an
+   encode) and 'flash' (4 K2f), K5f on every other LayerNorm (the MoE
+   FFN's too); the router aux loss of the B=256 encode finite and
+   positive; in f32 both impls' tokens equal the plain path's;
+16. MoE training (a main path): the JAX package's MoE cell (capacity
+   1.25, dispatch groups of 512 steps, B=16 x T'=2048), bf16, dropout on,
+   'flash', a few segment-runner steps (4 K2f + 4 K2b-dq + 4 K2b-dkv + 20
+   K5f + 20 K5b a step), the loss finite and falling, ``moe_aux`` > 0; step
+   time, encoder tokens/s and a profile by kernel category;
+17. int8 serving (a main path): the int8 GEMM (``torch._int_mm``, padded
+   to its shapes) against a float64 product on the card, exactly, at the
+   conformer's shapes (K=100, 16 rows or fewer); a B=256 encode of
+   ``quantize_conformer_params`` within JAX's bounds of the float encode
+   (cosine > 0.999, max abs err < 5 % of the max); ``quantize='int8'``
+   sessions of phase 11's model under 'flash' and 'fused' (both run K2f:
+   K3f reads the float ``wqkv``), per-chunk latency; in f32 the session's
+   and the pool's endpoints equal the offline decode with the same
+   quantized weights;
+18. featurization (a main path): ``extract_high_gamma`` on the JAX
+   package's featurization cell (10 s, 469 channels, 3.2 kHz → 200 Hz,
+   float and int16) on the card against the same chain on the CPU (f32),
+   and its realtime factor;
+19. the raw-voltage session (a main path): ``RawVoltageSession`` over phase
+   11's model, f32, 'flash', synthetic int16 raw voltage at 3.2 kHz in
+   ragged 50-200 ms packets with calibration statistics: ``decode()``
+   twice mid-stream equal, the endpoint equal to the offline decode of the
+   calibrated offline features; per-push and ``partial()`` medians;
+
+20. the ``kernels`` JSON line (all ten kernels, with the launches of
+   phases 10-19 beside the earlier ones), the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is
@@ -167,6 +197,14 @@ from ecog2txt_tpu_torch import text_dir
 from ecog2txt_tpu_torch.convert import tree_leaves, tree_map
 from ecog2txt_tpu_torch.datagen import word_to_phonemes
 from ecog2txt_tpu_torch.demo import make_demo_experiment
+from ecog2txt_tpu_torch.features import (
+    HighGammaConfig,
+    _next_fast_len,
+    calibrate_high_gamma,
+    extract_high_gamma,
+    extract_high_gamma_np,
+    synthesize_raw_from_envelope,
+)
 from ecog2txt_tpu_torch.models.beam import beam_decode
 from ecog2txt_tpu_torch.models.ctc import (
     LexiconTrie,
@@ -191,8 +229,10 @@ from ecog2txt_tpu_torch.models.conformer import (
 from ecog2txt_tpu_torch.models import conformer as conformer_module
 from ecog2txt_tpu_torch.ops import _build, attention_kernels, layernorm_kernels, lstm_kernels
 from ecog2txt_tpu_torch.ops.lstm import init_lstm_params
+from ecog2txt_tpu_torch.quantize import _column_major, int8_mm, quantize_conformer_params
 from ecog2txt_tpu_torch.serve import (
     OnlinePredictor,
+    RawVoltageSession,
     StreamingConformerSession,
     StreamingSession,
     StreamingSessionPool,
@@ -1465,14 +1505,15 @@ def profile_call(name: str, fn, need=("K1f",)) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _random_corpus(config: Seq2SeqConfig) -> dict:
-    """A device-resident corpus of N_TRIALS random trials (seed 0) in the
-    trainer's layout: one subject axis, ECoG in bf16, ragged lengths,
-    EOS-terminated pad-padded decoder targets, frame-aligned aux labels."""
+def _random_corpus(config: Seq2SeqConfig, n_trials: int = N_TRIALS, t_raw: int = T_RAW) -> dict:
+    """A device-resident corpus of ``n_trials`` random trials of up to
+    ``t_raw`` samples (seed 0) in the trainer's layout: one subject axis,
+    ECoG in bf16, ragged lengths, EOS-terminated pad-padded decoder
+    targets, frame-aligned aux labels."""
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
-    shape = (1, N_TRIALS)
-    enc = torch.randn(shape + (T_RAW, config.in_channels), generator=g, device=dev)
+    shape = (1, n_trials)
+    enc = torch.randn(shape + (t_raw, config.in_channels), generator=g, device=dev)
     L = config.max_dec_len
     dec_len = torch.randint(4, L + 1, shape, generator=g, device=dev, dtype=torch.int32)
     dec = torch.randint(3, config.vocab_size, shape + (L,), generator=g, device=dev,
@@ -1482,11 +1523,11 @@ def _random_corpus(config: Seq2SeqConfig) -> dict:
     dec = torch.where(pos >= dec_len[..., None], config.pad_id, dec)
     return {
         "encoder_inputs": enc.to(torch.bfloat16),
-        "encoder_lengths": torch.randint(T_RAW // 2, T_RAW + 1, shape, generator=g,
+        "encoder_lengths": torch.randint(t_raw // 2, t_raw + 1, shape, generator=g,
                                          device=dev, dtype=torch.int32),
         "decoder_targets": dec,
         "decoder_lengths": dec_len,
-        "encoder_1_targets": torch.randint(0, 45, shape + (T_RAW,), generator=g,
+        "encoder_1_targets": torch.randint(0, 45, shape + (t_raw,), generator=g,
                                            device=dev, dtype=torch.int32),
     }
 
@@ -3118,6 +3159,367 @@ def export_phase() -> dict:
         results[str(mode)] = {"counts": counts, "export_s": export_s}
     return results
 
+# --------------------------------------------------------------------------
+# 15-19. the MoE conformer, int8 serving, featurization and the raw-voltage
+# session: main paths
+# --------------------------------------------------------------------------
+
+MOE = dict(moe_experts=8, moe_topk=2)
+# the JAX package's MoE training cell (bench.py:303-320): capacity 1.25,
+# dispatch groups of 512 steps, B=16 x T'=2048 (24576 raw samples)
+MOE_TRAIN = dict(moe_capacity_factor=1.25, moe_group_size=512)
+MOE_B, MOE_T = 16, 2048
+MOE_TRIALS = 24
+# the JAX package's featurization cell (bench.py:382-400): 10 s, 469
+# channels, 3.2 kHz raw → 200 Hz
+HG_RAW_RATE, HG_SECONDS = 3200.0, 10.0
+
+
+def moe_config(dtype=torch.bfloat16, impl: str = "flash", **moe) -> Seq2SeqConfig:
+    """The conformer serving model with an 8-expert top-2 MoE second FFN."""
+    base = conformer_config(dtype, impl)
+    return dataclasses.replace(base, conformer=dataclasses.replace(
+        base.conformer, **MOE, **moe))
+
+
+def moe_serving_phase() -> dict:
+    """The headline conformer with ``moe_experts=8, moe_topk=2`` (no-drop),
+    bf16: B=1 and B=256 x 1248 requests through ``OnlinePredictor`` under
+    'fused' (K3f) and 'flash' (K2f), K5f on every other LayerNorm (the MoE
+    FFN's included); the router aux loss of the B=256 encode finite; in f32
+    both impls' tokens equal the plain (banded) path's."""
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    params = init_seq2seq(moe_config(), torch.Generator().manual_seed(0), device="cuda")
+    rng = np.random.default_rng(10)
+    single = rng.standard_normal((T_RAW, 469), dtype=np.float32)
+    batch = rng.standard_normal((256, T_RAW, 469), dtype=np.float32)
+    results = {}
+    for impl, kernel in (("fused", "K3f"), ("flash", "K2f")):
+        predictor = OnlinePredictor(params, moe_config(impl=impl), TARGETS, max_samples=T_RAW,
+                                    device="cuda")
+        predictor(single)  # warm-up
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        latencies = []
+        for _ in range(3):
+            out, dt = _timed(lambda: predictor(single))
+            latencies.append(dt)
+        b256, batch_s = _timed(lambda: predictor(batch))
+        counts = read_counts()
+        bodies = read_bodies()
+        # --------------------------------------------------------------
+        encodes = 4 * ENCODES_PER_CALL
+        check_counts(f"MoE serving ({impl})", counts,
+                     {kernel: encodes * nb, "K5f": encodes * nb * LN_PER_BLOCK[impl]})
+        check_bodies(f"MoE serving ({impl}, bf16)", bodies, kernel, "tensor_core", counts[kernel])
+        _check_response(out, 1, f"MoE {impl} single")
+        _check_response(b256, 256, f"MoE {impl} batch")
+        latency = float(np.median(latencies))
+        prof = profile_call(f"MoE serving ({impl}) B=256", lambda: predictor(batch),
+                            need=(kernel, "K5f"))
+        results[impl] = {"counts": counts, "latency_s": latency, "batch_s": batch_s,
+                         "profile_b256": prof}
+        print(f"MoE serving ({impl}, bf16, E=8 top-2 no-drop): 4 predictor calls, "
+              f"{counts[kernel]} {kernel} + {counts['K5f']} K5f launches, 0 of every other "
+              f"kernel; B=1 {T_RAW} samples median {1e3 * latency:.2f} ms; B=256 "
+              f"{1e3 * batch_s:.2f} ms = {256 / batch_s:.2f} sentences/s  [{gpu_line()}]")
+    x, lengths = _cuda_batch(batch)
+    with torch.inference_mode():
+        *_, aux = encode(params, moe_config(), x, lengths, 0, return_aux=True)
+    check(bool(torch.isfinite(aux)) and float(aux) > 0, f"MoE serving: moe_aux {float(aux)}")
+    # f32: both kernel paths' tokens equal the plain path's
+    plain = OnlinePredictor(params, moe_config(torch.float32, "banded"), TARGETS,
+                            max_samples=T_RAW, device="cuda")
+    want = [plain(x)["tokens"] for x in (single, batch[:8])]
+    for impl in ("fused", "flash"):
+        f32 = OnlinePredictor(params, moe_config(torch.float32, impl), TARGETS,
+                              max_samples=T_RAW, device="cuda")
+        for w, x in zip(want, (single, batch[:8])):
+            check(np.array_equal(f32(x)["tokens"], w),
+                  f"MoE f32 tokens ({impl}) != the plain path's")
+    print(f"MoE serving f32: fused and flash tokens == the plain path's (B=1 and B=8); "
+          f"moe_aux of the B=256 encode {float(aux):.6f}")
+    results["moe_aux"] = float(aux)
+    return results
+
+
+def moe_training_phase() -> dict:
+    """The JAX package's MoE cell through the segment runner: capacity
+    1.25, groups of 512 steps, B=16 x T'=2048 (full-length trials), bf16,
+    dropout on, 'flash': TRAIN_STEPS steps, each 4 K2f + 4 K2b-dq + 4
+    K2b-dkv + 20 K5f + 20 K5b; the loss finite and falling, ``moe_aux`` > 0;
+    step time and tokens/s."""
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    config = moe_config(**MOE_TRAIN)
+    t_raw = MOE_T * config.decimation_factor
+    p = init_seq2seq(config, torch.Generator().manual_seed(0), device="cuda")
+    data = _random_corpus(config, MOE_TRIALS, t_raw)
+    data["encoder_lengths"].fill_(t_raw)
+    state = TrainState(p, tree_map(lambda t: t.detach().clone(), p), make_optimizer(p, 1e-3), 0)
+    runner = make_segment_runner(config, PENALTIES, 0.99)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    subject = np.zeros((1,), np.int32)
+
+    def step() -> tuple:
+        nonlocal state
+        idx = rng.permutation(MOE_TRIALS)[:MOE_B][None]
+        state, metrics = runner(state, data, subject, idx, gen, 0)
+        return float(metrics["loss_total"]), float(metrics["moe_aux"])
+
+    losses = [step()]
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t0)
+    counts = read_counts()
+    bodies = read_bodies()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # ------------------------------------------------------------------
+    want = TRAIN_STEPS * nb
+    ln = want * LN_PER_BLOCK["flash"]
+    check_counts("MoE training (flash)", counts,
+                 {"K2f": want, "K2b-dq": want, "K2b-dkv": want, "K5f": ln, "K5b": ln})
+    for k in ("K2f", "K2b-dq", "K2b-dkv"):
+        check_bodies("MoE training (bf16)", bodies, k, "tensor_core", counts[k])
+    total = [t for t, _ in losses]
+    check(all(np.isfinite(total)), f"MoE training: non-finite loss {losses}")
+    check(total[-1] < total[0], f"MoE training: loss did not fall: {losses}")
+    check(all(a > 0 and np.isfinite(a) for _, a in losses), f"MoE training: moe_aux {losses}")
+    ms = 1e3 * float(np.mean(step_s))
+    tokens_per_s = MOE_B * MOE_T / (ms / 1e3)
+    print(f"MoE training (E=8 top-2, capacity 1.25, groups of 512, 'flash', B={MOE_B} x "
+          f"T'={MOE_T}, bf16, dropout on): (total, moe_aux) "
+          + ", ".join(f"({t:.4f}, {a:.5f})" for t, a in losses)
+          + f"; per step {nb} K2f + {nb} K2b-dq + {nb} K2b-dkv + {nb * 5} K5f + {nb * 5} K5b; "
+          f"steps " + ", ".join(f"{1e3 * x:.2f}" for x in step_s)
+          + f" ms, mean {ms:.2f} ms = {tokens_per_s:.0f} encoder tokens/s; peak device memory "
+          f"{peak_gib:.2f} GiB (corpus of {MOE_TRIALS} trials included)  [{gpu_line()}]")
+    prof = profile_call(f"MoE training step B={MOE_B} T'={MOE_T}", step,
+                        need=("K2f", "K2b-dq", "K2b-dkv", "K5f", "K5b"))
+    return {"counts": counts, "bodies": bodies, "ms": ms, "tokens_per_s": tokens_per_s,
+            "losses": losses, "peak_gib": peak_gib, "profile": prof}
+
+
+def int8_serving_phase(params) -> dict:
+    """``quantize='int8'`` over the session phase's model: the int8 GEMM's
+    int32 sums against a float64 product on the card (the conformer's
+    shapes, K=100 and 16 rows or fewer included); a B=256 encode of
+    ``quantize_conformer_params`` against the float encode (JAX's bounds:
+    cosine > 0.999, max abs err < 5 % of the max); bf16 sessions under
+    'flash' and 'fused' (both run K2f: K3f reads the float wqkv), per-chunk
+    latency; in f32 the session's and the pool's endpoints equal the
+    offline decode with the same quantized weights."""
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    g = torch.Generator().manual_seed(11)
+    gemm = []
+    for M, K, N in ((1, 100, 384), (16, 100, 384), (17, 384, 1152), (256 * T_STEPS, 100, 384),
+                    (256 * T_STEPS, 384, 1152), (256 * T_STEPS, 1536, 384)):
+        a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+        a[0], b[:, 0] = 127, -127
+        got = int8_mm(a.cuda(), b.cuda())
+        want = (a.cuda().double() @ b.cuda().double()).to(torch.int32)
+        check(torch.equal(got, want), f"int8 GEMM ({M}x{K}x{N}): int32 sums != float64 product")
+        gemm.append((M, K, N))
+    M, K, N = 256 * T_STEPS, 384, 1152
+    a = torch.randint(-127, 128, (M, K), device="cuda", dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), device="cuda", dtype=torch.int8)
+    bq = _column_major(b)
+    abf, bbf = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    # in turns; the weight as stored (column-major) and row-major
+    fns = {"int8": lambda: torch._int_mm(a, bq), "int8_row_major": lambda: torch._int_mm(a, b),
+           "bf16": lambda: abf @ bbf}
+    gemm_ms = _in_turns(fns, 20, ["int8", "int8_row_major", "bf16", "bf16", "int8_row_major",
+                                  "int8"])
+    print(f"int8 GEMM on the card: int32 sums == float64 product at (M, K, N) {gemm}; at "
+          f"{M}x{K}x{N}, in turns: int8 {gemm_ms['int8']:.4f} ms (weight column-major), "
+          f"{gemm_ms['int8_row_major']:.4f} ms (row-major), bf16 {gemm_ms['bf16']:.4f} ms  "
+          f"[{gpu_line()}]")
+    # the B=256 encode of the quantized encoder against the float one
+    enc = params["encoder"]["conformer"]
+    qenc = quantize_conformer_params(enc)
+    ccfg = ctc_config().conformer
+    x = torch.randn((256, T_STEPS, 100), generator=torch.Generator(device="cuda").manual_seed(12),
+                    device="cuda").to(torch.bfloat16)
+    reset_counts()
+    launches = int8_mm.launches
+    with torch.inference_mode():
+        qout, _ = conformer_encode(qenc, ccfg, x, compute_dtype=torch.bfloat16)
+        counts = read_counts()
+        launches = int8_mm.launches - launches
+        ref, _ = conformer_encode(enc, ccfg, x, compute_dtype=torch.bfloat16)
+    check_counts("int8 encode (flash)", counts, {"K2f": nb, "K5f": nb * LN_PER_BLOCK["flash"]})
+    # in_proj, then per block ffn1 (2), wqkv, wo, pw1, pw2, ffn2 (2)
+    check(launches == 1 + 8 * nb, f"int8 encode: {launches} int8 GEMMs, expected {1 + 8 * nb}")
+    r, o = ref.float(), qout.float()
+    cos = float((r * o).sum() / (r.norm() * o.norm()))
+    rel_max = float((o - r).abs().max() / r.abs().max())
+    check(cos > 0.999 and rel_max < 0.05,
+          f"int8 encode vs float: cosine {cos:.6f}, max abs err / max {rel_max:.4f}")
+    enc_ms = {"int8": cuda_ms(lambda: conformer_encode(qenc, ccfg, x, compute_dtype=torch.bfloat16), 5),
+              "bf16": cuda_ms(lambda: conformer_encode(enc, ccfg, x, compute_dtype=torch.bfloat16), 5)}
+    print(f"int8 encode B=256 T'={T_STEPS} bf16 'flash': {launches} int8 GEMMs, {counts['K2f']} K2f "
+          f"+ {counts['K5f']} K5f; vs the float encode cosine {cos:.6f}, max abs err {rel_max:.4f} "
+          f"of the max; {enc_ms['int8']:.3f} ms vs {enc_ms['bf16']:.3f} ms float  [{gpu_line()}]")
+    # bf16 sessions: 'fused' gives way to 'flash' under int8
+    rng = np.random.default_rng(13)
+    rec = rng.standard_normal((4 * T_RAW, 469), dtype=np.float32)
+    results = {"gemm_ms": gemm_ms, "encode_ms": enc_ms, "cos": cos, "rel_max": rel_max}
+    for impl in ("flash", "fused"):
+        session = StreamingConformerSession(params, ctc_config(impl=impl), TARGETS,
+                                            quantize="int8", device="cuda")
+        session.push(rec[:SPC])  # warm-up
+        session.reset()
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        chunk_s = []
+        for lo in range(0, len(rec), SPC):
+            _, dt = _timed(lambda: session.push(rec[lo: lo + SPC]))
+            chunk_s.append(dt)
+        out = session.endpoint()
+        counts = read_counts()
+        bodies = read_bodies()
+        # --------------------------------------------------------------
+        encodes = len(chunk_s)
+        check_counts(f"int8 session ({impl})", counts,
+                     {"K2f": encodes * nb, "K5f": encodes * nb * LN_PER_BLOCK["flash"]})
+        check_bodies(f"int8 session ({impl}, bf16)", bodies, "K2f", "tensor_core", counts["K2f"])
+        check(out["tokens"].shape == (1, 20) and np.isfinite(out["encoder_outputs"]).all(),
+              f"int8 session ({impl}): endpoint")
+        med = 1e3 * float(np.median(chunk_s))
+        results[impl] = {"counts": counts, "chunk_ms": med, "encodes": encodes}
+        print(f"int8 session ({impl} → flash, bf16, B=1): {encodes} window encodes, "
+              f"{counts['K2f']} K2f + {counts['K5f']} K5f, 0 K3f; per chunk of {SPC} samples "
+              f"median {med:.3f} ms  [{gpu_line()}]")
+    # f32: the session's and the pool's endpoints against the offline decode
+    # with the same quantized weights (the contract of tests/test_quantize.py)
+    f32 = ctc_config(torch.float32)
+    qparams = quantize_conformer_params(params)
+    utt = rng.standard_normal((1000, 469), dtype=np.float32)
+    session = StreamingConformerSession(params, f32, TARGETS, quantize="int8", device="cuda")
+    pool = StreamingSessionPool(params, f32, TARGETS, capacity=2, quantize="int8", device="cuda")
+    slot = pool.add()
+    for pkt in _ragged(utt, rng):
+        session.push(pkt)
+        pool.push(slot, pkt)
+    offline = _stream_offline(qparams, f32, utt)
+    check(np.array_equal(session.endpoint()["tokens"], offline),
+          "int8 session f32: endpoint != the quantized offline decode")
+    dense = _stream_offline(qparams, ctc_config(torch.float32, "dense"), utt)
+    check(np.array_equal(pool.endpoint(slot)["tokens"], dense),
+          "int8 pool f32: endpoint != the quantized offline decode")
+    print("int8 f32: session and pool endpoints == the offline greedy_decode with the same "
+          "quantized weights")
+    return results
+
+
+def featurization_phase() -> dict:
+    """``extract_high_gamma`` on the JAX package's featurization cell (10 s,
+    469 channels, 3.2 kHz → 200 Hz, zscore='none') on the card against the
+    same chain on the CPU (f32), and its realtime factor (seconds of signal
+    per second); int16 input too."""
+    cfg = HighGammaConfig(raw_rate=HG_RAW_RATE, out_rate=200.0, zscore="none", input_scale=1e-3)
+    raw = np.random.default_rng(14).standard_normal(
+        (int(HG_SECONDS * HG_RAW_RATE), 469), dtype=np.float32)
+    ints = np.clip(raw * 1e3, -32768, 32767).astype(np.int16)
+    x = torch.from_numpy(raw).cuda()
+    xi = torch.from_numpy(ints).cuda()
+    with torch.inference_mode():
+        got = extract_high_gamma(x, cfg)
+        got_i = extract_high_gamma(xi, cfg)
+        times = [_timed(lambda: extract_high_gamma(x, cfg))[1] for _ in range(6)][1:]
+        ms_dev = cuda_ms(lambda: extract_high_gamma(x, cfg), 5)
+    err, _ = compare("featurization card vs CPU", got.cpu(),
+                     torch.from_numpy(extract_high_gamma_np(raw, cfg, device="cpu")),
+                     TOL[torch.float32])
+    err_i, _ = compare("featurization int16 card vs CPU", got_i.cpu(),
+                       torch.from_numpy(extract_high_gamma_np(ints, cfg, device="cpu")),
+                       TOL[torch.float32])
+    check(tuple(got.shape) == (int(HG_SECONDS * 200), 469), f"featurization: {tuple(got.shape)}")
+    s = float(np.median(times))
+    n_fft = _next_fast_len(len(raw) + 2 * cfg.pad_samples)
+    print(f"featurization (10 s x 469 channels at 3.2 kHz → 200 Hz, {cfg.num_bands} bands, "
+          f"n_fft {n_fft}): card vs CPU max abs err {err:.3e} (int16 {err_i:.3e}); median wall "
+          f"{1e3 * s:.3f} ms, device {ms_dev:.3f} ms (CUDA events) = realtime x "
+          f"{HG_SECONDS / s:.1f}  [{gpu_line()}]")
+    return {"ms": 1e3 * s, "device_ms": ms_dev, "realtime_x": HG_SECONDS / s, "err": err,
+            "err_int16": err_i}
+
+
+def raw_session_phase(params) -> dict:
+    """``RawVoltageSession`` over the session phase's CTC-headed conformer,
+    f32, 'flash': synthetic int16 raw voltage at 3.2 kHz (an envelope at
+    200 Hz through ``synthesize_raw_from_envelope``), calibration statistics
+    from ``calibrate_high_gamma``, ragged packets of 50-200 ms; ``decode()``
+    twice mid-stream (equal, the stream intact); ``endpoint()`` tokens equal
+    the offline decode of ``(extract_high_gamma_np(raw) - mean) / std``;
+    per-push and ``partial()`` medians."""
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    cfg = HighGammaConfig(raw_rate=HG_RAW_RATE, out_rate=200.0, zscore="none", input_scale=1e-3)
+    rng = np.random.default_rng(15)
+    t = np.arange(T_RAW)[:, None] / 200.0
+    envelope = (0.6 + 0.4 * np.sin(2 * np.pi * 0.7 * t + np.arange(469)[None] / 7.0)).astype(
+        np.float32)
+    volts = synthesize_raw_from_envelope(envelope, cfg, rng)
+    raw = np.clip(volts / cfg.input_scale, -32768, 32767).astype(np.int16)
+    calib = np.clip(synthesize_raw_from_envelope(envelope[:400], cfg, rng) / cfg.input_scale,
+                    -32768, 32767).astype(np.int16)
+    stats = calibrate_high_gamma([calib], cfg, device="cuda")
+    feats = (extract_high_gamma_np(raw, cfg, device="cuda") - stats[0]) / np.maximum(stats[1], 1e-6)
+    config = ctc_config(torch.float32)
+    offline = _stream_offline(params, config, feats)
+    session = RawVoltageSession(
+        StreamingConformerSession(params, config, TARGETS, phoneme_list=_demo_phonemes(),
+                                  device="cuda"), cfg, stats=stats)
+    stream = session.session.stream
+    pushes = 0
+    stream_push = stream.push
+
+    def counted_push(*args, **kwargs):
+        nonlocal pushes
+        pushes += 1
+        return stream_push(*args, **kwargs)
+
+    stream.push = counted_push
+    cuts = np.cumsum(rng.integers(int(0.05 * HG_RAW_RATE), int(0.2 * HG_RAW_RATE) + 1,
+                                  size=len(raw) // 160))
+    packets = np.split(raw, cuts[cuts < len(raw)])
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    push_s, partial_s, mids = [], [], []
+    for i, pkt in enumerate(packets):
+        _, dt = _timed(lambda: session.push(pkt))
+        push_s.append(dt)
+        if session.session._enc_outs:
+            _, dt = _timed(session.partial)
+            partial_s.append(dt)
+        if i in (len(packets) // 3, len(packets) // 2):
+            a, b = session.decode(), session.decode()
+            check(np.array_equal(a["tokens"], b["tokens"]), "raw session: decode() repeats")
+            mids.append(a["tokens"])
+    out = session.endpoint()
+    counts = read_counts()
+    bodies = read_bodies()
+    # ------------------------------------------------------------------
+    check_counts("raw session (flash)", counts,
+                 {"K2f": pushes * nb, "K5f": pushes * nb * LN_PER_BLOCK["flash"]})
+    check_bodies("raw session (f32)", bodies, "K2f", "cuda_core", counts["K2f"])
+    check(np.array_equal(out["tokens"], offline),
+          "raw session: endpoint != offline decode of the calibrated offline features")
+    med = {k: 1e3 * float(np.median(v)) for k, v in (("push", push_s), ("partial", partial_s))}
+    print(f"raw-voltage session (int16 at 3.2 kHz → {T_RAW} frames at 200 Hz, f32, 'flash', "
+          f"{len(packets)} packets of 50-200 ms): {pushes} window encodes, {counts['K2f']} K2f + "
+          f"{counts['K5f']} K5f; decode() mid-stream repeats; endpoint tokens == the offline "
+          f"decode of the calibrated offline features; per push median {med['push']:.3f} ms, "
+          f"partial() median {med['partial']:.3f} ms  [{gpu_line()}]")
+    return {"counts": counts, "bodies": bodies, "encodes": pushes, "push_ms": med["push"],
+            "partial_ms": med["partial"], "packets": len(packets)}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3161,6 +3563,11 @@ def main() -> int:
         pool = pool_phase(ctc_params)
         ctc_train = ctc_training_phase(ctc_params)
         exported = export_phase()
+        moe_serve = moe_serving_phase()
+        moe_train = moe_training_phase()
+        int8 = int8_serving_phase(ctc_params)
+        feat = featurization_phase()
+        raw_session = raw_session_phase(ctc_params)
     t256, t1 = kern["timings"][256], kern["timings"][1]
     b256 = kern_b["timings"][256]
     nb = HEADLINE_CONFORMER["num_blocks"]
@@ -3415,7 +3822,18 @@ def main() -> int:
         "ctc_training": {"step_ms": ctc_train["ms"],
                          "sentences_per_s": B_TRAIN / (ctc_train["ms"] / 1e3),
                          "ctc_loss_fwd_ms": ctc_train["ctc_loss_fwd_ms"]},
-        "export_s": {mode: r["export_s"] for mode, r in exported.items()}}
+        "export_s": {mode: r["export_s"] for mode, r in exported.items()},
+        "moe": {"serving": {impl: {"request_ms_b1": 1e3 * moe_serve[impl]["latency_s"],
+                                   "sentences_per_s_b256": 256 / moe_serve[impl]["batch_s"]}
+                            for impl in ("flash", "fused")},
+                "moe_aux_b256": moe_serve["moe_aux"],
+                "training": {k: moe_train[k] for k in ("ms", "tokens_per_s", "peak_gib")}},
+        "int8": {"gemm_ms": int8["gemm_ms"], "encode_b256_ms": int8["encode_ms"],
+                 "cosine_vs_float": int8["cos"], "max_abs_err_over_max": int8["rel_max"],
+                 "session_chunk_ms": {i: int8[i]["chunk_ms"] for i in ("flash", "fused")}},
+        "featurization": feat,
+        "raw_session": {k: raw_session[k] for k in ("push_ms", "partial_ms", "encodes",
+                                                    "packets")}}
     # the launches of this slice's main paths, beside each kernel's earlier ones
     slice_paths = {
         "K1f": {"launches_beam": beam["True"]["counts"]["K1f"],
@@ -3438,8 +3856,26 @@ def main() -> int:
            "banded_attention_dkv": "K2b-dkv", "fused_attention_fwd": "K3f",
            "bilstm_grid_fwd": "K4f", "bilstm_grid_bwd": "K4b", "layer_norm_fwd": "K5f",
            "layer_norm_bwd": "K5b"}
+    # the launches of the MoE, int8 and raw-voltage paths (phases 15-19)
+    int8_k = lambda k: {i: int8[i]["counts"][k] for i in ("flash", "fused")}  # noqa: E731
+    moe_paths = {
+        "K2f": {"launches_moe_serving": moe_serve["flash"]["counts"]["K2f"],
+                "launches_moe_training": moe_train["counts"]["K2f"],
+                "launches_int8_session": int8_k("K2f"),
+                "launches_raw_session": raw_session["counts"]["K2f"]},
+        "K3f": {"launches_moe_serving": moe_serve["fused"]["counts"]["K3f"],
+                "launches_int8_session": int8_k("K3f")},
+        "K5f": {"launches_moe_serving": {i: moe_serve[i]["counts"]["K5f"]
+                                         for i in ("flash", "fused")},
+                "launches_moe_training": moe_train["counts"]["K5f"],
+                "launches_int8_session": int8_k("K5f"),
+                "launches_raw_session": raw_session["counts"]["K5f"]},
+        **{k: {"launches_moe_training": moe_train["counts"][k]}
+           for k in ("K2b-dq", "K2b-dkv", "K5b")},
+    }
     for entry in line["kernels"]:
         entry.update(slice_paths.get(ids[entry["name"]], {}))
+        entry.update(moe_paths.get(ids[entry["name"]], {}))
     print(json.dumps(line))
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

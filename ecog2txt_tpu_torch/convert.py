@@ -16,13 +16,17 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .quantize import QuantizedWeight, _column_major
 
 
 def tree_map(fn: Callable, tree):
     """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples
-    (tuples come back as lists, as in the parameter trees)."""
+    (tuples come back as lists, as in the parameter trees; a NamedTuple
+    such as ``quantize.QuantizedWeight`` keeps its type)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
@@ -39,9 +43,18 @@ def tree_leaves(tree) -> list:
 
 
 def params_from_numpy(tree, device="cuda"):
-    """Numpy-leaf parameter tree → torch tensors on ``device``."""
+    """Numpy-leaf parameter tree → torch tensors on ``device``.  A
+    NamedTuple leaf pair ``(q, scale)`` (the JAX package's int8
+    ``QuantizedWeight``) becomes the port's ``quantize.QuantizedWeight``."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == ("q", "scale"):
+        q, scale = (params_from_numpy(a, dev) for a in tree)
+        return QuantizedWeight(q=_column_major(q), scale=scale)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, dev) for v in tree]
+    return torch.from_numpy(np.array(tree)).to(dev)
 
 
 def params_to_numpy(tree):

@@ -22,9 +22,9 @@ each sentence deterministically drives per-word spatiotemporal ECoG
 patterns, making WER→0 learnable — the seam for end-to-end tests.
 
 The port's own copy of ``ecog2txt_tpu/datagen.py`` (plain Python and numpy,
-no JAX), with the same names and behaviour, up to the synthetic backend.
-The file-backed :class:`ArrayDataGenerator` (its raw-voltage branch needs
-``features``) is not ported yet: naming it raises ``NotImplementedError``.
+no JAX), with the same names and behaviour.  The file-backed
+:class:`ArrayDataGenerator` featurizes raw-voltage trials through the
+port's ``features`` chain on its ``device`` (CUDA unless told otherwise).
 """
 
 from __future__ import annotations
@@ -612,15 +612,360 @@ class SyntheticDataGenerator(ECoGDataGenerator):
 
 @register_data_generator("ArrayDataGenerator", "FileDataGenerator")
 class ArrayDataGenerator(ECoGDataGenerator):
-    """The file-backed generator (a directory of per-trial ``.npz`` /
-    ``.mat`` files) is not ported yet; naming it raises rather than
-    silently falling back to the synthetic backend."""
+    """File-backed generator: a directory of per-trial ``.npz``/``.mat``
+    files — the zero-subclassing on-ramp for real lab data (VERDICT r2
+    #8; the reference manifests name lab-PRIVATE generator classes,
+    mocha-1_word_sequence.yaml:2-4, so any outside user previously had
+    to implement the 3-method contract from scratch).
 
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "ArrayDataGenerator is not ported yet "
-            "(see ROADMAP.md, Queue 1, item 8)"
+    Manifest/kwarg key ``trial_dir`` points at the root.  Layout::
+
+        <trial_dir>/B<block>/<anything>.npz     (sorted within a block)
+        <trial_dir>/B<block>_<anything>.npz     (flat alternative)
+
+    Per-file keys (``.mat`` files use the same names):
+
+    * ``ecog`` (T, C) float — pre-featurized frames at the manifest's
+      ``sampling_rate``.  ``C`` may be the final per-channel feature
+      count, or the FULL electrode count (``prod(grid_size)``; doubled
+      for ``USE_FIELD_POTENTIALS``), in which case the grid's
+      referencing (bad-electrode exclusion, layout ordering, bipolar
+      differencing) is applied here.
+    * ``raw`` (T_raw, C) float or int — RAW VOLTAGES, the alternative
+      to ``ecog`` (exactly one of the two per file).  Featurized
+      through :func:`features.extract_high_gamma` (notch → high-gamma
+      band bank → Hilbert analytic amplitude → z-score → anti-aliased
+      decimation to ``sampling_rate``) — the front end the reference
+      delegates to lab-private generators (reference
+      data_generators.py:487-530).  The raw rate comes from a per-file
+      ``raw_rate`` scalar or the manifest/kwarg ``raw_sampling_rate``;
+      grid referencing applies to the raw columns BEFORE featurization
+      (referencing is linear, and bipolar differencing belongs at the
+      voltage stage).  ``hg_zscore`` picks 'trial' (default — each
+      trial z-scored over its own frames, the offline chain's native
+      mode) or 'block' (per-channel stats pooled over the block's
+      trials — the serving calibration seam,
+      :func:`features.calibrate_high_gamma`); other chain knobs ride a
+      ``high_gamma`` dict of :class:`features.HighGammaConfig` fields
+      (band, num_bands, notch_freqs, pad_seconds, input_scale, …).
+      The chain runs on ``device`` (kwarg or manifest key; CUDA by
+      default, which raises without a GPU; ``"cpu"`` on purpose).
+    * ``text`` — the sentence as a string (tokenized per the
+      experiment's ``token_type``) or an already-tokenized list.
+    * ``audio`` 1-D waveform + ``audio_rate`` scalar → featurized
+      through the MFCC chain; or precomputed frames under
+      ``audio_features`` (T, F).  Optional.
+    * ``phonemes`` (T,) per-sample string labels.  Optional.
+    """
+
+    def __init__(
+        self,
+        manifest: Manifest,
+        subject_id: int | str,
+        trial_dir: str | None = None,
+        device: str | None = None,
+        **kwargs: Any,
+    ):
+        super().__init__(manifest, subject_id, **kwargs)
+        self.trial_dir = manifest.resolve("trial_dir", trial_dir, None)
+        # where raw trials are featurized; resolved at the first raw trial,
+        # so a directory of featurized trials never needs a GPU
+        self.device = manifest.resolve("device", device, "cuda")
+        if not self.trial_dir:
+            raise ValueError(
+                "ArrayDataGenerator needs 'trial_dir' (manifest or kwarg)"
+            )
+        self.raw_sampling_rate = manifest.resolve(
+            "raw_sampling_rate", kwargs.get("raw_sampling_rate"), None
         )
+        self.hg_zscore = str(
+            manifest.resolve("hg_zscore", kwargs.get("hg_zscore"), "trial")
+        )
+        if self.hg_zscore not in ("trial", "block"):
+            raise ValueError(
+                f"hg_zscore must be 'trial' or 'block': {self.hg_zscore!r}"
+            )
+        self._hg_overrides = dict(
+            manifest.resolve("high_gamma", kwargs.get("high_gamma"), None)
+            or {}
+        )
+        # per-block featurized-raw cache: (block, [features | None])
+        self._hg_block_cache: tuple[int | None, list] = (None, [])
+
+    # -- file discovery -----------------------------------------------------
+
+    def _block_files(self, block: int) -> list[str]:
+        exts = (".npz", ".mat")
+        subdir = os.path.join(self.trial_dir, f"B{block}")
+        if os.path.isdir(subdir):
+            return sorted(
+                os.path.join(subdir, f)
+                for f in os.listdir(subdir)
+                if f.endswith(exts)
+            )
+        prefix = f"B{block}_"
+        if not os.path.isdir(self.trial_dir):
+            return []
+        return sorted(
+            os.path.join(self.trial_dir, f)
+            for f in os.listdir(self.trial_dir)
+            if f.startswith(prefix) and f.endswith(exts)
+        )
+
+    def _all_blocks(self) -> list[int]:
+        blocks: set[int] = set()
+        if not os.path.isdir(self.trial_dir):
+            return []
+        for name in os.listdir(self.trial_dir):
+            if name.startswith("B"):
+                stem = name[1:].split("_")[0].split(".")[0]
+                if stem.isdigit():
+                    blocks.add(int(stem))
+        return sorted(blocks)
+
+    @staticmethod
+    def _load_file(path: str) -> dict[str, Any]:
+        if path.endswith(".mat"):
+            from scipy.io import loadmat
+
+            mat = loadmat(path, squeeze_me=True)
+            return {
+                k: v for k, v in mat.items() if not k.startswith("__")
+            }
+        with np.load(path, allow_pickle=True) as z:
+            return {k: z[k] for k in z.files}
+
+    # -- channel referencing ------------------------------------------------
+
+    def _select_channels(self, ecog: np.ndarray) -> np.ndarray:
+        """Apply grid referencing when the file carries full-electrode
+        columns; pass through when it already matches the channel
+        count.  Pass-through wins if the two counts coincide (possible
+        in bipolar mode on square grids) — store pre-referenced data or
+        pick a grid where they differ to disambiguate."""
+        C = ecog.shape[1]
+        if C == self.num_ECoG_channels:
+            return ecog
+        grid = self.grid
+        m = grid.num_electrodes
+        if self.REFERENCE_BIPOLAR:
+            if C != m:
+                raise ValueError(
+                    f"{C} columns: bipolar referencing needs the full "
+                    f"{m} electrode columns (or {self.num_ECoG_channels} "
+                    "pre-referenced channels)"
+                )
+            pairs = grid.bipolar_to_elec_map
+            return np.stack(
+                [
+                    ecog[:, pairs[i][0]] - ecog[:, pairs[i][1]]
+                    for i in grid.good_channels
+                ],
+                axis=1,
+            )
+        expected = 2 * m if self.USE_FIELD_POTENTIALS else m
+        if C != expected:
+            raise ValueError(
+                f"ecog has {C} columns; expected "
+                f"{self.num_ECoG_channels} (per-channel) or {expected} "
+                "(full electrode grid)"
+            )
+        return ecog[:, grid.good_channels]
+
+    # -- raw-voltage featurization -------------------------------------------
+
+    def high_gamma_config(self, raw_rate: float):
+        """The trial-file featurization spec: manifest ``high_gamma``
+        overrides on top of :class:`features.HighGammaConfig` defaults,
+        output rate pinned to the manifest ``sampling_rate``."""
+        from .features import HighGammaConfig
+
+        kw = dict(self._hg_overrides)
+        kw.setdefault(
+            "zscore", "none" if self.hg_zscore == "block" else "trial"
+        )
+        return HighGammaConfig(
+            raw_rate=float(raw_rate), out_rate=self.sampling_rate, **kw
+        )
+
+    def _featurize_raw(self, path: str, data: dict[str, Any]) -> np.ndarray:
+        """One trial's ``raw`` columns → referenced, featurized frames
+        (block z-scoring, if configured, happens in the block pass)."""
+        from .features import extract_high_gamma_np
+
+        raw = np.asarray(data["raw"])
+        rate = data.get("raw_rate", self.raw_sampling_rate)
+        if rate is None:
+            raise ValueError(
+                f"{path}: raw trials need a per-file 'raw_rate' scalar or "
+                "the 'raw_sampling_rate' manifest/kwarg key"
+            )
+        cfg = self.high_gamma_config(float(np.asarray(rate)))
+        if np.issubdtype(raw.dtype, np.integer):
+            # scale BEFORE referencing: bipolar differences of int16
+            # columns would overflow the integer dtype
+            raw = raw.astype(np.float32) * cfg.input_scale
+        return extract_high_gamma_np(
+            self._select_channels(raw.astype(np.float32)), cfg, self.device
+        )
+
+    def _block_raw_features(self, block: int) -> list[np.ndarray | None]:
+        """Featurized raw trials for one block (None where the file
+        carries pre-featurized ``ecog``), with per-channel block stats
+        applied in ``hg_zscore='block'`` mode.  Cached for the block
+        being iterated — the block pass exists because block stats pool
+        over every raw trial in the block."""
+        if self._hg_block_cache[0] == block:
+            return self._hg_block_cache[1]
+        feats: list[np.ndarray | None] = []
+        for path in self._block_files(block):
+            data = self._load_file(path)
+            if "ecog" in data or "raw" not in data:
+                feats.append(None)
+            else:
+                feats.append(self._featurize_raw(path, data))
+        if self.hg_zscore == "block":
+            frames = [f for f in feats if f is not None and len(f)]
+            if frames:
+                stacked = np.concatenate(frames, axis=0)
+                mu = stacked.mean(axis=0, keepdims=True)
+                sd = np.maximum(stacked.std(axis=0, keepdims=True), 1e-6)
+                feats = [
+                    None if f is None else (f - mu) / sd for f in feats
+                ]
+        self._hg_block_cache = (block, feats)
+        return feats
+
+    # -- subclass contract --------------------------------------------------
+
+    def _query(self, block_set: Iterable[int]) -> int:
+        return sum(len(self._block_files(b)) for b in block_set)
+
+    def _get_wav_data(self, index: str) -> tuple[float, np.ndarray]:
+        """``index`` is a trial file path."""
+        data = self._load_file(index)
+        if "audio" in data:
+            rate = float(np.asarray(data.get("audio_rate", 16000)))
+            return rate, np.asarray(data["audio"], np.float32).ravel()
+        return self.sampling_rate, np.zeros(0, np.float32)
+
+    def _ecog_token_generator(self, block: int) -> Iterator[dict[str, Any]]:
+        for i, path in enumerate(self._block_files(block)):
+            data = self._load_file(path)
+            if "ecog" in data:
+                ecog = self._select_channels(
+                    np.asarray(data["ecog"], np.float32)
+                )
+            elif "raw" in data:
+                ecog = (
+                    self._block_raw_features(block)[i]
+                    if self.hg_zscore == "block"
+                    else self._featurize_raw(path, data)
+                )
+            else:
+                raise KeyError(
+                    f"{path}: needs an 'ecog' (featurized) or 'raw' "
+                    "(voltage) array"
+                )
+            text = data.get("text")
+            if text is None:
+                tokens: list[str] = []
+            elif isinstance(text, str) or (
+                isinstance(text, np.ndarray) and text.ndim == 0
+            ):
+                tokens = self._sentence_tokenize(str(text))
+            else:
+                tokens = [
+                    t.decode("utf-8") if isinstance(t, bytes) else str(t)
+                    for t in np.asarray(text).ravel()
+                ]
+            if "audio_features" in data:
+                audio = np.asarray(data["audio_features"], np.float32)
+            elif "audio" in data:
+                rate, signal = self._get_wav_data(path)
+                audio = self._get_MFCC_features(rate, signal)
+            else:
+                audio = np.zeros((0, self.num_MFCC_features), np.float32)
+            phonemes = None
+            if "phonemes" in data:
+                phonemes = [
+                    p.decode("utf-8") if isinstance(p, bytes) else str(p)
+                    for p in np.asarray(data["phonemes"]).ravel()
+                ]
+            yield {
+                "ecog_sequence": ecog,
+                "text_sequence": tokens,
+                "audio_sequence": audio,
+                "phoneme_sequence": phonemes,
+            }
+
+
+def export_trials_to_arrays(
+    generator: ECoGDataGenerator,
+    out_dir: str,
+    blocks: Iterable[int] | None = None,
+) -> int:
+    """Export a generator's trials as per-trial ``.npz`` files in the
+    :class:`ArrayDataGenerator` layout (``<out_dir>/B<block>/NNNN.npz``
+    with already-tokenized text and featurized audio) — round-trip
+    helper and migration path.  Returns the number of trials written."""
+    count = 0
+    for block in blocks if blocks is not None else generator._all_blocks():
+        block_dir = os.path.join(out_dir, f"B{block}")
+        os.makedirs(block_dir, exist_ok=True)
+        for i, trial in enumerate(generator._ecog_token_generator(block)):
+            arrays = {"ecog": np.asarray(trial["ecog_sequence"], np.float32)}
+            if trial.get("text_sequence") is not None:
+                arrays["text"] = np.asarray(trial["text_sequence"])
+            if trial.get("audio_sequence") is not None:
+                arrays["audio_features"] = np.asarray(
+                    trial["audio_sequence"], np.float32
+                )
+            if trial.get("phoneme_sequence") is not None:
+                arrays["phonemes"] = np.asarray(trial["phoneme_sequence"])
+            np.savez(os.path.join(block_dir, f"{i:04d}.npz"), **arrays)
+            count += 1
+    return count
+
+
+def filter_to_common_targets(inputs_A, targets_A, inputs_B, targets_B):
+    """Drop examples whose target occurs in only one of two sets
+    (reference data_generators.py:535-549; marked deprecated there but
+    kept for API completeness).  ``inputs_*`` are (N, T, C) arrays,
+    ``targets_*`` parallel lists; returns the four filtered objects."""
+    common = set(map(_hashable, targets_A)) & set(map(_hashable, targets_B))
+    inputs_A, targets_A = filter_to_common_targets_core(
+        inputs_A, targets_A, common
+    )
+    inputs_B, targets_B = filter_to_common_targets_core(
+        inputs_B, targets_B, common
+    )
+    print(
+        "Sets (A,B) now have (%d,%d) examples and (%d,%d) unique tokens"
+        % (
+            len(targets_A), len(targets_B),
+            len(set(map(_hashable, targets_A))),
+            len(set(map(_hashable, targets_B))),
+        )
+    )
+    return inputs_A, targets_A, inputs_B, targets_B
+
+
+def filter_to_common_targets_core(inputs, targets, common_targets):
+    """Core of :func:`filter_to_common_targets` (reference
+    data_generators.py:551-562): keep indices whose target is in
+    ``common_targets``; inputs are a numpy array, targets a list."""
+    keep = [
+        i for i, val in enumerate(targets)
+        if _hashable(val) in common_targets
+    ]
+    return inputs[keep], [targets[i] for i in keep]
+
+
+def _hashable(target):
+    """Targets may be strings or lists of tokens (list-of-lists case in
+    the reference docstring); make them set-compatible."""
+    return tuple(target) if isinstance(target, list) else target
 
 
 set_fallback_generator("SyntheticDataGenerator")

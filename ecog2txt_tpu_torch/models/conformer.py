@@ -22,15 +22,22 @@ shapes, weights stored (in, out)) and the same functions:
 * :class:`ConformerStream` re-encodes a fixed window that covers the
   stack's receptive field, so streamed chunks equal the offline encode.
 
+``moe_experts > 0`` replaces each block's second FFN with the routed
+mixture of experts of ``models.moe`` (its LayerNorm on K5f / K5b like
+every other); the blocks return their router statistics and
+``conformer_encode(..., return_aux=True)`` the weighted aux loss.  A
+weight rewritten by ``quantize.quantize_conformer_params`` (a
+:class:`quantize.QuantizedWeight`) makes its product int8 x int8 → int32
+(``quantize.int8_dot``); under int8 weights 'fused' runs 'flash', the
+same function, because K3f reads the float ``wqkv``.
+
 Products take both operands in ``compute_dtype`` and return it (f32
 accumulation inside); LayerNorm statistics and the attention softmax
-stay f32.  The mixture-of-experts FFN, int8 weights and the parallel
-modes are later slices of the port.
+stay f32.  The parallel modes are a later slice of the port.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,6 +49,8 @@ from .. import resolve_device
 from ..convert import tree_map
 from ..ops.attention_kernels import banded_flash_attention, fused_attention_layer
 from ..ops.layernorm_kernels import layer_norm, layer_norm_fwd_reference
+from ..quantize import QuantizedWeight, int8_dot
+from .moe import aux_from_stats, glorot, init_moe_ffn, moe_ffn
 
 
 @dataclass(frozen=True)
@@ -61,7 +70,10 @@ class ConformerConfig:
     query_block_chunks: int | None = None
     # recompute each block in the backward (torch.utils.checkpoint)
     remat: bool = False
-    # mixture-of-experts second FFN: not ported yet (moe_experts must be 0)
+    # mixture-of-experts second FFN (models/moe.py): > 0 routes each
+    # token to moe_topk of moe_experts experts; moe_capacity_factor 0 is
+    # the exact no-drop path (streams), > 0 the capacity path with
+    # dispatch groups of moe_group_size steps (0: one group a row)
     moe_experts: int = 0
     moe_topk: int = 2
     moe_capacity_factor: float = 0.0
@@ -70,11 +82,6 @@ class ConformerConfig:
     moe_zloss_weight: float = 1e-3
 
     def __post_init__(self):
-        if self.moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0: the mixture-of-experts FFN (models/moe.py) "
-                "is not ported yet (see ROADMAP.md, Queue 1, item 6)"
-            )
         if self.attention_impl not in _IMPLS:
             raise ValueError(
                 f"attention_impl {self.attention_impl!r}: expected one of {_IMPLS}"
@@ -84,12 +91,6 @@ class ConformerConfig:
 _IMPLS = ("auto", "dense", "banded", "flash", "fused")
 # the JAX package's dense/banded crossover, kept as it is
 _AUTO_DENSE_MAX_STEPS = 256
-
-
-def glorot(generator: torch.Generator, shape) -> torch.Tensor:
-    """Glorot-uniform over the trailing (fan_in, fan_out) dims."""
-    scale = math.sqrt(6.0 / (shape[-2] + shape[-1]))
-    return (torch.rand(shape, generator=generator) * 2 - 1) * scale
 
 
 def init_conformer(
@@ -128,15 +129,19 @@ def init_conformer(
                 "pw2": glorot(g, (D, D)),
                 "ln": ln(),
             },
-            "ffn2": ffn(),
+            "ffn2": (init_moe_ffn(g, D, Fd, config.moe_experts)
+                     if config.moe_experts else ffn()),
             "ln_out": ln(),
         })
     return tree_map(lambda a: a.to(dev), params)
 
 
-def _dot(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
+def _dot(x: torch.Tensor, w, cd) -> torch.Tensor:
     """``x @ w`` with ``w`` cast to the stream dtype ``cd`` (``x`` is in
-    it already): a product in ``cd`` with f32 accumulation."""
+    it already): a product in ``cd`` with f32 accumulation; int8 x int8 →
+    int32 when ``w`` is a :class:`quantize.QuantizedWeight`."""
+    if isinstance(w, QuantizedWeight):
+        return int8_dot(x, w, cd)
     return torch.matmul(x, w.to(cd))
 
 
@@ -332,6 +337,10 @@ _ATTENTION_IMPLS = {
 
 def _attention(p, x, config: ConformerConfig, lengths, offset: int, cd):
     impl = config.attention_impl
+    if impl == "fused" and isinstance(p["wqkv"], QuantizedWeight):
+        # K3f reads the float wqkv; under int8 weights 'flash' is the same
+        # function
+        impl = "flash"
     if impl == "auto":
         if x.shape[1] <= _AUTO_DENSE_MAX_STEPS:
             impl = "dense"
@@ -368,13 +377,29 @@ def _conv_module(p, x, tail=None, cd=torch.float32, valid=None):
 
 def apply_block(block, x, config: ConformerConfig, lengths, offset: int,
                 cd=torch.float32, tail=None, valid=None):
-    """One block (½FFN → MHSA → conv → ½FFN → LN): (x, new_conv_tail)."""
+    """One block (½FFN → MHSA → conv → ½FFN → LN): (x, new_conv_tail,
+    moe_stats), the stats the block's additive router statistics
+    (``models.moe.router_stats``), None without MoE."""
     x = x + 0.5 * _ffn(block["ffn1"], x, cd)
     x = x + _attention(block["attn"], x, config, lengths, offset, cd)
     conv_out, new_tail = _conv_module(block["conv"], x, tail, cd, valid)
     x = x + conv_out
-    x = x + 0.5 * _ffn(block["ffn2"], x, cd)
-    return _layernorm(block["ln_out"], x), new_tail
+    stats = None
+    if config.moe_experts:
+        # tokens inside the recording (absolute position in [0, length),
+        # per row under per-row offsets): the others take no capacity and
+        # do not count in the statistics
+        B, T = x.shape[0], x.shape[1]
+        positions = _positions(T, offset, x.device)
+        tok_valid = (positions >= 0).expand(B, T)
+        if lengths is not None:
+            tok_valid = tok_valid & (positions < lengths[:, None])
+        moe_out, stats = moe_ffn(block["ffn2"], _layernorm(block["ffn2"]["ln"], x),
+                                 config, cd, tok_valid)
+        x = x + 0.5 * moe_out
+    else:
+        x = x + 0.5 * _ffn(block["ffn2"], x, cd)
+    return _layernorm(block["ln_out"], x), new_tail, stats
 
 
 def conformer_encode(
@@ -386,6 +411,8 @@ def conformer_encode(
     carry: list | None = None,
     compute_dtype=torch.float32,
     mask_invalid: bool = False,
+    return_aux: bool = False,
+    return_moe_stats: bool = False,
 ):
     """Full-sequence (training) or continuation (streaming) encode.
 
@@ -395,23 +422,41 @@ def conformer_encode(
     of a serving pool), which only the plain 'dense' and 'banded'
     attention take; ``carry`` the per-block conv tails; ``mask_invalid``
     zeroes the conv input at negative positions.  Returns (out (B, T, D),
-    new_carry).  ``remat`` recomputes each block in the backward."""
+    new_carry); with ``return_aux`` also the mean weighted router aux
+    loss over the MoE blocks (0 without MoE), with ``return_moe_stats``
+    instead the per-block list of router statistics (None for a block
+    without MoE).  ``remat`` recomputes each block in the backward."""
     cd = compute_dtype
     x = _dot(xs.to(cd), params["in_proj"]["w"], cd) + params["in_proj"]["b"].to(cd)
     offset = position_offset if _per_row(position_offset) else int(position_offset)
     valid = _positions(x.shape[1], offset, x.device) >= 0 if mask_invalid else None
-    new_carry = []
+    new_carry, stats_list = [], []
     for bi, block in enumerate(params["blocks"]):
         tail = carry[bi] if carry is not None else None
         if config.remat and torch.is_grad_enabled():
-            x, new_tail = checkpoint(
+            x, new_tail, stats = checkpoint(
                 apply_block, block, x, config, lengths, offset, cd, tail, valid,
                 use_reentrant=False,
             )
         else:
-            x, new_tail = apply_block(block, x, config, lengths, offset, cd, tail, valid)
+            x, new_tail, stats = apply_block(block, x, config, lengths, offset, cd, tail,
+                                             valid)
         new_carry.append(new_tail)
+        stats_list.append(stats)
+    if return_moe_stats:
+        return x, new_carry, stats_list
+    if return_aux:
+        return x, new_carry, moe_aux_from_stats(config, stats_list, x.device)
     return x, new_carry
+
+
+def moe_aux_from_stats(config: ConformerConfig, stats_list, device=None) -> torch.Tensor:
+    """Mean weighted router aux loss over the MoE blocks, from their
+    additive statistics (``None`` entries are blocks without MoE)."""
+    losses = [aux_from_stats(config, s) for s in stats_list if s is not None]
+    if not losses:
+        return torch.zeros((), device=device)
+    return sum(losses) / len(losses)
 
 
 def receptive_field_steps(config: ConformerConfig) -> int:
@@ -433,6 +478,13 @@ class ConformerStream:
     the offline encode's rows."""
 
     def __init__(self, params: dict, config: ConformerConfig, compute_dtype=torch.float32):
+        if config.moe_experts and config.moe_capacity_factor > 0:
+            raise ValueError(
+                "streaming requires the exact no-drop MoE path "
+                "(moe_capacity_factor=0): capacity drops depend on the token "
+                "population, and a streaming window's population differs from "
+                "the offline encode's"
+            )
         self.params = params
         self.config = config
         self.compute_dtype = compute_dtype

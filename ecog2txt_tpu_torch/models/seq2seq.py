@@ -319,6 +319,7 @@ def encode(
     subject_idx,
     generator: torch.Generator | None = None,
     train: bool = False,
+    return_aux: bool = False,
 ):
     """Full encoder: reversal → conv → biLSTM stack, or (conformer
     family) conv → conformer in natural time order, with dropout when
@@ -326,7 +327,9 @@ def encode(
 
     Returns (enc_outputs (T', B, E), final (h, c) (B, E), enc_lengths
     (B,)); for the conformer, the outputs are zero past each length and
-    the final state is their masked mean over the valid steps."""
+    the final state is their masked mean over the valid steps.
+    ``return_aux`` appends the MoE conformer's weighted router aux loss
+    (0 for every other configuration)."""
     _require_generator(generator, train)
     xs = inputs.transpose(0, 1)  # (T, B, C)
     # the LSTM family reads its input reversed (fused into the first
@@ -348,9 +351,10 @@ def encode(
     enc_lengths = torch.clamp((lengths + d - 1) // d, max=xs.shape[0])
 
     if config.encoder_type == "conformer":
-        out_bm, _ = conformer_encode(
+        out_bm, _, moe_aux = conformer_encode(
             params["encoder"]["conformer"], config.conformer or ConformerConfig(),
             xs.transpose(0, 1), enc_lengths, compute_dtype=config.compute_dtype,
+            return_aux=True,
         )  # (B, T', D)
         T_out = out_bm.shape[1]
         step_mask = (
@@ -359,6 +363,8 @@ def encode(
         denom = torch.clamp(enc_lengths[:, None], min=1).to(out_bm.dtype)
         pooled = (out_bm * step_mask).sum(dim=1) / denom
         out = (out_bm * step_mask).transpose(0, 1)  # (T', B, D)
+        if return_aux:
+            return out, (pooled, pooled), enc_lengths, moe_aux
         return out, (pooled, pooled), enc_lengths
 
     out = xs
@@ -390,6 +396,8 @@ def encode(
             )
         if i < len(layers) - 1:
             out = _ff_dropout(generator, out, config.FF_dropout, train)
+    if return_aux:
+        return out, (final_h, final_c), enc_lengths, torch.zeros((), device=out.device)
     return out, (final_h, final_c), enc_lengths
 
 
@@ -523,13 +531,14 @@ def seq2seq_loss(
     targets at the raw rate: categorical (B,T), Gaussian/Rayleigh
     (B,T,F); CTC: label sequences (B,N) beside '<name>_lengths' (B,)).  ``penalty_scales``: loss weight per aux head name and for
     'decoder_targets'.  Metrics: ``loss_<head>``, ``loss_decoder``,
-    ``token_accuracy``, ``loss_total``.
+    ``token_accuracy``, ``loss_total``, and ``moe_aux`` for the MoE
+    conformer (its weighted router loss, part of the total).
     """
     penalty_scales = penalty_scales or {}
     _require_generator(generator, train)
-    enc_out, enc_final, enc_lengths = encode(
+    enc_out, enc_final, enc_lengths, moe_aux = encode(
         params, config, batch["encoder_inputs"], batch["encoder_lengths"],
-        batch["subject_idx"], generator, train,
+        batch["subject_idx"], generator, train, return_aux=True,
     )
     T_out = enc_out.shape[0]
     step_mask = (
@@ -538,6 +547,11 @@ def seq2seq_loss(
 
     metrics: dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=enc_out.device)
+    if config.encoder_type == "conformer" and (config.conformer or ConformerConfig()).moe_experts:
+        # already weighted (moe_aux_weight, moe_zloss_weight): keeps the
+        # router balanced across experts
+        total = total + moe_aux
+        metrics["moe_aux"] = moe_aux
     for head in config.aux_heads:
         head_params = params["aux"][head.name]
         h = enc_out

@@ -29,9 +29,12 @@ The twin of ``ecog2txt_tpu/serve.py``:
 Raw blocks reach the device through a host staging buffer (pinned for a
 CUDA device) in bfloat16 under bf16 compute (the conv casts its input to
 the compute dtype first, so this is bit-identical), or as int8 with
-per-channel scales under ``host_upload='int8'``.  The JAX package's
-``quantize='int8'`` (``quantize.py``) and ``RawVoltageSession``
-(``features.py``) are not ported yet and raise.
+per-channel scales under ``host_upload='int8'``.  ``quantize='int8'``
+rewrites the conformer encoder's weights to int8 (``quantize.py``; the
+products then run int8 x int8 → int32, and 'fused' attention gives way
+to 'flash', the same function).  :class:`RawVoltageSession` puts the
+high-gamma front end (``features.StreamingHighGamma``) in front of a
+session, so digitizer chunks go in and text comes out.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from . import resolve_device
 from .convert import load_checkpoint, tree_map
+from .features import StreamingHighGamma
 from .models.conformer import (
     _AUTO_DENSE_MAX_STEPS,
     ConformerConfig,
@@ -64,20 +68,23 @@ from .models.seq2seq import (
     encode,
     greedy_decode,
 )
+from .quantize import is_quantized, quantize_conformer_params
 from .tokenizers import target_inds_to_sequences
 
 _HOST_UPLOAD_MODES = (None, "int8")
 
 
-def _check_quantize(quantize: str | None) -> None:
+def _maybe_quantize(params, quantize: str | None):
+    """The serving-time int8 rewrite of the conformer encoder subtree
+    (``quantize.quantize_conformer_params``), once: a tree that holds int8
+    weights already is returned as it is."""
     if quantize is None:
-        return
+        return params
     if quantize != "int8":
         raise ValueError(f"unknown quantize mode {quantize!r} (supported: 'int8')")
-    raise NotImplementedError(
-        "quantize='int8': the int8 conformer weights (quantize.py) are not "
-        "ported yet (see ROADMAP.md, Queue 1, item 7)"
-    )
+    if is_quantized(params):
+        return params
+    return quantize_conformer_params(params)
 
 
 def _host_input_dtype(config: Seq2SeqConfig) -> torch.dtype:
@@ -465,10 +472,9 @@ class _ConformerServing:
             raise ValueError(
                 f"unknown host_upload mode {host_upload!r} (supported: {_HOST_UPLOAD_MODES})"
             )
-        _check_quantize(quantize)
         self._host_upload = host_upload
         self.device = resolve_device(device)
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.params = tree_map(lambda t: t.to(self.device), _maybe_quantize(params, quantize))
         self.config = config
         self.targets_list = list(targets_list)
         self.ccfg = config.conformer or ConformerConfig()
@@ -572,7 +578,9 @@ class StreamingConformerSession(_ConformerServing):
         on the host (per-row-per-channel scales, dequantized as the first
         device operation): LOSSY, so the contract becomes streamed ==
         offline on the same int8-dequantized inputs.  ``quantize='int8'``
-        is not ported yet and raises."""
+        rewrites the conformer encoder's weights to per-channel int8 with
+        dynamic per-token activation scales (``quantize.py``): the session
+        then equals the offline decode with the same quantized weights."""
         super().__init__(params, config, targets_list, subject_idx, phoneme_list,
                          quantize, host_upload, device, "StreamingConformerSession")
         self.stream = ConformerStream(
@@ -688,19 +696,82 @@ class StreamingConformerSession(_ConformerServing):
 
 
 class RawVoltageSession:
-    """Raw-voltage streaming (a high-gamma front end feeding a
-    :class:`StreamingConformerSession`) is not ported yet: it needs
-    ``features.py`` (ROADMAP.md, Queue 1, item 8)."""
+    """Raw-voltage streaming: a :class:`features.StreamingHighGamma` front
+    end (notch → high-gamma band bank → Hilbert amplitude → anti-aliased
+    decimation) feeding a :class:`StreamingConformerSession`.  Push
+    digitizer chunks (int16 or float volts, any length) and decode text.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "RawVoltageSession: the high-gamma front end (features.py) is not "
-            "ported yet (see ROADMAP.md, Queue 1, item 8)"
+    The front end keeps its buffers on the host and featurizes each window
+    on the session's device.  ``stats``: per-channel (mean, std) from
+    :func:`features.calibrate_high_gamma` (per-trial z-scoring does not
+    exist mid-stream: serving uses session statistics, as
+    ``hg_zscore='block'`` in :class:`datagen.ArrayDataGenerator`).
+
+    ``endpoint()`` equals the offline decode of
+    ``(features.extract_high_gamma_np(raw, cfg) - mean) / std`` of the
+    whole recording.  ``decode()`` is a side-effect-free peek: it flushes
+    the front end's pending tail speculatively through a snapshot and
+    restore of the session, so pushes can go on afterwards."""
+
+    def __init__(
+        self,
+        session: StreamingConformerSession,
+        hg_cfg,
+        stats=None,
+        window_seconds: float = 2.0,
+        num_channels: int | None = None,
+    ):
+        self.session = session
+        self.frontend = StreamingHighGamma(
+            hg_cfg, int(num_channels or session.config.in_channels),
+            window_seconds=window_seconds, stats=stats, device=session.device,
         )
 
     @classmethod
-    def from_trainer(cls, *args, **kwargs):
-        return cls(*args, **kwargs)
+    def from_trainer(cls, trainer, hg_cfg, stats=None, **kwargs):
+        session_kwargs = {
+            k: kwargs.pop(k)
+            for k in ("use_ema", "quantize", "host_upload", "phoneme_list", "device")
+            if k in kwargs
+        }
+        return cls(StreamingConformerSession.from_trainer(trainer, **session_kwargs),
+                   hg_cfg, stats=stats, **kwargs)
+
+    def push(self, raw_chunk: np.ndarray) -> None:
+        feats = self.frontend.push(raw_chunk)
+        if len(feats):
+            self.session.push(feats)
+
+    def partial(self, *args, **kwargs) -> dict:
+        """Live CTC-head hypothesis over the frames emitted so far (the
+        front end lags the amplifier by its margin, ``pad_seconds`` of
+        signal: the notch filter's impulse response)."""
+        return self.session.partial(*args, **kwargs)
+
+    def decode(self) -> dict:
+        tail = self.frontend.flush(reset=False)
+        if not len(tail):
+            return self.session.decode()
+        s = self.session
+        state = s.stream.snapshot()
+        saved = (list(s._raw), s._raw_samples, list(s._enc_outs), s._enc_steps)
+        try:
+            s.push(tail)
+            return s.decode()
+        finally:
+            s.stream.restore(state)
+            s._raw, s._raw_samples, s._enc_outs, s._enc_steps = (
+                list(saved[0]), saved[1], list(saved[2]), saved[3])
+
+    def endpoint(self) -> dict:
+        tail = self.frontend.flush()
+        if len(tail):
+            self.session.push(tail)
+        return self.session.endpoint()
+
+    def reset(self) -> None:
+        self.frontend.flush()
+        self.session.reset()
 
 
 class StreamingSessionPool(_ConformerServing):

@@ -130,7 +130,9 @@ def test_conformer_encode_bf16_matches_jax(impl):
 
 def test_auto_dispatch_and_config(monkeypatch):
     """'auto' runs dense up to 256 steps and banded beyond on a CPU
-    tensor; the MoE FFN is refused with a pointer to the roadmap."""
+    tensor; a MoE config builds, and its parameter tree has the JAX
+    tree's keys and shapes (the MoE function is held to JAX in
+    ``tests/test_torch_moe.py``)."""
     seen = []
     for impl in ("dense", "banded"):
         orig = tc._ATTENTION_IMPLS[impl]
@@ -142,8 +144,15 @@ def test_auto_dispatch_and_config(monkeypatch):
     for steps in (256, 257):
         tc.conformer_encode(params, cfg, torch.zeros((1, steps, 4)))
     assert seen == ["dense", "banded"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tc.ConformerConfig(moe_experts=4)
+    moe = dict(num_blocks=1, model_dim=8, num_heads=2, ffn_dim=8, conv_kernel=2,
+               chunk_size=16, moe_experts=4, moe_topk=2)
+    own = tc.init_conformer(torch.Generator().manual_seed(0), tc.ConformerConfig(**moe), 4,
+                            device="cpu")
+    want = jax.eval_shape(lambda: jc.init_conformer(
+        jax.random.PRNGKey(0), jc.ConformerConfig(**moe), 4))
+    assert jax.tree.map(np.shape, tree_map(lambda t: t.numpy(), own)) == jax.tree.map(
+        lambda a: a.shape, want)
+    assert tuple(own["blocks"][0]["ffn2"]["w1"].shape) == (4, 8, 8)
     assert tc.receptive_field_steps(tc.ConformerConfig(**CFG)) == jc.receptive_field_steps(
         jc.ConformerConfig(**CFG)
     )

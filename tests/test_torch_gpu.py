@@ -1428,3 +1428,112 @@ def test_exported_predictor_launches_the_kernels(tmp_path, mode, kernel, per_cal
         got = loaded(x)
         assert wrapper.launches == before + per_call
         np.testing.assert_array_equal(got["tokens"], live(x)["tokens"])
+
+
+# the MoE FFN, int8 serving and the raw-voltage front end on the card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(1, 100, 384), (16, 100, 384), (17, 100, 1152),
+                                   (104, 384, 1536), (5, 1536, 384)])
+def test_int8_gemm_pads_and_stays_exact(M, K, N):
+    """``int8_mm`` on the card (``torch._int_mm`` padded with zeros to more
+    than 16 rows and to multiples of 8 in K and N) equals the float64
+    product of the same int8 operands exactly, extremes included."""
+    from ecog2txt_tpu_torch.quantize import int8_mm
+
+    _need_cuda()
+    g = torch.Generator().manual_seed(M + K + N)
+    a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    a[0], b[:, 0] = 127, -127
+    before = int8_mm.launches
+    got = int8_mm(a.cuda(), b.cuda())
+    assert int8_mm.launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (M, N)
+    assert torch.equal(got.cpu(), (a.double() @ b.double()).to(torch.int32))
+    assert int(got[0, 0]) == -127 * 127 * K
+
+
+@pytest.mark.gpu
+def test_router_ties_pick_the_lowest_experts_on_the_card():
+    """A zero router (every probability equal) picks experts 0..k-1 on the
+    card, and a random router the CPU's experts."""
+    from ecog2txt_tpu_torch.models.moe import _route
+
+    _need_cuda()
+    g = torch.Generator().manual_seed(0)
+    xn = torch.randn((4, 300, 64), generator=g)
+    p = {"wg": torch.zeros((64, 8))}
+    for k in (1, 2, 3):
+        _, _, gates, idx = _route({"wg": p["wg"].cuda()}, xn.cuda(), k)
+        assert bool((idx.cpu() == torch.arange(k)).all())
+        torch.testing.assert_close(gates.cpu(), torch.full_like(gates.cpu(), 1.0 / k))
+    wg = torch.randn((64, 8), generator=g)
+    _, _, _, cpu_idx = _route({"wg": wg}, xn, 2)
+    _, _, _, gpu_idx = _route({"wg": wg.cuda()}, xn.cuda(), 2)
+    assert torch.equal(gpu_idx.cpu(), cpu_idx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf,seg", [(0.0, 0), (1.25, 64)])
+def test_moe_ffn_on_the_card_matches_the_cpu(cf, seg):
+    """The no-drop and grouped capacity paths on the card against the CPU,
+    f32: outputs and statistics; the capacity path keeps the CPU's pairs."""
+    from ecog2txt_tpu_torch.convert import tree_map
+    from ecog2txt_tpu_torch.models.conformer import ConformerConfig
+    from ecog2txt_tpu_torch.models.moe import _route, capacity_slots, init_moe_ffn, moe_ffn
+
+    _need_cuda()
+    cfg = ConformerConfig(model_dim=64, ffn_dim=96, moe_experts=8, moe_topk=2,
+                          moe_capacity_factor=cf, moe_group_size=seg)
+    p = init_moe_ffn(torch.Generator().manual_seed(1), 64, 96, 8)
+    xn = torch.randn((3, 150, 64), generator=torch.Generator().manual_seed(2))
+    valid = torch.arange(150)[None] < torch.tensor([150, 99, 120])[:, None]
+    want, want_stats = moe_ffn(p, xn, cfg, torch.float32, valid)
+    got, stats = moe_ffn(tree_map(lambda t: t.cuda(), p), xn.cuda(), cfg, torch.float32,
+                         valid.cuda())
+    torch.testing.assert_close(got.cpu(), want, **TOL[torch.float32])
+    for k in want_stats:
+        torch.testing.assert_close(stats[k].cpu(), want_stats[k], **TOL[torch.float32])
+    if cf:
+        xg = xn[:, :128].reshape(-1, 64, 64)
+        vg = valid[:, :128].reshape(-1, 64)
+        _, _, _, idx = _route(p, xg, 2)
+        C = int(-(-2 * 64 * 1.25 // 8))
+        cpu = capacity_slots(idx, vg, 8, C)
+        gpu = capacity_slots(idx.cuda(), vg.cuda(), 8, C)
+        for a, b in zip(gpu, cpu):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zscore", ["none", "trial"])
+def test_featurization_on_the_card_matches_the_cpu(zscore):
+    """``extract_high_gamma_np`` on the card (cuFFT, the f64 decimation)
+    against the CPU, f32, float and int16 input; the streaming front end
+    on the card against the offline chain."""
+    import numpy as np
+
+    from ecog2txt_tpu_torch.features import (
+        HighGammaConfig,
+        StreamingHighGamma,
+        extract_high_gamma_np,
+    )
+
+    _need_cuda()
+    cfg = HighGammaConfig(raw_rate=3200.0, out_rate=200.0, zscore=zscore, input_scale=1e-3)
+    raw = np.random.default_rng(0).standard_normal((9000, 33)).astype(np.float32)
+    ints = np.clip(raw * 1000, -32768, 32767).astype(np.int16)
+    for x in (raw, ints):
+        got = extract_high_gamma_np(x, cfg, device="cuda")
+        want = extract_high_gamma_np(x, cfg, device="cpu")
+        torch.testing.assert_close(torch.from_numpy(got), torch.from_numpy(want),
+                                   **TOL[torch.float32])
+    if zscore == "none":
+        stream = StreamingHighGamma(cfg, 33, window_seconds=1.0, device="cuda")
+        outs = [stream.push(ints[lo: lo + 517]) for lo in range(0, len(ints), 517)]
+        got = np.concatenate(outs + [stream.flush()])
+        want = extract_high_gamma_np(ints, cfg, device="cpu")
+        scale = np.abs(want).mean()
+        np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-3 * scale)

@@ -213,10 +213,11 @@ def test_init_seq2seq_matches_the_jax_tree():
 
 
 def test_unported_paths_name_the_roadmap():
-    # the conformer's mixture-of-experts FFN (models/moe.py) is not ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.Seq2SeqConfig(vocab_size=20, encoder_type="conformer",
-                         conformer=ts.ConformerConfig(moe_experts=4))
+    # the conformer's mixture-of-experts FFN (models/moe.py) is ported: the
+    # config builds (tests/test_torch_moe.py holds it to JAX)
+    moe = ts.Seq2SeqConfig(vocab_size=20, encoder_type="conformer",
+                           conformer=ts.ConformerConfig(moe_experts=4))
+    assert moe.conformer.moe_experts == 4 and moe.enc_out_dim == moe.conformer.model_dim
     # the CTC aux head (models/ctc.py) is ported: the loss runs
     _, tcfg = _configs("plain")
     tcfg = dataclasses.replace(tcfg, aux_heads=(ts.AuxHead("ph", "CTC", 4),))

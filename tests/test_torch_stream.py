@@ -8,8 +8,11 @@ offline ``greedy_decode``, ``decode()`` repeatable mid-stream, ``partial()``
 (greedy and lexicon, carried == from scratch) equal, the pool equal to
 dedicated sessions under ragged joins and leaves, and the int8 upload's
 contract.  Then the per-row position offsets the pool encodes with, the
-``torch.export`` round trip of a biLSTM predictor on the CPU, and the
-serving options that are not ported yet.
+``torch.export`` round trip of a biLSTM predictor on the CPU, the serving
+options, and ``RawVoltageSession`` (raw voltage, float and int16, through
+the high-gamma front end): its endpoint equal to the offline decode of
+the calibrated offline features and to JAX's raw session, ``decode()``
+repeatable mid-stream.
 """
 
 import jax
@@ -18,12 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+from ecog2txt_tpu import features as jfeatures
 from ecog2txt_tpu import serve as jserve
 from ecog2txt_tpu.models import ctc as jctc
 from ecog2txt_tpu.models import seq2seq as js
 from ecog2txt_tpu.models.conformer import ConformerConfig as JConformer
 from ecog2txt_tpu_torch import convert
 from ecog2txt_tpu_torch import demo as tdemo
+from ecog2txt_tpu_torch import features as tfeatures
+from ecog2txt_tpu_torch import quantize as tquantize
 from ecog2txt_tpu_torch import serve as tserve
 from ecog2txt_tpu_torch import train as ttrain
 from ecog2txt_tpu_torch.models import conformer as tc
@@ -42,6 +48,9 @@ KW = dict(vocab_size=12, num_subjects=1, in_channels=8, conv_sizes=(16,),
 PHONEMES = [f"p{i}" for i in range(9)]  # + the trailing blank = 10 classes
 TARGETS = ["<pad>", "<EOS>", "<OOV>"] + [f"w{i}_" for i in range(9)]
 LEXICON = {"aa": [0, 0], "ab": [0, 1], "b": [1], "ca": [2, 0]}
+# 1 kHz raw → 250 Hz features (q = 4), a small bank, as the JAX test's
+HG = tfeatures.HighGammaConfig(raw_rate=1000.0, out_rate=250.0, num_bands=4, pad_seconds=0.25,
+                               zscore="none")
 
 
 @pytest.fixture(scope="module")
@@ -386,17 +395,71 @@ def test_from_trainer_with_a_ctc_head(tmp_path):
 
 
 def test_unported_serving_options_name_the_roadmap(model):
+    """``quantize='int8'`` and ``RawVoltageSession`` are ported (held to JAX
+    in ``tests/test_torch_quantize.py`` and below); what stays refused is
+    refused with a ``ValueError``."""
     _, _, tree = model
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _session(tree, quantize="int8")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _pool(tree, quantize="int8")
+    assert tquantize.is_quantized(_session(tree, quantize="int8").params)
+    assert tquantize.is_quantized(_pool(tree, quantize="int8").params)
     with pytest.raises(ValueError, match="quantize"):
         _session(tree, quantize="int4")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tserve.RawVoltageSession(_session(tree), None)
+    raw = tserve.RawVoltageSession(_session(tree), HG)
+    assert raw.frontend.device == raw.session.device
+    with pytest.raises(ValueError, match="zscore='none'"):
+        tserve.RawVoltageSession(_session(tree), tfeatures.HighGammaConfig(1000.0, 200.0))
     with pytest.raises(ValueError, match="encoder_type"):
         tserve.StreamingConformerSession(
             convert.params_from_numpy(tree, "cpu"), ts.Seq2SeqConfig(vocab_size=12), TARGETS,
             device="cpu",
         )
+
+
+def _raw_session_case(model, seed):
+    """Calibration statistics, a raw recording whose length is no multiple
+    of the window, the decimation or a chunk, and the offline tokens of its
+    calibrated offline features."""
+    _, _, tree = model
+    rng = np.random.default_rng(seed)
+    stats = tfeatures.calibrate_high_gamma([rng.normal(size=(4000, 8)).astype(np.float32)], HG,
+                                           device="cpu")
+    raw = rng.normal(size=(1510, 8)).astype(np.float32)
+    feats = (tfeatures.extract_high_gamma_np(raw, HG, device="cpu") - stats[0]) / np.maximum(
+        stats[1], 1e-6)
+    return tree, stats, raw, _offline(tree, feats)
+
+
+@pytest.mark.parametrize("int16", [False, True])
+def test_raw_voltage_session_matches_offline_and_jax(model, int16):
+    """Ragged pushes with ``decode()`` after each (repeatable, and the
+    stream goes on unchanged); the endpoint equals the offline decode of
+    ``(extract_high_gamma_np(raw) - mean) / std`` and JAX's raw session.
+    int16 samples (``input_scale`` volts a unit) equal the float session
+    on the scaled samples."""
+    jcfg, jparams, _ = model
+    tree, stats, raw, offline = _raw_session_case(model, 5)
+    hg = HG
+    if int16:
+        hg = tfeatures.HighGammaConfig(**{**HG.__dict__, "input_scale": 1e-3})
+        raw_in = np.clip(raw * 1000, -32768, 32767).astype(np.int16)
+        raw = raw_in.astype(np.float32) * np.float32(1e-3)
+        feats = (tfeatures.extract_high_gamma_np(raw, HG, device="cpu") - stats[0]) / np.maximum(
+            stats[1], 1e-6)
+        offline = _offline(tree, feats)
+    else:
+        raw_in = raw
+    session = tserve.RawVoltageSession(_session(tree), hg, stats=stats, window_seconds=0.5)
+    jsession = jserve.RawVoltageSession(jserve.StreamingConformerSession(jparams, jcfg, TARGETS),
+                                        jfeatures.HighGammaConfig(**hg.__dict__), stats=stats,
+                                        window_seconds=0.5)
+    pos = 0
+    for step in (333, 41, 700, 129, 307):
+        session.push(raw_in[pos: pos + step])
+        jsession.push(raw_in[pos: pos + step])
+        pos += step
+        a, b = session.decode(), session.decode()
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+    np.testing.assert_array_equal(a["tokens"], np.asarray(jsession.decode()["tokens"]))
+    out = session.endpoint()
+    np.testing.assert_array_equal(out["tokens"], offline)
+    np.testing.assert_array_equal(out["tokens"], np.asarray(jsession.endpoint()["tokens"]))
+    assert np.isfinite(out["encoder_outputs"]).all()
