@@ -170,9 +170,42 @@ LayerNorm swapped back to the plain math, in turns with K5.
    twice mid-stream equal, the endpoint equal to the offline decode of the
    calibrated offline features; per-push and ``partial()`` medians;
 
+21. the rest of the trainer (main paths) on a two-subject demo experiment
+   (a 16x16 donor and a 22x22 target, 484 channels; 32 sentences a block:
+   192 and 128 training trials) at the benchmark's widths (conv 100 at
+   stride 12, 3x400 biLSTM, aux 225, decoder embedding 150, LSTM 800),
+   bf16, True, dropout on, B=64, 4 warmup steps then cosine decay,
+   TensorBoard summaries and a checkpoint every assessment:
+   ``sequential_transfer_learn(2, 2, 2)`` (K1b 6 times a step in every
+   fit, K1f at least as often; the frozen pretraining fit leaves the core
+   and the donor's subnet row bit-identical and moves the target's; 8
+   epochs; the event file read back holds the loss at every interval and
+   the WERs at every assessment); the NaN rollback (learning rate 1e18:
+   ``FloatingPointError`` naming the restored epoch, the state the newest
+   checkpoint bit for bit); architecture recovery (a 2x64 trainer's
+   ``assess_saved_model`` rebuilds 3x400 / 800, 6 K1f an encode, the
+   source's WERs); the TF1 import of the parameters as variables of the
+   reference's grammar (a mapping: tensorflow is not on the card's
+   machine) into a 2x64 trainer, rebuilt, leaves equal bit for bit, the
+   same assessment; ``get_saliencies`` (6 K1f + 6 K1b a subject) and
+   ``get_internal_activations`` (6 K1f), in f32 their kernel paths
+   against the plain paths; ``fit`` under ``max_host_trials`` (a third of
+   the largest subject's trials, shards read from the records) against
+   ``max_device_trials`` at the same size (parameters within the bf16
+   tolerance, the wall time of both).  Then ``export_predictor`` of the
+   headline conformer under 'flash' and 'fused' and of its MoE (no-drop;
+   capacity 1.25), f32, 6 decoded tokens, loaded back: calls at B=1, 17
+   and 256 (across the depthwise conv's eager crossover) launch 4 K2f or
+   4 K3f and the K5f of an encode through the program, two encodes a
+   call, and give the live predictor's tokens.  Last the TF32 check: with cuDNN's default flags
+   (TF32 allowed in convolutions) just for it, an f32 headline-conformer
+   encode at B=256, T'=104 and the exported 'flash' program at B=256
+   against the CPU at the f32 tolerance, the errors printed beside those
+   with TF32 off and beside a bare f32 depthwise ``conv1d``'s;
+
 20. the ``kernels`` JSON line (all ten kernels, with the launches of
-   phases 10-19 beside the earlier ones), the card's name and power limit,
-   and as the last line ``{"ok": true, "device": {...}}``.
+   phases 10-19 and 21 beside the earlier ones), the card's name and power
+   limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is
 present.
@@ -182,6 +215,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import glob
 import json
 import os
 import subprocess
@@ -194,7 +228,7 @@ import numpy as np
 import torch
 
 from ecog2txt_tpu_torch import text_dir
-from ecog2txt_tpu_torch.convert import tree_leaves, tree_map
+from ecog2txt_tpu_torch.convert import load_checkpoint, tree_leaves, tree_map
 from ecog2txt_tpu_torch.datagen import word_to_phonemes
 from ecog2txt_tpu_torch.demo import make_demo_experiment
 from ecog2txt_tpu_torch.features import (
@@ -216,6 +250,8 @@ from ecog2txt_tpu_torch.models.ctc import (
 from ecog2txt_tpu_torch.models.seq2seq import (
     AuxHead,
     Seq2SeqConfig,
+    decode_from_encoder,
+    decoder_teacher_forcing,
     encode,
     greedy_decode,
     init_seq2seq,
@@ -247,6 +283,9 @@ from ecog2txt_tpu_torch.train import (
     make_optimizer,
     make_segment_runner,
 )
+from ecog2txt_tpu_torch.utils.introspect import _shape_tree
+from ecog2txt_tpu_torch.utils.summaries import iter_events
+from ecog2txt_tpu_torch.utils.tf1_import import tf1_variables_from_params
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -3521,6 +3560,479 @@ def raw_session_phase(params) -> dict:
             "partial_ms": med["partial"], "packets": len(packets)}
 
 
+# --------------------------------------------------------------------------
+# 21. the rest of the trainer, conformer export and cuDNN's TF32 default:
+#     main paths
+# --------------------------------------------------------------------------
+
+# the JAX benchmark's layer widths (bench.py:46-63) on a two-subject demo
+# experiment: a 16x16 donor and a 22x22 target (484 channels)
+XFER_SIZES = {"encoder_embedding": [100], "encoder_rnn": [400, 400, 400],
+              "encoder_1_projection": [225], "decoder_embedding": [150],
+              "decoder_rnn": [800], "decoder_projection": []}
+DEMO_SIZES = {"encoder_embedding": [32], "encoder_rnn": [64, 64], "encoder_1_projection": [32],
+              "decoder_embedding": [24], "decoder_rnn": [96], "decoder_projection": []}
+XFER_GRIDS = {1: (16, 16), 2: (22, 22)}
+# 32 sentences a block: 128 training trials for the target (4 blocks), 192
+# for the donor (all 6 blocks)
+XFER_SENTENCES = 32
+XFER_SN = {"compute_dtype": "bfloat16", "use_pallas_lstm": True, "batch_size": 64,
+           "learning_rate": 1e-3, "max_dec_len": 10, "warmup_steps": 4,
+           "lr_schedule": "warmup_cosine", "checkpoint_every_assessment": True}
+# the curriculum's epochs: donor training, target pretraining (frozen
+# core), target training + posttraining
+CURRICULUM = dict(pretraining=2, training=2, posttraining=2)
+
+
+def transfer_experiment(root: str) -> str:
+    return make_demo_experiment(
+        f"{root}/xfer", subject_ids=(1, 2), grid_sizes=XFER_GRIDS, layer_sizes=XFER_SIZES,
+        num_sentences_per_block=XFER_SENTENCES, assessment_epoch_interval=2,
+    )
+
+
+def transfer_trainer(manifest: str, **sn) -> MultiSubjectTrainer:
+    return MultiSubjectTrainer(manifest, [1, 2], VERBOSE=False, device="cuda",
+                               SN_kwargs={**XFER_SN, **sn})
+
+
+def _fit_steps(trainer: MultiSubjectTrainer, subject_subset, epochs: int) -> int:
+    counts = trainer.packed_dataset("training").num_trials
+    subjects = range(len(counts)) if subject_subset is None else subject_subset
+    return epochs * sum(-(-int(counts[s]) // trainer.batch_size) for s in subjects if counts[s])
+
+
+def _equal_trees(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def curriculum_phase(trainer: MultiSubjectTrainer, logdir: str) -> dict:
+    """``sequential_transfer_learn`` at full width, bf16, dropout on, the
+    warmup-cosine schedule, summaries and a checkpoint every assessment: K1b
+    launches 6 times a step in every fit (K1f at least as often); the frozen
+    pretraining fit leaves every encoder, aux and decoder leaf and the
+    donor's subnet row bit-identical and moves the target's row; the epochs
+    are the curriculum's sum; the event file holds the loss at every
+    interval and the WERs at every assessment."""
+    fits = []
+    fit = trainer.fit
+
+    def spy(**kw):
+        before = read_counts()
+        frozen = kw.get("train_vars_scope") is not None
+        leaves = [t.detach().clone() for t in tree_leaves(trainer.state.params)] if frozen else None
+        t0 = time.perf_counter()
+        history = fit(**kw)
+        torch.cuda.synchronize()
+        after = read_counts()
+        fits.append({
+            "kw": kw, "s": time.perf_counter() - t0, "history": history,
+            "before": leaves, "after": [t.detach().clone() for t in
+                                        tree_leaves(trainer.state.params)] if frozen else None,
+            "counts": {k: after[k] - before[k] for k in after},
+            "steps": _fit_steps(trainer, kw.get("subject_subset"), kw["num_epochs"]),
+            "rates": list(trainer.state.opt_state.learning_rates),
+        })
+        return history
+
+    trainer.fit = spy
+    try:
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        t0 = time.perf_counter()
+        history = trainer.sequential_transfer_learn(**CURRICULUM)
+        total_s = time.perf_counter() - t0
+        counts = read_counts()
+        bodies = read_bodies()
+        # ------------------------------------------------------------------
+    finally:
+        del trainer.fit
+    check(all(v == 0 for k, v in counts.items() if k not in ("K1f", "K1b")),
+          f"curriculum: launches {counts}")
+    check_bodies("curriculum (bf16)", bodies, "K1f", "cluster", counts["K1f"])
+    check_bodies("curriculum (bf16)", bodies, "K1b", "cluster", counts["K1b"])
+    per_step = 2 * len(trainer.net_config.rnn_sizes)
+    for f in fits:
+        c = f["counts"]
+        check(c["K1b"] == per_step * f["steps"] and c["K1f"] >= c["K1b"],
+              f"curriculum fit {f['kw']}: K1b {c['K1b']}, K1f {c['K1f']} in {f['steps']} steps")
+        check(f["rates"][0] == 0.0 and max(f["rates"]) > 0,
+              f"curriculum fit {f['kw']}: learning rates {f['rates'][:6]}")
+    frozen = [f for f in fits if f["kw"].get("train_vars_scope")]
+    check(len(fits) == 3 and len(frozen) == 1, f"curriculum: fits {[f['kw'] for f in fits]}")
+    leaves_before, leaves_after = frozen[0]["before"], frozen[0]["after"]
+    paths = list(_shape_tree(trainer.state.params))  # in tree_leaves order
+    moved = []
+    for path, b, a in zip(paths, leaves_before, leaves_after):
+        if path.startswith("subnet/"):
+            check(torch.equal(a[0], b[0]), f"frozen fit: the donor's {path} row moved")
+            moved.append(not torch.equal(a[1], b[1]))
+        else:
+            check(torch.equal(a, b), f"frozen fit: {path} is not bit-identical")
+    check(all(moved), "frozen fit: the target's subnet rows did not all move")
+    want_epochs = 2 * CURRICULUM["training"] + CURRICULUM["pretraining"] + CURRICULUM["posttraining"]
+    check(int(trainer.state.epoch) == want_epochs,
+          f"curriculum: epoch {trainer.state.epoch}, expected {want_epochs}")
+    # the event file: the loss at every interval, the WERs at every assessment
+    (path,) = glob.glob(os.path.join(logdir, "events.out.tfevents.*"))
+    by_step: dict = {}
+    for event in iter_events(path):
+        by_step.setdefault(event["step"], {}).update(event.get("scalars", {}))
+    assessed = sorted(int(e) for f in fits for e in f["history"])
+    intervals = sorted(s for s in by_step if s)
+    check(intervals == sorted({*assessed, CURRICULUM["training"] + CURRICULUM["pretraining"]}),
+          f"summaries: steps {intervals}, assessments {assessed}")
+    for step in intervals:
+        check(np.isfinite(by_step[step].get("loss/total", np.nan)),
+              f"summaries: no finite loss/total at epoch {step}")
+    for step in assessed:
+        check({"training/word_error_rate", "validation/word_error_rate"} <= set(by_step[step]),
+              f"summaries: no WER scalars at assessment epoch {step}")
+    wers = {e: (s["training"]["word_error_rate"], s["validation"]["word_error_rate"])
+            for e, s in history.items()}
+    check(all(np.isfinite(v).all() for v in wers.values()), f"curriculum: WERs {wers}")
+    steps = sum(f["steps"] for f in fits)
+    print(f"curriculum (sequential_transfer_learn, 2 subjects 256 / 484 channels, 3x400 biLSTM, "
+          f"bf16, B={trainer.batch_size}, warmup-cosine): epochs {trainer.state.epoch}, {steps} "
+          f"steps in {total_s:.2f} s; fits "
+          + ", ".join(f"{f['kw'].get('subject_subset')}"
+                      f"{' frozen' if f['kw'].get('train_vars_scope') else ''}: "
+                      f"{f['steps']} steps {f['s']:.2f} s, K1b {f['counts']['K1b']}, "
+                      f"K1f {f['counts']['K1f']}" for f in fits)
+          + f"; frozen fit: core bit-identical, donor row unchanged; (train, val) WER by "
+          f"assessment {wers}; events at epochs {intervals}  [{gpu_line()}]")
+    return {"counts": counts, "bodies": bodies, "total_s": total_s, "steps": steps,
+            "fit_s": [f["s"] for f in fits], "fit_counts": [f["counts"] for f in fits],
+            "wers": wers}
+
+
+def rollback_phase(trainer: MultiSubjectTrainer) -> dict:
+    """``learning_rate = 1e18`` on the trained trainer: ``fit`` raises
+    ``FloatingPointError`` naming the restored epoch, and the state is the
+    newest checkpoint bit for bit, every leaf finite."""
+    newest = trainer.restore_epoch
+    saved = load_checkpoint(trainer._ckpt_path(newest), "cuda")
+    lr, trainer.learning_rate = trainer.learning_rate, 1e18
+    message = None
+    t0 = time.perf_counter()
+    try:
+        trainer.fit(num_epochs=2, assess=False)
+    except FloatingPointError as err:
+        message = str(err)
+    finally:
+        trainer.learning_rate = lr
+    rollback_s = time.perf_counter() - t0
+    check(message is not None and f"restored checkpoint at epoch {newest}" in message,
+          f"rollback: {message!r}")
+    check(int(trainer.state.epoch) == newest and _equal_trees(trainer.state.params, saved["params"])
+          and _equal_trees(trainer.state.ema, saved["ema"]),
+          "rollback: the state is not the newest checkpoint")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(trainer.state.params)),
+          "rollback: non-finite leaves")
+    print(f"NaN rollback: learning rate 1e18 → {message!r} in {rollback_s:.2f} s; state == "
+          f"ckpt-{newest}.pt bit for bit, all finite  [{gpu_line()}]")
+    return {"s": rollback_s, "epoch": newest}
+
+
+def _encodes(trainer: MultiSubjectTrainer, partitions) -> int:
+    return sum(int(n > 0) for p in partitions for n in trainer.packed_dataset(p).num_trials)
+
+
+def _same_assessment(got: dict, want: dict) -> bool:
+    return all(got[p]["word_error_rate"] == want[p]["word_error_rate"]
+               and got[p]["hypotheses"] == want[p]["hypotheses"] for p in want)
+
+
+def recovery_phase(manifest: str, source: MultiSubjectTrainer) -> dict:
+    """A trainer built at the demo widths (2x64, decoder 96) assesses the
+    full-width checkpoint: its ``net_config`` is rebuilt to 3x400 / 800,
+    each encode launches K1f 6 times, and the WERs and hypotheses equal the
+    source trainer's EMA assessment."""
+    parts = ("training", "validation")
+    want = source.assess(parts)
+    small = transfer_trainer(manifest, layer_sizes=DEMO_SIZES, tf_summaries_dir=None,
+                             checkpoint_every_assessment=False)
+    check(small.net_config.rnn_sizes == (64, 64), f"recovery: built {small.net_config.rnn_sizes}")
+    epoch = source.restore_epoch
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    t0 = time.perf_counter()
+    got = small.assess_saved_model(epoch, partitions=parts)
+    assess_s = time.perf_counter() - t0
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    cfg = small.net_config
+    check(cfg.rnn_sizes == tuple(XFER_SIZES["encoder_rnn"])
+          and cfg.dec_rnn_sizes == tuple(XFER_SIZES["decoder_rnn"]) and cfg == source.net_config,
+          f"recovery: rebuilt to {cfg}")
+    encodes = _encodes(small, parts)
+    check_counts("recovery assessment", counts, {"K1f": 6 * encodes})
+    check(_same_assessment(got, want), "recovery: the assessment differs from the source's")
+    print(f"architecture recovery: built at 2x64 / 96, assess_saved_model(ckpt-{epoch}.pt) rebuilt "
+          f"3x400 / 800 in {assess_s:.2f} s (rebuild + {encodes} encodes, K1f {counts['K1f']}); "
+          f"WERs == the source's EMA assessment "
+          f"{[want[p]['word_error_rate'] for p in parts]}  [{gpu_line()}]")
+    return {"counts": counts, "s": assess_s, "want": want}
+
+
+def tf1_phase(manifest: str, source: MultiSubjectTrainer, want: dict) -> dict:
+    """The full-width parameters as variables in the reference's TF1
+    grammar (``tf1_variables_from_params``; a mapping: tensorflow is not
+    needed) imported into a fresh demo-width trainer with
+    ``rebuild='auto'``: every leaf and EMA leaf equal bit for bit, the same
+    assessment."""
+    variables = tf1_variables_from_params(source.state.params, source.net_config.conv_strides,
+                                          source.subject_ids, source.state.ema)
+    fresh = transfer_trainer(manifest, layer_sizes=DEMO_SIZES, tf_summaries_dir=None,
+                             checkpoint_every_assessment=False)
+    t0 = time.perf_counter()
+    report = fresh.import_tf1_checkpoint(variables)
+    import_s = time.perf_counter() - t0
+    check(report["skipped"] == [] and len(report["imported"]) == len(variables),
+          f"TF1 import: {len(report['skipped'])} skipped")
+    check(fresh.net_config == source.net_config, "TF1 import: net_config not rebuilt")
+    check(_equal_trees(fresh.state.params, source.state.params)
+          and _equal_trees(fresh.state.ema, source.state.ema), "TF1 import: leaves differ")
+    got = fresh.assess(tuple(want))
+    check(_same_assessment(got, want), "TF1 import: the assessment differs")
+    print(f"TF1 import: {len(variables)} variables of the reference's grammar into a 2x64 trainer, "
+          f"rebuilt to 3x400 / 800 and imported in {import_s:.2f} s; every leaf equal bit for bit, "
+          f"the same assessment  [{gpu_line()}]")
+    return {"s": import_s, "variables": len(variables)}
+
+
+def analysis_phase(trainer: MultiSubjectTrainer) -> dict:
+    """``get_saliencies`` (the decoder loss's input gradient, bf16): 6 K1f
+    and 6 K1b a subject; ``get_internal_activations``: 6 K1f; in f32 the
+    kernel path equals the plain path at the f32 tolerance (saliencies
+    normwise: gradients summed in another order)."""
+    S = len(trainer.ecog_subjects)
+    val = trainer.packed_dataset("validation")
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    t0 = time.perf_counter()
+    sal = trainer.get_saliencies()
+    sal_s = time.perf_counter() - t0
+    sal_counts = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    act = trainer.get_internal_activations()
+    act_s = time.perf_counter() - t0
+    act_counts = read_counts()
+    # ------------------------------------------------------------------
+    check_counts("saliencies", sal_counts, {"K1f": 6 * S, "K1b": 6 * S})
+    check_counts("internal activations", act_counts, {"K1f": 6})
+    n_val = int(val.num_trials.sum())
+    check(sal.shape == (n_val,) + val.encoder_inputs.shape[2:] and np.isfinite(sal).all()
+          and np.abs(sal).max() > 0, f"saliencies: {sal.shape}")
+    check(all(np.isfinite(v).all() for k, v in act.items() if k != "aux_targets"),
+          "activations: non-finite values")
+    cfg = trainer.net_config
+    f32 = {}
+    try:
+        for name, pallas in (("kernel", True), ("plain", False)):
+            trainer.net_config = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                                                     use_pallas_lstm=pallas)
+            f32[name] = (trainer.get_saliencies(), trainer.get_internal_activations())
+    finally:
+        trainer.net_config = cfg
+    sal_err, _ = compare("saliencies f32 kernel vs plain", torch.from_numpy(f32["kernel"][0]),
+                         torch.from_numpy(f32["plain"][0]), TOL[torch.float32], normwise=True)
+    act_err = 0.0
+    for key in ("convolved_inputs", "encoder_outputs", "final_state_h", "final_state_c"):
+        err, _ = compare(f"activations f32 kernel vs plain: {key}",
+                         torch.from_numpy(f32["kernel"][1][key]),
+                         torch.from_numpy(f32["plain"][1][key]), TOL[torch.float32])
+        act_err = max(act_err, err)
+    print(f"saliencies ({n_val} validation trials, bf16): {sal_s:.2f} s, K1f {sal_counts['K1f']} + "
+          f"K1b {sal_counts['K1b']}; internal activations {act_s:.2f} s, K1f {act_counts['K1f']}; "
+          f"f32 kernel vs plain: saliency max abs err {sal_err:.3e} (normwise), activations "
+          f"{act_err:.3e}  [{gpu_line()}]")
+    return {"sal_counts": sal_counts, "act_counts": act_counts, "sal_s": sal_s, "act_s": act_s,
+            "sal_err": sal_err, "act_err": act_err}
+
+
+def lazy_shard_phase(manifest: str) -> dict:
+    """``fit`` of a fresh full-width trainer with ``max_host_trials`` a third
+    of the largest subject's training trials (shards re-read from the
+    records, the next one read and uploaded by the prefetch worker), against
+    the same fit with ``max_device_trials`` (the resident corpus sliced):
+    the same seeds and shards; final parameters within the bf16 tolerance,
+    K1b 6 times a step in both."""
+    runs = {}
+    for key in ("max_host_trials", "max_device_trials"):
+        trainer = transfer_trainer(manifest, tf_summaries_dir=None,
+                                   checkpoint_every_assessment=False)
+        shard = int(trainer.packed_dataset("training").num_trials.max()) // 3
+        trainer.SN_kwargs[key] = shard
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(num_epochs=2, assess=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()
+        # ------------------------------------------------------------------
+        runs[key] = {"trainer": trainer, "s": fit_s, "counts": counts, "shard": shard}
+    host, dev = runs["max_host_trials"], runs["max_device_trials"]
+    check(host["counts"] == dev["counts"] and host["counts"]["K1b"] > 0
+          and host["counts"]["K1b"] % 6 == 0, f"lazy shards: launches {host['counts']} / "
+          f"{dev['counts']}")
+    err = max(float((a.detach().float() - b.detach().float()).abs().max()) for a, b in zip(
+        tree_leaves(host["trainer"].state.params), tree_leaves(dev["trainer"].state.params)))
+    for a, b in zip(tree_leaves(host["trainer"].state.params),
+                    tree_leaves(dev["trainer"].state.params)):
+        compare("lazy vs sliced shards: parameters", a, b, TOL[torch.bfloat16])
+    print(f"lazy shards: shards of {host['shard']} trials a subject, 2 epochs: max_host_trials "
+          f"{host['s']:.2f} s, max_device_trials {dev['s']:.2f} s (K1b {host['counts']['K1b']} "
+          f"each); final parameters max abs diff {err:.3e}  [{gpu_line()}]")
+    return {"counts": host["counts"], "host_s": host["s"], "device_s": dev["s"], "err": err,
+            "shard": host["shard"]}
+
+
+EXPORT_FAMILIES = (("flash", "flash", {}), ("fused", "fused", {}), ("moe", "fused", MOE),
+                   ("moe_capacity", "flash", {**MOE, "moe_capacity_factor": 1.25}))
+# tokens an exported predictor decodes: tracing the decode loop is most of
+# an export's time (a depth cut; the widths are the headline's)
+EXPORT_DEC_LEN = 6
+
+
+def conformer_export_phase() -> dict:
+    """``export_predictor`` of the headline conformer under 'flash' and
+    'fused' and of its MoE (no-drop; capacity 1.25, a group a row), f32,
+    decoding ``EXPORT_DEC_LEN`` tokens, loaded back: calls at B=1, 17 and
+    256 (B·T' from 104 to 26624, across the depthwise conv's eager
+    crossover at 4096) launch per encode 4 K2f or 4 K3f and its K5f
+    through the program, two encodes a call; tokens equal the live
+    predictor's.  Returns the 'flash' program too (the TF32 check's)."""
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    rng = np.random.default_rng(21)
+    batches = [rng.standard_normal((B, T_RAW, 469), dtype=np.float32) for B in (1, 17, 256)]
+    results, programs = {}, {}
+    for name, impl, moe in EXPORT_FAMILIES:
+        config = conformer_config(torch.float32, impl)
+        config = dataclasses.replace(config, max_dec_len=EXPORT_DEC_LEN,
+                                     conformer=dataclasses.replace(config.conformer, **moe))
+        params = init_seq2seq(config, torch.Generator().manual_seed(0), device="cuda")
+        live = OnlinePredictor(params, config, TARGETS, max_samples=T_RAW, device="cuda")
+        kernel = {"flash": "K2f", "fused": "K3f"}[impl]
+        with tempfile.TemporaryDirectory() as path:
+            t0 = time.perf_counter()
+            export_predictor(live, path)
+            export_s = time.perf_counter() - t0
+            loaded = load_exported_predictor(path)
+        loaded(batches[0])  # warm-up
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        outs = [loaded(x) for x in batches]
+        counts = read_counts()
+        # ------------------------------------------------------------------
+        encodes = ENCODES_PER_CALL * len(batches)
+        check_counts(f"exported {name}", counts,
+                     {kernel: encodes * nb, "K5f": encodes * nb * LN_PER_BLOCK[impl]})
+        for x, out in zip(batches, outs):
+            tokens, probs = out["tokens"], out["probabilities"]
+            check(tokens.shape == probs.shape == (x.shape[0], EXPORT_DEC_LEN)
+                  and bool(np.isfinite(probs).all()), f"exported {name}: {tokens.shape}")
+            check(np.array_equal(out["tokens"], live(x)["tokens"]),
+                  f"exported {name} B={x.shape[0]}: tokens != the live predictor's")
+        print(f"export ({name}, f32): exported and saved in {export_s:.1f} s; B=1, 17, 256 "
+              f"through the program: {counts[kernel]} {kernel} + {counts['K5f']} K5f "
+              f"({nb} {kernel} an encode); tokens == the live predictor's  [{gpu_line()}]")
+        results[name] = {"counts": counts, "export_s": export_s}
+        if name == "flash":
+            programs = {"loaded": loaded, "params": params, "config": config}
+    return results, programs
+
+
+def tf32_phase(flash: dict) -> dict:
+    """With cuDNN's default flags (TF32 allowed in convolutions, matmuls in
+    full f32), just for this check: an f32 conformer encode at B=256,
+    T'=104 on the card against the same encode on the CPU, and the f32
+    exported 'flash' program at B=256 against the CPU predictor, both at
+    f32 rtol 1e-4 / atol 1e-5; the run's settings (TF32 off) for
+    comparison, and a bare f32 depthwise ``F.conv1d`` at the conformer's
+    shape against float64 under both."""
+    config, params = flash["config"], flash["params"]
+    rng = np.random.default_rng(32)
+    x = rng.standard_normal((256, T_RAW, 469), dtype=np.float32)
+    lengths = torch.full((256,), T_RAW, dtype=torch.int32)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    with torch.inference_mode():
+        # the predictor's function (serve._predict) from one encode on the CPU
+        want, final, enc_lengths = encode(cpu_params, config, torch.from_numpy(x), lengths, 0)
+        want_tokens = decode_from_encoder(cpu_params, config, want, final, enc_lengths)
+        logits = decoder_teacher_forcing(cpu_params, config, final, want_tokens, enc_out=want,
+                                         enc_lengths=enc_lengths)
+        want_probs = torch.gather(torch.softmax(logits, dim=-1), -1,
+                                  want_tokens.long().T[..., None])[..., 0].T
+    D, K = HEADLINE_CONFORMER["model_dim"], HEADLINE_CONFORMER["conv_kernel"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    h = torch.randn((256, D, T_STEPS + K - 1), generator=g, device="cuda")
+    w = torch.randn((D, 1, K), generator=g, device="cuda")
+    conv_want = torch.nn.functional.conv1d(h.double(), w.double(), groups=D)
+    run_flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    out = {}
+    try:
+        for label, flags in (("default", (True, False)), ("tf32_off", run_flags)):
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+            xc, lc = _cuda_batch(x)
+            with torch.inference_mode():
+                got = encode(params, config, xc, lc, 0)[0].cpu()
+                conv = torch.nn.functional.conv1d(h, w, groups=D)
+            exported = flash["loaded"](x)
+            diff = (got - want).abs()
+            p_diff = (torch.from_numpy(exported["probabilities"]) - want_probs).abs()
+            out[label] = {
+                "encode_max_abs_err": float(diff.max()),
+                "encode_in_tol": bool((diff <= 1e-5 + 1e-4 * want.abs()).all()),
+                "export_prob_max_abs_err": float(p_diff.max()),
+                "export_in_tol": bool((p_diff <= 1e-5 + 1e-4 * want_probs.abs()).all()),
+                "export_tokens_equal": bool(np.array_equal(exported["tokens"],
+                                                           want_tokens.numpy())),
+                "conv1d_max_abs_err": float((conv.double() - conv_want).abs().max()),
+            }
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = run_flags
+    d = out["default"]
+    print("TF32 check (cuDNN defaults: cudnn.allow_tf32=True, matmul.allow_tf32=False): f32 "
+          f"conformer encode B=256 T'={T_STEPS} card vs CPU max abs err "
+          f"{d['encode_max_abs_err']:.3e} (TF32 off {out['tf32_off']['encode_max_abs_err']:.3e}); "
+          f"exported f32 'flash' program B=256 probabilities vs CPU {d['export_prob_max_abs_err']:.3e}"
+          f" (TF32 off {out['tf32_off']['export_prob_max_abs_err']:.3e}), tokens equal "
+          f"{d['export_tokens_equal']}; a bare f32 depthwise conv1d (D={D}, K={K}) vs float64 "
+          f"{d['conv1d_max_abs_err']:.3e} (TF32 off {out['tf32_off']['conv1d_max_abs_err']:.3e})"
+          f"  [{gpu_line()}]")
+    for label, r in out.items():
+        check(r["encode_in_tol"], f"TF32 check ({label}): the f32 encode is outside the f32 "
+                                  f"tolerance of the CPU's ({r['encode_max_abs_err']:.3e})")
+        check(r["export_tokens_equal"] and r["export_in_tol"],
+              f"TF32 check ({label}): the exported program differs from the CPU predictor "
+              f"({r['export_prob_max_abs_err']:.3e})")
+    return out
+
+
+def trainer_tools_phase(root: str) -> dict:
+    """Phase 21's trainer paths on one two-subject experiment, in order."""
+    t0 = time.perf_counter()
+    manifest = transfer_experiment(root)
+    logdir = f"{root}/xfer/tb"
+    trainer = transfer_trainer(manifest, tf_summaries_dir=logdir)
+    trainer.write_tf_records_maybe()
+    setup_s = time.perf_counter() - t0
+    print(f"phase 21 set-up: demo experiment of 2 subjects at the benchmark's widths, records "
+          f"written in {setup_s:.2f} s")
+    out = {"setup_s": setup_s}
+    out["curriculum"] = curriculum_phase(trainer, logdir)
+    out["rollback"] = rollback_phase(trainer)
+    out["recovery"] = recovery_phase(manifest, trainer)
+    out["tf1"] = tf1_phase(manifest, trainer, out["recovery"]["want"])
+    out["analysis"] = analysis_phase(trainer)
+    out["lazy"] = lazy_shard_phase(manifest)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a GPU",
@@ -3568,6 +4080,11 @@ def main() -> int:
         int8 = int8_serving_phase(ctc_params)
         feat = featurization_phase()
         raw_session = raw_session_phase(ctc_params)
+        del ctc_params
+        tools = trainer_tools_phase(root)
+        cexport, flash_program = conformer_export_phase()
+        tf32 = tf32_phase(flash_program)
+        del flash_program
     t256, t1 = kern["timings"][256], kern["timings"][1]
     b256 = kern_b["timings"][256]
     nb = HEADLINE_CONFORMER["num_blocks"]
@@ -3833,7 +4350,19 @@ def main() -> int:
                  "session_chunk_ms": {i: int8[i]["chunk_ms"] for i in ("flash", "fused")}},
         "featurization": feat,
         "raw_session": {k: raw_session[k] for k in ("push_ms", "partial_ms", "encodes",
-                                                    "packets")}}
+                                                    "packets")},
+        "trainer_tools": {
+            "setup_s": tools["setup_s"],
+            "curriculum": {k: tools["curriculum"][k] for k in ("total_s", "steps", "fit_s",
+                                                                "wers")},
+            "rollback_s": tools["rollback"]["s"], "recovery_assess_s": tools["recovery"]["s"],
+            "tf1_import_s": tools["tf1"]["s"], "saliencies_s": tools["analysis"]["sal_s"],
+            "activations_s": tools["analysis"]["act_s"],
+            "saliency_f32_err": tools["analysis"]["sal_err"],
+            "activations_f32_err": tools["analysis"]["act_err"],
+            "lazy_shards": {k: tools["lazy"][k] for k in ("host_s", "device_s", "err", "shard")}},
+        "conformer_export_s": {name: r["export_s"] for name, r in cexport.items()},
+        "tf32": tf32}
     # the launches of this slice's main paths, beside each kernel's earlier ones
     slice_paths = {
         "K1f": {"launches_beam": beam["True"]["counts"]["K1f"],
@@ -3873,9 +4402,27 @@ def main() -> int:
         **{k: {"launches_moe_training": moe_train["counts"][k]}
            for k in ("K2b-dq", "K2b-dkv", "K5b")},
     }
+    # the launches of phase 21's paths: the trainer's tools, conformer export
+    tc, an, lz = tools["curriculum"], tools["analysis"], tools["lazy"]
+    tools_paths = {
+        "K1f": {"launches_curriculum": tc["counts"]["K1f"],
+                "launches_recovery": tools["recovery"]["counts"]["K1f"],
+                "launches_saliencies": an["sal_counts"]["K1f"],
+                "launches_activations": an["act_counts"]["K1f"],
+                "launches_lazy_shards": lz["counts"]["K1f"]},
+        "K1b": {"launches_curriculum": tc["counts"]["K1b"],
+                "launches_curriculum_by_fit": [c["K1b"] for c in tc["fit_counts"]],
+                "launches_saliencies": an["sal_counts"]["K1b"],
+                "launches_lazy_shards": lz["counts"]["K1b"]},
+        "K2f": {"launches_export": {n: cexport[n]["counts"]["K2f"]
+                                    for n in ("flash", "moe_capacity")}},
+        "K3f": {"launches_export": {n: cexport[n]["counts"]["K3f"] for n in ("fused", "moe")}},
+        "K5f": {"launches_export": {n: r["counts"]["K5f"] for n, r in cexport.items()}},
+    }
     for entry in line["kernels"]:
         entry.update(slice_paths.get(ids[entry["name"]], {}))
         entry.update(moe_paths.get(ids[entry["name"]], {}))
+        entry.update(tools_paths.get(ids[entry["name"]], {}))
     print(json.dumps(line))
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -14,17 +14,22 @@ Package layout (the slices ported so far):
     records     — TFRecord container + tf.train.Example codec
     datagen     — ECoGDataGenerator contract + synthetic generator
     subjects    — ECoGSubject, SequenceDataManifest
-    pipeline    — records → padded, stacked corpus arrays + schedules
+    pipeline    — records → padded, stacked corpus arrays + schedules; lazy
+                  and sliced shards, the prefetch worker
     demo        — a synthetic demo experiment on disk
     ops         — LSTM scans + the hand-written Hopper kernels (LSTM
                   recurrences, banded attention, LayerNorm)
     models      — seq2seq encoder-decoder (biLSTM and conformer families),
                   beam search, the CTC head and its lexicon search
-    train       — MultiSubjectTrainer, segment runner, EMA, assessment
+    train       — MultiSubjectTrainer, segment runner, EMA, assessment,
+                  transfer curricula, scope masks, schedules, the trainer's
+                  inspection and analysis tools
     assess      — WER / accuracy / confusions
     convert     — parameter trees across the two packages, checkpoints
     serve       — online predictor and its export, the streaming sessions
                   and the streaming pool
+    utils       — checkpoint introspection, TensorBoard summaries, the
+                  import of the reference's TF1 checkpoints
 
 Entry points that create tensors default to ``device="cuda"`` and raise
 when no GPU is present unless the caller asks for the CPU explicitly.

@@ -363,8 +363,11 @@ def _conv_module(p, x, tail=None, cd=torch.float32, valid=None):
         tail = torch.zeros((B, K - 1, D), dtype=h.dtype, device=h.device)
     h_padded = torch.cat([tail, h], dim=1)  # (B, T+K-1, D)
     # as in the JAX package: one grouped convolution at large B·T, K
-    # shifted adds at small B·T (they differ in summation order only)
-    if B * T >= 4096:
+    # shifted adds at small B·T (they differ in summation order only).  A
+    # symbolic batch (``torch.export``) cannot decide the crossover: it
+    # takes the convolution, the branch of every batch at scale, as JAX
+    # does (a guard on the batch would contradict the exported range)
+    if isinstance(B, torch.SymInt) or torch.compiler.is_exporting() or B * T >= 4096:
         kernel = p["dw"].to(cd).T[:, None, :]  # (D, 1, K)
         out = F.conv1d(h_padded.transpose(1, 2), kernel, groups=D).transpose(1, 2)
     else:

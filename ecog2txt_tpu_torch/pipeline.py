@@ -269,6 +269,214 @@ def pack_partition(
     return packed
 
 
+class LazyShardedDataset:
+    """Shard-at-a-time loader over TFRecords: host memory stays
+    O(shard), never O(corpus).
+
+    Construction makes ONE streaming pass over the partition's records
+    to learn the global padding dims and retain only the SMALL per-
+    trial tensors (decoder targets, CTC label sequences, reference
+    strings) plus each trial's (file, record#) address.  Iterating
+    yields :class:`PackedDataset` shards of ``shard_trials`` rows whose
+    heavy tensors (ECoG, frame-aligned aux) are re-read on demand
+    through :class:`records.RecordFile` — random access over the mmap'd
+    framing index, so a shard touches only its own bytes.
+
+    Every shard has identical shapes (global dims); shard k holds rows [k·shard, (k+1)·shard) of
+    EVERY subject, exactly like ``shard_dataset`` slicing a fully
+    packed partition (asserted equal in tests)."""
+
+    def __init__(
+        self,
+        subjects: Sequence[ECoGSubject],
+        partition: str,
+        shard_trials: int,
+        pad_channels_to: int | None = None,
+        pad_time_multiple: int | None = None,
+        max_samples: int | None = None,
+        trial_subset: dict[int, Sequence[int]] | None = None,
+    ):
+        from .records import read_examples
+
+        self.subjects = list(subjects)
+        self.partition = partition
+        self.shard_trials = int(shard_trials)
+        self._meta: list[dict] = []  # per subject
+        per_subject_probe = []
+        for subject in self.subjects:
+            manifests = subject.data_manifests
+            cap = max_samples or subject.data_generator.max_samples
+            aux_keys: dict[str, str] = {}
+            small: list[dict] = []  # per trial: address + small tensors
+            probe_trials = []
+            for block in sorted(subject.block_ids(partition)):
+                path = subject.data_generator.tf_record_path(block)
+                for r, raw in enumerate(read_examples(path)):
+                    example = {
+                        key: manifest.parse(raw[manifest.sequence_type])
+                        for key, manifest in manifests.items()
+                        if raw.get(manifest.sequence_type) is not None
+                    }
+                    trial = _trial_from_example(
+                        example, manifests, cap, aux_keys
+                    )
+                    # measure, then DROP the heavy tensors
+                    probe_trials.append(
+                        {
+                            "encoder_inputs": trial["encoder_inputs"][:0],
+                            "decoder_targets": trial["decoder_targets"],
+                            **{
+                                k: trial[k]
+                                for k, d in aux_keys.items()
+                                if k in trial and d == "CTC"
+                            },
+                        }
+                    )
+                    t_shape = trial["encoder_inputs"].shape
+                    gauss = {
+                        k: trial[k].shape[1]
+                        for k, d in aux_keys.items()
+                        if k in trial and d not in ("CTC", "categorical")
+                        and trial[k].ndim == 2
+                    }
+                    small.append(
+                        {
+                            "path": path,
+                            "record": r,
+                            "T": int(t_shape[0]),
+                            "C": int(t_shape[1]),
+                            "gauss": gauss,
+                            "decoder_targets": trial["decoder_targets"],
+                            "ctc": {
+                                k: trial[k]
+                                for k, d in aux_keys.items()
+                                if k in trial and d == "CTC"
+                            },
+                        }
+                    )
+            self._meta.append(
+                {
+                    "manifests": manifests,
+                    "cap": cap,
+                    "aux_keys": aux_keys,
+                    "trials": small,
+                }
+            )
+            per_subject_probe.append(
+                {
+                    "trials": probe_trials,
+                    "manifests": manifests,
+                    "aux_keys": aux_keys,
+                }
+            )
+        dims = _measure_dims(
+            per_subject_probe, pad_channels_to, pad_time_multiple
+        )
+        # dims from the probe lack T/C (heavy tensors were dropped) and
+        # Gaussian feature dims — restore them from the recorded shapes
+        T_raw = max(
+            (t["T"] for m in self._meta for t in m["trials"]), default=0
+        )
+        decim = pad_time_multiple or 1
+        dims.T_max = _round_up(max(T_raw, decim), decim)
+        dims.C_max = max(
+            max(
+                (t["C"] for m in self._meta for t in m["trials"]),
+                default=0,
+            ),
+            pad_channels_to or 0,
+        )
+        for key in list(dims.aux_gauss_dim):
+            dims.aux_gauss_dim[key] = max(
+                (
+                    t["gauss"].get(key, 1)
+                    for m in self._meta
+                    for t in m["trials"]
+                ),
+                default=1,
+            )
+        dims.N_max = self.shard_trials
+        # restricted trial subsets (perf-vs-training-size sweeps on a
+        # host-memory-bounded corpus): keep only the chosen trials of a
+        # subject, compacted to the front — the lazy mirror of
+        # restrict_trials.  Applied AFTER the dims probe, so padding
+        # dims match the resident path (restrict_trials slices rows of
+        # the already-packed full partition and keeps its padding).
+        for s, indices in (trial_subset or {}).items():
+            trials = self._meta[s]["trials"]
+            self._meta[s]["trials"] = [
+                trials[i] for i in sorted(int(i) for i in indices)
+            ]
+        self.dims = dims
+        self._record_files: dict[str, Any] = {}
+
+    @property
+    def num_trials(self) -> np.ndarray:
+        return np.asarray([len(m["trials"]) for m in self._meta])
+
+    def trial_lengths(self, subject_index: int) -> np.ndarray:
+        """Raw (pre-pad) time lengths of one subject's trials — lets
+        the perf-vs-training-size sweep compute seconds-of-speech
+        without materializing the corpus."""
+        return np.asarray(
+            [t["T"] for t in self._meta[subject_index]["trials"]],
+            np.int64,
+        )
+
+    @property
+    def num_subjects(self) -> int:
+        return len(self._meta)
+
+    def __len__(self) -> int:
+        n = int(self.num_trials.max()) if len(self._meta) else 0
+        return max(-(-n // self.shard_trials), 1)
+
+    def _record_file(self, path: str):
+        from .records import RecordFile
+
+        rf = self._record_files.get(path)
+        if rf is None:
+            rf = self._record_files[path] = RecordFile(path)
+        return rf
+
+    def _materialize(self, start: int, end: int) -> PackedDataset:
+        per_subject = []
+        for meta in self._meta:
+            manifests = meta["manifests"]
+            trials = []
+            for info in meta["trials"][start:end]:
+                raw = self._record_file(info["path"]).example(info["record"])
+                example = {
+                    key: manifest.parse(raw[manifest.sequence_type])
+                    for key, manifest in manifests.items()
+                    if raw.get(manifest.sequence_type) is not None
+                }
+                trials.append(
+                    _trial_from_example(
+                        example, manifests, meta["cap"], dict(meta["aux_keys"])
+                    )
+                )
+            per_subject.append(
+                {
+                    "trials": trials,
+                    "manifests": manifests,
+                    "aux_keys": meta["aux_keys"],
+                }
+            )
+        return _pack_trials(per_subject, self.dims)
+
+    def __iter__(self):
+        for k in range(len(self)):
+            yield self._materialize(
+                k * self.shard_trials, (k + 1) * self.shard_trials
+            )
+
+    def close(self) -> None:
+        for rf in self._record_files.values():
+            rf.close()
+        self._record_files.clear()
+
+
 def restrict_trials(
     dataset: PackedDataset, subject_index: int, indices: Sequence[int]
 ) -> PackedDataset:
@@ -296,6 +504,96 @@ def restrict_trials(
         trial_mask=take(dataset.trial_mask),
         references=refs,
     )
+
+
+def shard_dataset(
+    dataset: PackedDataset, shard_trials: int
+) -> list[PackedDataset]:
+    """Slice a packed dataset along the trial axis into equal-size
+    shards (the last one zero-padded with masked rows).  The host-
+    sharded streaming path for corpora exceeding device memory: shards
+    upload one at a time, every shard with the same shapes."""
+    N = dataset.encoder_inputs.shape[1]
+    shard_trials = int(shard_trials)
+    shards = []
+    for start in range(0, N, shard_trials):
+        end = min(start + shard_trials, N)
+        pad = shard_trials - (end - start)
+
+        def cut(a: np.ndarray) -> np.ndarray:
+            piece = a[:, start:end]
+            if pad:
+                widths = [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2)
+                piece = np.pad(piece, widths)
+            return piece
+
+        refs = [
+            r[start:end] + [[]] * pad for r in dataset.references
+        ]
+        shards.append(
+            PackedDataset(
+                encoder_inputs=cut(dataset.encoder_inputs),
+                encoder_lengths=cut(dataset.encoder_lengths),
+                decoder_targets=cut(dataset.decoder_targets),
+                decoder_lengths=cut(dataset.decoder_lengths),
+                aux_targets={
+                    k: cut(v) for k, v in dataset.aux_targets.items()
+                },
+                trial_mask=cut(dataset.trial_mask),
+                references=refs,
+            )
+        )
+    return shards
+
+
+_PREFETCH_END = object()
+
+
+def prefetch(produce, depth: int = 1):
+    """Run ``produce()`` (pull-next-item + host prep + device upload) in
+    a single background thread, up to ``depth`` items ahead of the
+    consumer — the streaming trainer's input pipeline overlap: while
+    the device trains shard k, the host reads/packs/uploads shard k+1
+    instead of idling the device between shards.
+
+    ``produce`` must return :data:`_PREFETCH_END` when exhausted; one
+    worker thread keeps pulls strictly ordered, so rng-dependent
+    schedules are drawn in exactly the sequential order (the
+    lazy-trajectory test asserts the same trajectory either way).  The
+    trainer's ``produce`` uploads on a CUDA stream of its own and waits
+    for it in the worker, so the copy overlaps the training kernels.
+
+    DEVICE-MEMORY NOTE: with the default ``depth=1``, at most TWO
+    uploaded shards are resident at once (the one training + the one
+    prefetched) — a ``max_device_trials`` budget must leave room for
+    both.  ``depth=0`` restores the strictly-one-shard behavior (no
+    overlap)."""
+    import concurrent.futures
+    from collections import deque
+
+    if depth <= 0:  # no overlap: strictly one shard alive at a time
+        while True:
+            item = produce()
+            if item is _PREFETCH_END:
+                return
+            yield item
+
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        pending = deque([ex.submit(produce)])
+        try:
+            while pending:
+                item = pending.popleft().result()
+                if item is _PREFETCH_END:
+                    break
+                # keep exactly `depth` producers in flight: while the
+                # consumer holds this item, at most `depth` more shards
+                # can complete — never an unbounded backlog
+                while len(pending) < max(depth, 1):
+                    pending.append(ex.submit(produce))
+                yield item
+        finally:
+            for fut in pending:
+                fut.cancel()
 
 
 def make_schedule(

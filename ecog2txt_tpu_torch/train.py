@@ -1,33 +1,51 @@
 """Training orchestration: the segment runner and the MultiSubjectTrainer.
 
-The twin of ``ecog2txt_tpu/train.py`` on the resident path:
+The twin of ``ecog2txt_tpu/train.py`` on one device:
 
-* the whole corpus lives on the device (``device_data``; the ECoG inputs
-  in bf16 under bf16 compute), and each step gathers
-  ``data[subject][idx]`` there from a host-made schedule;
+* the corpus lives on the device (``device_data``; the ECoG inputs in
+  bf16 under bf16 compute), and each step gathers ``data[subject][idx]``
+  there from a host-made schedule.  ``SN_kwargs`` ``max_device_trials``
+  streams it instead in shards of that many trials a subject, and
+  ``max_host_trials`` reads the shards lazily from the records
+  (``pipeline.LazyShardedDataset``), so that host memory holds a shard,
+  not the corpus; a worker thread reads and uploads the next shard while
+  the device trains the current one (``pipeline.prefetch``);
 * a training step is ``seq2seq_loss`` with dropout → gradients (through
   the Hopper kernels K1f/K1b when ``use_pallas_lstm`` is True, K4f/K4b
-  when it is ``'bi_grid'``) → clip by global
-  norm 10 (optax's rule, ``g * 10 / max(|g|, 10)``) → Adam (β 0.9 /
-  0.999, eps 1e-8, optax's defaults) → EMA ``d * e + (1 - d) * p``;
+  when it is ``'bi_grid'``) → clip by global norm 10 (optax's rule,
+  ``g * 10 / max(|g|, 10)``) → Adam (β 0.9 / 0.999, eps 1e-8, optax's
+  defaults) at a constant learning rate or optax's warmup schedules
+  (``warmup_steps``, ``lr_schedule='warmup_cosine'``) → leaves outside
+  ``train_vars_scope`` put back as they were (optax's
+  ``masked(set_to_zero)``: they still count in the clip's norm and their
+  Adam moments still advance) → EMA ``d * e + (1 - d) * p`` over every
+  leaf;
 * an assessment interval of epochs is one call of the segment runner,
   which returns the segment's mean metrics; assessment greedy-decodes
   (or temperature-samples), or beam-searches when ``beam_width`` > 1
-  (``models/beam.py``), with the EMA weights.
+  (``models/beam.py``), with the EMA weights; ``tf_summaries_dir``
+  writes the curves as TensorBoard scalars (``utils/summaries.py``).
 
-Checkpoints are ``convert.save_checkpoint`` files (``ckpt-<epoch>.pt``).
-What ``fit`` does beyond the resident path (host-sharded and lazy
-streaming, meshes, summaries, scope masks, learning-rate schedules) is
-not ported yet: asking for it raises ``NotImplementedError``.  A
-non-finite loss raises ``FloatingPointError`` without the JAX trainer's
-rollback to a checkpoint.
+Checkpoints are ``convert.save_checkpoint`` files (``ckpt-<epoch>.pt``),
+written synchronously.  A non-finite segment loss restores the newest
+checkpoint, then raises ``FloatingPointError``.  ``restore`` rebuilds the
+net from a checkpoint of another architecture (``utils/introspect.py``),
+and ``import_tf1_checkpoint`` reads the reference's TF1 checkpoints
+(``utils/tf1_import.py``).  ``sequential_transfer_learn`` is the
+reference's subject-by-subject curriculum.  The parallel modes
+(``SN_kwargs`` ``data_parallel`` and the others of
+``_UNPORTED_SN_KWARGS``) and ``cluster_embedded_words`` are not ported
+yet: asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 import pickle
 import re
+import warnings
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -42,25 +60,42 @@ from .models.conformer import ConformerConfig
 from .models.seq2seq import (
     AuxHead,
     Seq2SeqConfig,
+    _decimate_targets,
+    convolve_sequences,
+    encode,
     greedy_decode,
     init_seq2seq,
     seq2seq_loss,
 )
-from .pipeline import PackedDataset, make_schedule, pack_partition
+from .ops.lstm import reverse_padded
+from .pipeline import (
+    _PREFETCH_END,
+    LazyShardedDataset,
+    PackedDataset,
+    make_schedule,
+    pack_partition,
+    prefetch,
+    restrict_trials,
+    shard_dataset,
+)
+from .records import read_examples
 from .subjects import ECoGSubject
 from .tokenizers import (
     read_vocab_file,
     target_inds_to_sequences,
     with_special_tokens,
 )
+from .utils import tf1_import
+from .utils.introspect import _shape_tree, recover_model_sizes
+from .utils.summaries import SummaryWriter
 
-_NOT_PORTED = "is not ported yet (see ROADMAP.md, Queue 1, item 3)"
-# SN_kwargs of the JAX trainer that the port does not take yet
+# SN_kwargs of the JAX trainer that the port does not take yet: the
+# parallel modes
 _UNPORTED_SN_KWARGS = (
     "distributed", "data_parallel", "sequence_parallel", "pipeline_parallel",
-    "tensor_parallel", "expert_parallel", "max_host_trials",
-    "max_device_trials", "warmup_steps", "lr_schedule",
+    "tensor_parallel", "expert_parallel",
 )
+_NOT_PORTED_PARALLEL = "is not ported yet (see ROADMAP.md, Queue 1, item 10)"
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 CLIP_NORM = 10.0  # clip_by_global_norm(10), as the JAX trainer's optimizer
 
@@ -72,12 +107,100 @@ class TrainState(NamedTuple):
     epoch: int
 
 
-def make_optimizer(params, learning_rate: float) -> torch.optim.Adam:
-    """Adam over the parameter leaves with optax's defaults."""
-    leaves = tree_leaves(params)
-    for p in leaves:
-        p.requires_grad_(True)
-    return torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+def lr_schedule(
+    learning_rate: float,
+    warmup_steps: int = 0,
+    total_steps: int | None = None,
+    kind: str | None = None,
+) -> Callable[[int], float] | None:
+    """The learning rate of the optimizer's update number ``count`` (from
+    0), as ``_make_optimizer`` of the JAX trainer schedules it; None for a
+    constant rate.  With ``warmup_steps`` and ``total_steps``:
+    ``kind='warmup_cosine'`` is ``optax.warmup_cosine_decay_schedule(0, lr,
+    warmup, max(total, warmup + 1))`` (the decay steps include the warmup;
+    the rate reaches 0 at their end), anything else
+    ``optax.linear_schedule(0, lr, warmup)``.  Both give the first update
+    rate 0."""
+    warmup = int(warmup_steps or 0)
+    if not (warmup and total_steps):
+        return None
+
+    def linear(count: int) -> float:
+        frac = 1.0 - min(max(count, 0), warmup) / warmup
+        return (0.0 - learning_rate) * frac + learning_rate
+
+    if kind != "warmup_cosine":
+        return linear
+    decay = max(int(total_steps), warmup + 1) - warmup
+
+    def warmup_cosine(count: int) -> float:
+        if count < warmup:
+            return linear(count)
+        t = min(count - warmup, decay)
+        return learning_rate * 0.5 * (1.0 + math.cos(math.pi * t / decay))
+
+    return warmup_cosine
+
+
+class Optimizer:
+    """optax's ``chain(clip_by_global_norm(10), adam(lr),
+    masked(set_to_zero(), frozen))`` over the leaves of a parameter tree,
+    on ``torch.optim.Adam`` with optax's defaults.
+
+    ``schedule`` (``lr_schedule``) gives each update's rate from the
+    update count, which starts at 0 with the optimizer; None keeps
+    ``learning_rate``.  ``trainable`` is a tree of bools of the
+    parameters' structure (``MultiSubjectTrainer._scope_mask``), None for
+    all: a frozen leaf is put back bit for bit after each Adam step, so
+    that, as under optax's mask, it still counts in the clip's global norm
+    and its moments still advance.  ``learning_rates`` holds the rate of
+    every update taken."""
+
+    def __init__(self, params, learning_rate: float, schedule=None, trainable=None):
+        self.leaves = tree_leaves(params)
+        for p in self.leaves:
+            p.requires_grad_(True)
+        self.adam = torch.optim.Adam(
+            self.leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
+        )
+        self.learning_rate = learning_rate
+        self.learning_rates: list[float] = []  # one an update: its count
+        self.set_rule(schedule, trainable)
+
+    def set_rule(self, schedule=None, trainable=None) -> None:
+        """Replace the schedule and the trainable mask (the Adam state and
+        the updates taken stay)."""
+        self.schedule = schedule
+        flags = [True] * len(self.leaves) if trainable is None else tree_leaves(trainable)
+        if len(flags) != len(self.leaves):
+            raise ValueError(
+                f"trainable mask has {len(flags)} leaves; the parameters {len(self.leaves)}"
+            )
+        self.frozen = [p for p, keep in zip(self.leaves, flags) if not keep]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.adam.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> float:
+        """One Adam update at the rate of its count; returns the rate."""
+        count = len(self.learning_rates)
+        lr = self.learning_rate if self.schedule is None else self.schedule(count)
+        for group in self.adam.param_groups:
+            group["lr"] = lr
+        with torch.no_grad():
+            kept = [p.detach().clone() for p in self.frozen]
+            self.adam.step()
+            if kept:
+                torch._foreach_copy_(self.frozen, kept)
+        self.learning_rates.append(lr)
+        return lr
+
+
+def make_optimizer(
+    params, learning_rate: float, schedule=None, trainable=None
+) -> Optimizer:
+    """:class:`Optimizer` over the parameter leaves (requires_grad on)."""
+    return Optimizer(params, learning_rate, schedule, trainable)
 
 
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
@@ -174,10 +297,11 @@ class MultiSubjectTrainer:
         self.SN_kwargs = dict(SN_kwargs or {})
         for key in _UNPORTED_SN_KWARGS:
             if self.SN_kwargs.get(key):
-                raise NotImplementedError(f"SN_kwargs[{key!r}] {_NOT_PORTED}")
+                raise NotImplementedError(f"SN_kwargs[{key!r}] {_NOT_PORTED_PARALLEL}")
         self.subject_ids = [int(s) for s in subject_ids]
         self._manifest_path = experiment_manifest_name
         self._text_dir = text_dir
+        self._trial_subset: dict[int, Any] = {}
         self.manifests = load_experiment_manifest(
             experiment_manifest_name, text_dir
         )
@@ -424,6 +548,7 @@ class MultiSubjectTrainer:
         self.assessment_epoch_interval = int(
             manifest.resolve("assessment_epoch_interval", default=10)
         )
+        self._summary_writer = None
         self.learning_rate = float(
             self.SN_kwargs.get(
                 "learning_rate", manifest.resolve("learning_rate", default=1e-3)
@@ -432,6 +557,12 @@ class MultiSubjectTrainer:
         self.batch_size = int(
             self.SN_kwargs.get("batch_size", manifest.resolve("batch_size", default=32))
         )
+        self._init_state()
+        self.assessments: dict[str, dict] = {}
+
+    def _init_state(self) -> None:
+        """Fresh parameters for ``net_config`` from the trainer's seed, and
+        empty data caches."""
         params = init_seq2seq(
             self.net_config, torch.Generator().manual_seed(self.seed), self.device
         )
@@ -443,7 +574,6 @@ class MultiSubjectTrainer:
         )
         self._datasets: dict[str, PackedDataset] = {}
         self._device_data: dict[str, dict] = {}
-        self.assessments: dict[str, dict] = {}
 
     # -- data ---------------------------------------------------------------
 
@@ -454,12 +584,16 @@ class MultiSubjectTrainer:
     def packed_dataset(self, partition: str, refresh: bool = False) -> PackedDataset:
         if refresh or partition not in self._datasets:
             self.write_tf_records_maybe()
-            self._datasets[partition] = pack_partition(
+            ds = pack_partition(
                 self.ecog_subjects,
                 partition,
                 pad_channels_to=self.net_config.in_channels,
                 pad_time_multiple=self.net_config.decimation_factor,
             )
+            if partition == "training":
+                for s, indices in self._trial_subset.items():
+                    ds = restrict_trials(ds, s, indices)
+            self._datasets[partition] = ds
             self._device_data.pop(partition, None)
         return self._datasets[partition]
 
@@ -470,21 +604,104 @@ class MultiSubjectTrainer:
         aux targets stay f32, since the regression losses compare
         against them directly."""
         if partition not in self._device_data:
-            ds = self.packed_dataset(partition)
-            cast = self.net_config.compute_dtype == torch.bfloat16
-
-            def put(k, v):
-                t = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                if cast and k == "encoder_inputs" and t.dtype == torch.float32:
-                    t = t.to(torch.bfloat16)
-                return t
-
-            self._device_data[partition] = {
-                k: put(k, v) for k, v in ds.batch_dict().items()
-            }
+            self._device_data[partition] = self._upload(
+                self.packed_dataset(partition).batch_dict()
+            )
         return self._device_data[partition]
 
+    def _upload(self, arrays: dict) -> dict:
+        """Host arrays → tensors on the device, ``encoder_inputs`` in bf16
+        under bf16 compute."""
+        cast = self.net_config.compute_dtype == torch.bfloat16
+
+        def put(k, v):
+            t = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            if cast and k == "encoder_inputs" and t.dtype == torch.float32:
+                t = t.to(torch.bfloat16)
+            return t
+
+        return {k: put(k, v) for k, v in arrays.items()}
+
+    def restricted_to_trials(
+        self, indices, subject_index: int = -1
+    ) -> "MultiSubjectTrainer":
+        """Fresh trainer (parameters from the seed) whose TRAINING set is
+        restricted to the given trial indices of one subject: the retrain
+        unit of the perf-vs-training-size sweep."""
+        clone = MultiSubjectTrainer(
+            self._manifest_path,
+            self.subject_ids,
+            text_dir=self._text_dir,
+            SN_kwargs=self.SN_kwargs,
+            DG_kwargs=self.DG_kwargs,
+            ES_kwargs=self.ES_kwargs,
+            RP_kwargs=self.RP_kwargs,
+            VERBOSE=False,
+            seed=self.seed,
+            device=self.device,
+            **self.kwargs,  # explicit *_vocab_list kwargs survive
+        )
+        s = subject_index if subject_index >= 0 else len(self.ecog_subjects) + subject_index
+        clone._trial_subset = {s: list(indices)}
+        return clone
+
+    # -- optimizers / scope masks ------------------------------------------
+
+    def _scope_mask(self, train_vars_scope: str | None):
+        """Trainability mask (a tree of bools of the parameters' structure)
+        from a scope regex matched at the start of ``"seq2seq/"`` + the
+        slash-joined leaf path ('seq2seq/subnet/conv/0/w',
+        'seq2seq/encoder/rnn/0/fwd/wx', ...): the reference's regexes
+        ``seq2seq/subnet`` and ``seq2seq/(?!subnet)`` work verbatim.  None
+        for no scope."""
+        if train_vars_scope is None:
+            return None
+        pattern = re.compile(train_vars_scope)
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                return {k: walk(v, path + [str(k)]) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [walk(v, path + [str(i)]) for i, v in enumerate(node)]
+            return bool(pattern.match("seq2seq/" + "/".join(path)))
+
+        return walk(self.state.params, [])
+
+    def _lr_schedule(self, total_steps: int):
+        """``SN_kwargs`` ``warmup_steps`` / ``lr_schedule`` over a fit of
+        ``total_steps`` updates (``lr_schedule``)."""
+        return lr_schedule(
+            self.learning_rate,
+            int(self.SN_kwargs.get("warmup_steps", 0)),
+            total_steps,
+            self.SN_kwargs.get("lr_schedule"),
+        )
+
     # -- core fit engine ----------------------------------------------------
+
+    @property
+    def summary_writer(self):
+        """TensorBoard scalars for the training curves (``tf_summaries_dir``:
+        SN_kwargs over the manifest; an explicit ``None`` in SN_kwargs
+        disables summaries even when the manifest names a directory).  The
+        event file is created on first access; a directory that cannot be
+        made warns once and disables summaries instead of failing the run."""
+        if self._summary_writer is None:
+            if "tf_summaries_dir" in self.SN_kwargs:
+                logdir = self.SN_kwargs["tf_summaries_dir"]
+            else:
+                logdir = self.manifest.resolve("tf_summaries_dir", default=None)
+            if not logdir:
+                self._summary_writer = False
+            else:
+                try:
+                    self._summary_writer = SummaryWriter(str(logdir))
+                except OSError as err:
+                    warnings.warn(
+                        f"tf_summaries_dir {logdir!r} unusable ({err}); summaries disabled"
+                    )
+                    self._summary_writer = False
+        return self._summary_writer or None
 
     def fit(
         self,
@@ -497,63 +714,173 @@ class MultiSubjectTrainer:
     ) -> dict[str, dict]:
         """Train for ``num_epochs``, assessing every
         ``assessment_epoch_interval``.  Returns the assessments history
-        keyed by epoch."""
-        if train_vars_scope is not None:
-            raise NotImplementedError(f"train_vars_scope (scope masks) {_NOT_PORTED}")
-        summaries = self.SN_kwargs.get(
-            "tf_summaries_dir", self.manifest.resolve("tf_summaries_dir")
-        )
-        if summaries:
-            raise NotImplementedError(f"tf_summaries_dir (summaries) {_NOT_PORTED}")
+        keyed by epoch.
+
+        ``train_vars_scope`` trains only the leaves it matches
+        (``_scope_mask``).  ``checkpoint_every_assessment`` (default: the
+        SN_kwargs key of that name) saves a checkpoint after each
+        interval.  A non-finite segment loss restores the newest
+        checkpoint and raises ``FloatingPointError``."""
         if checkpoint_every_assessment is None:
             checkpoint_every_assessment = bool(
                 self.SN_kwargs.get("checkpoint_every_assessment", False)
             )
         num_epochs = num_epochs or self.N_epochs
-        train_data = self.packed_dataset("training")
+        self.write_tf_records_maybe()
+        # the lazy host pipeline (max_host_trials): shards of that many
+        # trials (or of max_device_trials, if smaller) re-read from the
+        # records on demand; the corpus never sits whole in host memory
+        max_host = self.SN_kwargs.get("max_host_trials")
+        max_dev = self.SN_kwargs.get("max_device_trials")
+        lazy_shards = None
+        if max_host:
+            lazy_shards = LazyShardedDataset(
+                self.ecog_subjects,
+                "training",
+                min(int(max_host), int(max_dev or max_host)),
+                pad_channels_to=self.net_config.in_channels,
+                pad_time_multiple=self.net_config.decimation_factor,
+                trial_subset=self._trial_subset or None,
+            )
+            train_counts = lazy_shards.num_trials
+        else:
+            train_data = self.packed_dataset("training")
+            train_counts = train_data.num_trials
+        # the schedule's length counts every subject's steps, under
+        # subject_subset too, as the JAX trainer does
+        steps_per_epoch = sum(-(-int(n) // self.batch_size) for n in train_counts if n > 0)
+        total_steps = num_epochs * max(steps_per_epoch, 1)
+        schedule = self._lr_schedule(total_steps)
+        trainable = self._scope_mask(train_vars_scope)
+        if reset_optimizer or self.state.opt_state is None:
+            optimizer = make_optimizer(
+                self.state.params, self.learning_rate, schedule, trainable
+            )
+            self.state = self.state._replace(opt_state=optimizer)
+        else:
+            self.state.opt_state.set_rule(schedule, trainable)
         runner = make_segment_runner(
             self.net_config, self.penalty_scales, self.EMA_decay
         )
-        if reset_optimizer or self.state.opt_state is None:
-            self.state = self.state._replace(
-                opt_state=make_optimizer(self.state.params, self.learning_rate)
+        # host-sharded streaming when the corpus exceeds the device budget
+        # (max_device_trials): each shard trains `segment` epochs in turn
+        streaming = lazy_shards is not None or (
+            bool(max_dev) and train_data.encoder_inputs.shape[1] > int(max_dev)
+        )
+        if streaming:
+            shards = lazy_shards if lazy_shards is not None else shard_dataset(
+                train_data, int(max_dev)
             )
-        data = self.device_data("training")
+        else:
+            data = self.device_data("training")
         rng_np = np.random.default_rng(self.seed + int(self.state.epoch))
         history: dict[str, dict] = {}
         done = 0
-        while done < num_epochs:
-            segment = min(self.assessment_epoch_interval, num_epochs - done)
-            generator = torch.Generator(device=self.device).manual_seed(
-                self.seed + 1000 + int(self.state.epoch)
-            )
-            subjects_sched, idx_sched = make_schedule(
-                train_data, self.batch_size, segment, rng_np, subject_subset
-            )
-            self.state, metrics = runner(
-                self.state, data, subjects_sched, idx_sched, generator, segment
-            )
-            done += segment
-            epoch = int(self.state.epoch)
-            tm = {k: float(v) for k, v in metrics.items()}
-            if not np.isfinite(tm.get("loss_total", 0.0)):
-                raise FloatingPointError(
-                    f"non-finite loss at epoch {epoch} "
-                    f"(loss={tm['loss_total']}); rolling back to a "
-                    f"checkpoint {_NOT_PORTED}. Try a lower learning rate."
-                )
-            if assess:
-                snapshot = self.assess()
-                history[str(epoch)] = snapshot
-                self.vprint(
-                    f"epoch {epoch}: loss {tm['loss_total']:.4f} "
-                    f"train WER {snapshot['training']['word_error_rate']:.3f} "
-                    f"val WER {snapshot['validation']['word_error_rate']:.3f}"
-                )
-            if checkpoint_every_assessment:
-                self.save_checkpoint(epoch)
+        try:
+            while done < num_epochs:
+                segment = min(self.assessment_epoch_interval, num_epochs - done)
+                seed = self.seed + 1000 + int(self.state.epoch)
+                if streaming:
+                    for si, (subjects_sched, idx_sched), shard_dev in prefetch(
+                        self._shard_producer(shards, segment, rng_np, subject_subset)
+                    ):
+                        generator = torch.Generator(device=self.device).manual_seed(
+                            _fold_in(seed, si)
+                        )
+                        self.state, metrics = runner(
+                            self.state, shard_dev, subjects_sched, idx_sched,
+                            generator, 0,  # epochs counted once, below
+                        )
+                    self.state = self.state._replace(epoch=self.state.epoch + segment)
+                else:
+                    generator = torch.Generator(device=self.device).manual_seed(seed)
+                    subjects_sched, idx_sched = make_schedule(
+                        train_data, self.batch_size, segment, rng_np, subject_subset
+                    )
+                    self.state, metrics = runner(
+                        self.state, data, subjects_sched, idx_sched, generator, segment
+                    )
+                done += segment
+                epoch = int(self.state.epoch)
+                tm = {k: float(v) for k, v in metrics.items()}
+                # a diverged segment is rolled back to the newest checkpoint
+                # before it surfaces, so the state is never left non-finite
+                if not np.isfinite(tm.get("loss_total", 0.0)):
+                    recovered = ""
+                    if self.restore_epoch is not None:
+                        self.restore()
+                        recovered = (
+                            f"; restored checkpoint at epoch {int(self.state.epoch)}"
+                        )
+                    raise FloatingPointError(
+                        f"non-finite loss at epoch {epoch} "
+                        f"(loss={tm['loss_total']}){recovered}. Try a lower "
+                        "learning rate or warmup_steps."
+                    )
+                writer = self.summary_writer
+                if writer is not None:
+                    writer.scalars(
+                        {
+                            (f"loss/{k[5:]}" if k.startswith("loss_") else f"train/{k}"): v
+                            for k, v in tm.items()
+                        },
+                        epoch,
+                    )
+                if assess:
+                    snapshot = self.assess()
+                    history[str(epoch)] = snapshot
+                    self.vprint(
+                        f"epoch {epoch}: loss {tm['loss_total']:.4f} "
+                        f"train WER {snapshot['training']['word_error_rate']:.3f} "
+                        f"val WER {snapshot['validation']['word_error_rate']:.3f}"
+                    )
+                    if writer is not None:
+                        writer.scalars(
+                            {
+                                f"{part}/{key}": snap[key]
+                                for part, snap in snapshot.items()
+                                for key in ("accuracy", "word_error_rate")
+                            },
+                            epoch,
+                        )
+                if writer is not None:
+                    writer.flush()
+                if checkpoint_every_assessment:
+                    self.save_checkpoint(epoch)
+        finally:
+            if lazy_shards is not None:
+                lazy_shards.close()
         self.assessments = history
         return history
+
+    def _shard_producer(self, shards, segment: int, rng_np, subject_subset):
+        """``produce`` for ``pipeline.prefetch``: each call takes the next
+        shard with trials of the scheduled subjects, draws its schedule
+        (the draws stay in shard order) and uploads it; on a CUDA device
+        the upload runs on a stream of its own, which the worker waits
+        for.  Returns ``(si, schedule, tensors)`` or ``_PREFETCH_END``."""
+        shard_iter = enumerate(shards)
+        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+        def produce():
+            for si, shard in shard_iter:
+                counts = shard.num_trials
+                if subject_subset is not None:
+                    counts = counts[list(subject_subset)]
+                if not int(counts.sum()):
+                    continue
+                sched = make_schedule(
+                    shard, self.batch_size, segment, rng_np, subject_subset
+                )
+                if stream is None:
+                    return si, sched, self._upload(shard.batch_dict())
+                with torch.cuda.stream(stream):
+                    tensors = self._upload(shard.batch_dict())
+                stream.synchronize()
+                return si, sched, _on_current_stream(tensors)
+            return _PREFETCH_END
+
+        return produce
 
     # -- assessment ---------------------------------------------------------
 
@@ -650,6 +977,34 @@ class MultiSubjectTrainer:
         self.save_checkpoint()
         return history
 
+    def sequential_transfer_learn(
+        self,
+        pretraining: int = 60,
+        training: int = 200,
+        posttraining: int = 340,
+    ) -> dict:
+        """The reference's subject-by-subject curriculum: subject 0 trains
+        ``training`` epochs; each later subject first fits only the subnets
+        (``seq2seq/subnet``) against the frozen shared core on its own
+        batches for ``pretraining`` epochs, unassessed, then everything on
+        the subjects so far; the target subject gets ``training +
+        posttraining`` epochs."""
+        history: dict = {}
+        for i in range(len(self.ecog_subjects)):
+            is_last = i == len(self.ecog_subjects) - 1
+            if i > 0:
+                self.fit(
+                    subject_subset=[i],
+                    num_epochs=pretraining,
+                    train_vars_scope=r"seq2seq/subnet",
+                    assess=False,
+                )
+            epochs = training + (posttraining if is_last else 0)
+            history = self.fit(subject_subset=list(range(i + 1)), num_epochs=epochs)
+        self._save_results(history)
+        self.save_checkpoint()
+        return history
+
     # -- checkpoints ----------------------------------------------------------
 
     def _ckpt_path(self, epoch: int) -> str:
@@ -674,23 +1029,138 @@ class MultiSubjectTrainer:
 
     def restore(self, epoch: int | None = None) -> None:
         """Restore (params, EMA, epoch) from the checkpoint at ``epoch``
-        (default: newest); the optimizer restarts."""
+        (default: newest); the optimizer restarts.  A checkpoint of another
+        architecture first rebuilds ``net_config`` from its tensor shapes
+        (``update_net_from_saved_model``), so any saved model can be
+        assessed whatever ``layer_sizes`` the trainer was built with."""
         epoch = epoch if epoch is not None else self.restore_epoch
         if epoch is None:
             raise FileNotFoundError(f"no checkpoints under {self.checkpoint_dir}")
         state = load_checkpoint(self._ckpt_path(epoch), self.device)
-        shapes = lambda tree: [tuple(t.shape) for t in tree_leaves(tree)]  # noqa: E731
-        if shapes(state["params"]) != shapes(self.state.params):
-            raise NotImplementedError(
-                "restoring a checkpoint of another architecture "
-                f"(update_net_from_saved_model) {_NOT_PORTED}"
+        if _shape_tree(state["params"]) != _shape_tree(self.state.params):
+            self.vprint(
+                "checkpoint architecture differs from the constructed net; "
+                "rebuilding hyperparameters from tensor shapes"
             )
+            self.update_net_from_saved_model(state["params"])
         self.state = TrainState(state["params"], state["ema"], None, state["epoch"])
+
+    def import_tf1_checkpoint(self, ckpt_path, rebuild="auto") -> dict[str, list[str]]:
+        """Import weights (and EMA shadows) from a reference TF1
+        ``model.ckpt-<epoch>``, or from a ``{name: array}`` mapping of its
+        variables, into the live state (``utils/tf1_import.py``).  Reading a
+        file needs tensorflow; a mapping does not.
+
+        ``rebuild``: ``'auto'`` rebuilds ``net_config`` from the
+        checkpoint's tensor shapes first when they disagree with the
+        constructed architecture, ``True`` whenever the checkpoint is
+        complete, ``False`` never (a mismatch raises).  The optimizer
+        restarts.  Returns the imported / skipped variable names."""
+        variables = (
+            tf1_import.read_tf1_checkpoint(ckpt_path)
+            if isinstance(ckpt_path, str)
+            else dict(ckpt_path)
+        )
+        if rebuild:
+            sizes = tf1_import.recover_model_sizes(variables)
+            ls = sizes["layer_sizes"]
+            cfg = self.net_config
+            # only a complete checkpoint (all three stacks) defines an
+            # architecture; a partial mapping imports into the constructed one
+            complete = bool(ls["encoder_embedding"] and ls["encoder_rnn"] and ls["decoder_rnn"])
+            mismatch = complete and (
+                tuple(ls["encoder_rnn"]) != cfg.rnn_sizes
+                or tuple(ls["encoder_embedding"]) != cfg.conv_sizes
+                or tuple(ls["decoder_rnn"]) != cfg.dec_rnn_sizes
+                or sizes.get("vocab_size", cfg.vocab_size) != cfg.vocab_size
+            )
+            if (rebuild is True and complete) or mismatch:
+                self.vprint(
+                    "TF1 checkpoint architecture differs from the constructed "
+                    "net; rebuilding from tensor shapes"
+                )
+                self._apply_recovered_sizes(sizes)
+        params, ema, report = tf1_import.import_tf1_checkpoint(
+            variables, self.state.params, self.state.ema, subject_ids=self.subject_ids
+        )
+        self.state = self.state._replace(params=params, ema=ema, opt_state=None)
+        self.vprint(
+            f"TF1 import: {len(report['imported'])} variables imported, "
+            f"{len(report['skipped'])} skipped"
+        )
+        return report
+
+    def update_net_from_saved_model(self, source) -> None:
+        """Rebuild ``net_config`` from checkpoint tensor shapes; ``source``
+        is a parameter tree or a ``ckpt-<epoch>.pt`` path.  Every field that
+        ``recover_model_sizes`` infers (conv sizes, LSTM sizes, aux and
+        projection dims, vocab, attention, directionality, the conformer's
+        blocks and widths) replaces the constructed value."""
+        self._apply_recovered_sizes(
+            recover_model_sizes(source, in_channels=self.net_config.in_channels)
+        )
+
+    def _apply_recovered_sizes(self, sizes: dict) -> None:
+        """Apply a recovered-architecture dict (``utils.introspect`` or
+        ``utils.tf1_import`` ``recover_model_sizes``) to ``net_config`` and
+        re-initialize the state and the data caches for it."""
+        cfg = self.net_config
+        layer_sizes = sizes["layer_sizes"]
+        aux_dims = sizes.get("aux_heads", {})
+        aux_heads = tuple(
+            head._replace(out_dim=aux_dims.get(head.name, head.out_dim))
+            for head in cfg.aux_heads
+            if head.name in aux_dims
+        ) or cfg.aux_heads
+        new_cfg = dataclasses.replace(
+            cfg,
+            vocab_size=int(sizes.get("vocab_size", cfg.vocab_size)),
+            in_channels=int(sizes.get("in_channels", cfg.in_channels)),
+            num_subjects=int(sizes.get("num_subjects", cfg.num_subjects)),
+            conv_sizes=tuple(layer_sizes["encoder_embedding"]),
+            decimation_factor=int(sizes.get("decimation_factor", cfg.decimation_factor)),
+            rnn_sizes=tuple(layer_sizes["encoder_rnn"]),
+            aux_proj_sizes=tuple(layer_sizes["encoder_1_projection"]) or cfg.aux_proj_sizes,
+            aux_heads=aux_heads,
+            dec_embedding_size=int(
+                layer_sizes["decoder_embedding"][0]
+                if layer_sizes.get("decoder_embedding")
+                else cfg.dec_embedding_size
+            ),
+            dec_rnn_sizes=tuple(layer_sizes["decoder_rnn"]),
+            use_attention=bool(sizes.get("use_attention", cfg.use_attention)),
+            BIDIRECTIONAL=bool(sizes.get("BIDIRECTIONAL", cfg.BIDIRECTIONAL)),
+        )
+        if sizes.get("encoder_type") == "lstm" and cfg.encoder_type != "lstm":
+            new_cfg = dataclasses.replace(new_cfg, encoder_type="lstm")
+        if sizes.get("encoder_type") == "conformer":
+            # blocks, widths, kernel and MoE width come from the shapes;
+            # heads, chunk and left context leave no trace in them and carry
+            # over from the constructed config
+            base = cfg.conformer or ConformerConfig()
+            new_cfg = dataclasses.replace(
+                new_cfg,
+                encoder_type="conformer",
+                conformer=dataclasses.replace(base, **sizes["conformer"]),
+                # a conformer checkpoint has no encoder rnn stack: keep the
+                # constructed sizes rather than ()
+                rnn_sizes=cfg.rnn_sizes,
+            )
+        if new_cfg.vocab_size != cfg.vocab_size:
+            self.vprint(
+                f"warning: checkpoint vocab size {new_cfg.vocab_size} != "
+                f"constructed {cfg.vocab_size}; decode indices follow the checkpoint"
+            )
+        self.net_config = new_cfg
+        # a template state of the recovered architecture; the caller
+        # overwrites its values from the checkpoint
+        self._init_state()
 
     def assess_saved_model(
         self, restore_epoch: int | None = None, partitions=("validation",)
     ) -> dict:
-        """Restore EMA weights from a checkpoint and assess."""
+        """Restore EMA weights from a checkpoint (rebuilding the net from
+        its shapes if the architectures differ) and assess."""
         self.restore(restore_epoch)
         return self.assess(partitions=partitions, use_ema=True)
 
@@ -726,3 +1196,175 @@ class MultiSubjectTrainer:
                     f"{epoch}\n"
                 )
         return path
+
+    # -- inspection utilities ------------------------------------------------
+
+    def subject_to_table(self):
+        """Per-subject overview table (a pandas DataFrame; pandas is
+        imported here, and only here)."""
+        import pandas as pd
+
+        rows = []
+        for subject in self.ecog_subjects:
+            dm = subject.data_manifests
+            rows.append(
+                {
+                    "subject": subject.subject_id,
+                    "channels": subject.data_generator.num_ECoG_channels,
+                    "decimation": subject.decimation_factor,
+                    "training_blocks": sorted(subject.block_ids("training")),
+                    "validation_blocks": sorted(subject.block_ids("validation")),
+                    "vocab_size": dm["decoder_targets"].num_features,
+                }
+            )
+        return pd.DataFrame(rows).set_index("subject")
+
+    def count_all_targets(self) -> dict[int, dict]:
+        return {
+            subject.subject_id: subject.count_targets() for subject in self.ecog_subjects
+        }
+
+    def print_tensor_names(self) -> list[str]:
+        """Parameter paths (``seq2seq/...``) and shapes, one a leaf."""
+        names = []
+        for path, shape in _shape_tree(self.state.params).items():
+            names.append(f"seq2seq/{path} {shape}")
+            self.vprint(names[-1])
+        return names
+
+    def tf_record_to_numpy_data(self, subject_index: int = -1, block=None):
+        """Raw-record inspection generator: every example of a subject's
+        blocks (or of one block) as parsed arrays."""
+        subject = self.ecog_subjects[subject_index]
+        blocks = [block] if block is not None else sorted(subject.all_blocks)
+        for b in blocks:
+            yield from read_examples(subject.data_generator.tf_record_path(b))
+
+    # -- analysis hooks ------------------------------------------------------
+
+    def get_saliencies(
+        self,
+        tensor_key: str = "decoder_targets",
+        partition: str = "validation",
+        use_ema: bool = True,
+    ) -> np.ndarray:
+        """Input-gradient saliency for one loss head: every other penalty
+        scale zeroed, ``torch.autograd.grad`` of the loss (``train=False``)
+        with respect to the inputs; (N, T, C) over the partition's trials,
+        subject by subject."""
+        scales = {k: 0.0 for k in self.penalty_scales}
+        scales[tensor_key] = 1.0
+        tree = self.state.ema if use_ema else self.state.params
+        params = tree_map(lambda t: t.detach(), tree)
+        ds = self.packed_dataset(partition)
+        grads = []
+        for s in range(ds.num_subjects):
+            n = int(ds.num_trials[s])
+            batch = {
+                k: torch.from_numpy(np.ascontiguousarray(v[s])).to(self.device)
+                for k, v in ds.batch_dict().items()
+            }
+            batch["subject_idx"] = s
+            inputs = batch["encoder_inputs"].requires_grad_(True)
+            loss, _ = seq2seq_loss(
+                params, self.net_config, batch, train=False, penalty_scales=scales
+            )
+            (grad,) = torch.autograd.grad(loss, inputs)
+            grads.append(grad.float().cpu().numpy()[:n])
+        return np.concatenate(grads, axis=0)
+
+    def get_weights_as_numpy_array(self, name: str, use_ema: bool = True) -> np.ndarray:
+        """One parameter by slash path (e.g. 'decoder/embedding',
+        'encoder/rnn/0/fwd/wh')."""
+        node: Any = self.state.ema if use_ema else self.state.params
+        for part in name.split("/"):
+            node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
+        return node.detach().float().cpu().numpy()
+
+    def cluster_embedded_words(self, *args, **kwargs):
+        """Clusters the decoder's word embeddings through the plotting
+        package, which the port does not have yet."""
+        raise NotImplementedError(
+            "cluster_embedded_words needs plotting/embeddings.py, which is not "
+            "ported yet (see ROADMAP.md, Queue 1, item 12)"
+        )
+
+    def get_encoder_embedding(
+        self, subject_index: int = -1, use_ema: bool = True
+    ) -> np.ndarray:
+        """First conv layer's weights for one subject: the
+        electrode-contribution basis."""
+        params = self.state.ema if use_ema else self.state.params
+        return params["subnet"]["conv"][0]["w"][subject_index].detach().float().cpu().numpy()
+
+    def get_internal_activations(
+        self, partition: str = "validation", subject_index: int = -1
+    ) -> dict[str, np.ndarray]:
+        """Forward-pass intermediates of the EMA weights for one subject's
+        trials of a partition (batch-major, real trials only):
+        ``model_order_inputs`` (N, T, C), the raw inputs in the order the
+        encoder reads them (valid prefix reversed for the biLSTM, natural
+        time for the conformer); ``convolved_inputs`` (N, T', F), the
+        subnet conv stack's output; ``aux_targets`` {head: (N, T'[, F])},
+        each head's targets aligned to encoder steps as the loss aligns
+        them (CTC heads have no alignment and are left out); and
+        ``encoder_outputs``, ``final_state_h`` / ``_c`` and
+        ``encoder_lengths``."""
+        config = self.net_config
+        ds = self.packed_dataset(partition)
+        s = subject_index if subject_index >= 0 else ds.num_subjects + subject_index
+        n = int(ds.num_trials[s])
+        host = lambda t: t.float().cpu().numpy()  # noqa: E731
+        with torch.inference_mode():
+            inputs = torch.from_numpy(np.ascontiguousarray(ds.encoder_inputs[s])).to(self.device)
+            lengths = torch.from_numpy(np.ascontiguousarray(ds.encoder_lengths[s])).to(self.device)
+            ema = self.state.ema
+            enc_out, final, enc_lengths = encode(ema, config, inputs, lengths, s, train=False)
+            reverse = config.encoder_type != "conformer"
+            xs = inputs.transpose(0, 1)  # (T, B, C)
+            model_order = reverse_padded(xs, lengths) if reverse else xs
+            if config.conv_sizes:
+                convolved = convolve_sequences(
+                    ema, config, xs, s, None, train=False,
+                    reverse_lengths=lengths if reverse else None,
+                )  # (T', B, F)
+            else:
+                d0 = config.decimation_factor
+                convolved = model_order[: (xs.shape[0] // d0) * d0 : d0]
+            T_out = convolved.shape[0]
+            aux_aligned: dict[str, np.ndarray] = {}
+            for head in config.aux_heads:
+                raw = ds.aux_targets.get(head.name)
+                if head.distribution == "CTC" or raw is None:
+                    continue
+                ts = torch.from_numpy(np.ascontiguousarray(raw[s])).to(self.device)
+                aligned = _decimate_targets(
+                    ts.transpose(0, 1), lengths, config.decimation_factor, T_out,
+                    reverse=reverse,
+                )
+                aux_aligned[head.name] = np.moveaxis(aligned.cpu().numpy(), 0, 1)[:n]
+            return {
+                "model_order_inputs": np.moveaxis(host(model_order), 0, 1)[:n],
+                "convolved_inputs": np.moveaxis(host(convolved), 0, 1)[:n],
+                "aux_targets": aux_aligned,
+                "encoder_outputs": np.moveaxis(host(enc_out), 0, 1)[:n],
+                "final_state_h": host(final[0])[:n],
+                "final_state_c": host(final[1])[:n],
+                "encoder_lengths": enc_lengths.cpu().numpy()[:n],
+            }
+
+
+def _fold_in(seed: int, i: int) -> int:
+    """A seed for item ``i`` of a stream seeded ``seed`` (JAX's
+    ``fold_in``'s role): deterministic in both, well mixed."""
+    return int(np.random.SeedSequence((int(seed), int(i))).generate_state(1, np.uint64)[0] >> 1)
+
+
+def _on_current_stream(tensors: dict) -> dict:
+    """Mark tensors made on a side stream as used on the current stream, so
+    that the caching allocator does not hand their memory out again before
+    the current stream's work on them is done."""
+    stream = torch.cuda.current_stream()
+    for t in tensors.values():
+        t.record_stream(stream)
+    return tensors

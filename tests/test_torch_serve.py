@@ -144,10 +144,14 @@ def test_entry_points_raise_without_a_gpu(setup, tmp_path):
 def test_port_imports_with_jax_blocked():
     """Every module of the package (found by walking it, so new modules
     are covered too) and chip_smoke.py import with JAX, optax, orbax and
-    the JAX package blocked."""
+    the JAX package blocked, and with tensorflow and pandas blocked too:
+    the port imports those only inside the functions that read a TF1 file
+    (``utils.tf1_import.read_tf1_checkpoint``) or build a table
+    (``MultiSubjectTrainer.subject_to_table``)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "for m in ('jax', 'jaxlib', 'optax', 'orbax', 'ecog2txt_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'optax', 'orbax', 'ecog2txt_tpu', 'tensorflow', "
+        "'pandas'):\n"
         "    sys.modules[m] = None\n"
         "import ecog2txt_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
@@ -157,11 +161,12 @@ def test_port_imports_with_jax_blocked():
         "need = {'train', 'pipeline', 'records', 'datagen', 'subjects', "
         "'demo', 'config', 'assess', 'tokenizers', 'geometry', 'audio', "
         "'serve', 'convert', 'ops.lstm_kernels', 'models.seq2seq', 'models.ctc', "
-        "'models.beam', 'models.conformer'}\n"
+        "'models.beam', 'models.conformer', 'utils.introspect', 'utils.summaries', "
+        "'utils.tf1_import'}\n"
         "assert need <= {n.split('.', 1)[1] for n in names}, names\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'orbax', 'ecog2txt_tpu') "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'ecog2txt_tpu', 'tensorflow', 'pandas') "
         "and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )

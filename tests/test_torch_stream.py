@@ -8,8 +8,9 @@ offline ``greedy_decode``, ``decode()`` repeatable mid-stream, ``partial()``
 (greedy and lexicon, carried == from scratch) equal, the pool equal to
 dedicated sessions under ragged joins and leaves, and the int8 upload's
 contract.  Then the per-row position offsets the pool encodes with, the
-``torch.export`` round trip of a biLSTM predictor on the CPU, the serving
-options, and ``RawVoltageSession`` (raw voltage, float and int16, through
+``torch.export`` round trip on the CPU of the four families JAX exports
+(biLSTM, conformer, MoE and capacity MoE) against the live predictor and
+JAX's exported program, the serving options, and ``RawVoltageSession`` (raw voltage, float and int16, through
 the high-gamma front end): its endpoint equal to the offline decode of
 the calibrated offline features and to JAX's raw session, ``decode()``
 repeatable mid-stream.
@@ -357,15 +358,63 @@ def test_export_round_trip_on_the_cpu(tmp_path, use_pallas):
     rng = np.random.default_rng(0)
     jpred = jserve.OnlinePredictor(js.init_seq2seq(jax.random.PRNGKey(0), jcfg), jcfg, targets,
                                    max_samples=36)
+    jloaded = jserve.load_exported_predictor(
+        jserve.export_predictor(jpred, str(tmp_path / "jax"), platforms=("cpu",)))
     for x in (rng.normal(size=(3, 33, 5)), rng.normal(size=(30, 4)), rng.normal(size=(50, 5))):
         x = x.astype(np.float32)
         got, want = loaded(x), live(x)
         np.testing.assert_array_equal(got["tokens"], want["tokens"])
         np.testing.assert_array_equal(got["probabilities"], want["probabilities"])
         np.testing.assert_array_equal(got["tokens"], jpred(x)["tokens"])
+        np.testing.assert_array_equal(got["tokens"], np.asarray(jloaded(x)["tokens"]))
         assert got["sequences"] == want["sequences"]
     with pytest.raises(ValueError, match="channels"):
         loaded(np.zeros((20, 6), np.float32))
+
+
+# JAX's tests/test_export.py configurations
+EXPORT_KW = dict(vocab_size=12, num_subjects=1, in_channels=8, conv_sizes=(16,),
+                 decimation_factor=4, rnn_sizes=(24,), aux_proj_sizes=(), aux_heads=(),
+                 dec_embedding_size=12, dec_rnn_sizes=(48,), max_dec_len=6)
+EXPORT_MOE = {"conformer": {}, "moe": dict(moe_experts=4),
+              "moe_capacity": dict(moe_experts=4, moe_capacity_factor=1.25, moe_group_size=8)}
+
+
+@pytest.mark.parametrize("family,impl", [("conformer", "flash"), ("moe", "fused"),
+                                         ("moe_capacity", "flash")])
+def test_export_conformer_families_match_jax(tmp_path, family, impl):
+    """The conformer families of JAX's ``test_export_roundtrip_exact`` (the
+    biLSTM's is ``test_export_round_trip_on_the_cpu``), with the same
+    weights: the port's program (batch symbolic, 1 to 4096) gives
+    the live predictor's tokens and JAX's exported program's at B=1, 3 and
+    256, where B·T' = 4096 reaches the depthwise conv's eager crossover, and
+    its probabilities at the f32 tolerance (below the crossover the live
+    predictor sums the conv in another order).  Its conformer program calls
+    the K2f / K3f operator once a block and encode."""
+    conformer = dict(CONFORMER, **EXPORT_MOE[family])
+    jcfg = js.Seq2SeqConfig(**EXPORT_KW, encoder_type="conformer",
+                            conformer=JConformer(**conformer))
+    cfg = ts.Seq2SeqConfig(**EXPORT_KW, encoder_type="conformer",
+                           conformer=tc.ConformerConfig(**conformer, attention_impl=impl))
+    jparams = js.init_seq2seq(jax.random.PRNGKey(1), jcfg)
+    live = tserve.OnlinePredictor(convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                                            "cpu"),
+                                  cfg, TARGETS, max_samples=64, device="cpu")
+    loaded = tserve.load_exported_predictor(tserve.export_predictor(live, str(tmp_path / "t")))
+    jloaded = jserve.load_exported_predictor(jserve.export_predictor(
+        jserve.OnlinePredictor(jparams, jcfg, TARGETS, max_samples=64), str(tmp_path / "j"),
+        platforms=("cpu",)))
+    op = {"flash": "banded_attention_fwd", "fused": "fused_attention_fwd"}[impl]
+    calls = [n for n in loaded.program.graph.nodes if f"ecog2txt_tpu_torch.{op}" in str(n.target)]
+    assert len(calls) == 2 * CONFORMER["num_blocks"]  # greedy + teacher-forced encodes
+    rng = np.random.default_rng(7)
+    for B in (1, 3, 256):
+        x = rng.normal(size=(B, 50, 8)).astype(np.float32)
+        got, want = loaded(x), live(x)
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        np.testing.assert_allclose(got["probabilities"], want["probabilities"], **F32)
+        np.testing.assert_array_equal(got["tokens"], np.asarray(jloaded(x)["tokens"]))
+        assert got["sequences"] == want["sequences"]
 
 
 def test_from_trainer_with_a_ctc_head(tmp_path):
