@@ -193,19 +193,50 @@ LayerNorm swapped back to the plain math, in turns with K5.
    the largest subject's trials, shards read from the records) against
    ``max_device_trials`` at the same size (parameters within the bf16
    tolerance, the wall time of both).  Then ``export_predictor`` of the
-   headline conformer under 'flash' and 'fused' and of its MoE (no-drop;
+   headline conformer under 'flash' and, at 2 of its 4 blocks (the
+   tracing time grows with depth), under 'fused' and of its MoE (no-drop;
    capacity 1.25), f32, 6 decoded tokens, loaded back: calls at B=1, 17
-   and 256 (across the depthwise conv's eager crossover) launch 4 K2f or
-   4 K3f and the K5f of an encode through the program, two encodes a
-   call, and give the live predictor's tokens.  Last the TF32 check: with cuDNN's default flags
+   and 256 (across the depthwise conv's eager crossover) launch a K2f or
+   K3f a block and the K5f of an encode through the program, two encodes
+   a call, and give the live predictor's tokens.  Last the TF32 check: with cuDNN's default flags
    (TF32 allowed in convolutions) just for it, an f32 headline-conformer
    encode at B=256, T'=104 and the exported 'flash' program at B=256
    against the CPU at the f32 tolerance, the errors printed beside those
    with TF32 off and beside a bare f32 depthwise ``conv1d``'s;
 
+22. data parallelism (a main path over ``torch.distributed``): the
+   headline conformer ('flash') and the biLSTM benchmark model (True),
+   bf16, dropout off, global B=256 over 2 gloo ranks that share the card
+   (``parallel.launch.spawn`` runs ``parallel_rank`` of this file on
+   each), and the conformer over 1 NCCL rank: after a warm-up and 3 steps
+   the ranks' parameters bit-identical and within the bf16 tolerance of
+   the one-process run on the same global batches (the losses too); each
+   rank launches the path's kernels every step (4 K2f + 4 K2b-dq + 4
+   K2b-dkv + 20 K5f + 20 K5b; 6 K1f + 6 K1b); step times by CUDA events
+   (``utils.profiling.StepTimer``) and the conformer step's MFU
+   (``utils.flops``, the H100's dense bf16 peak);
+23. sequence parallelism: the long recording (B=16, T'=8192) over 2 seq
+   ranks: the encode under 'flash' and 'fused' (bf16) and in f32 at
+   T'=2048 equal to the one-process encode; one training step's
+   gradients (bf16, and f32 at T'=2048) equal to the one-process step's;
+   rank 0's window starts at -128 (phase 6 holds that window too);
+24. expert parallelism: the MoE cell (8 experts, top 2, capacity 1.25,
+   B=16 x T'=2048) over 2 expert ranks, and over 2 x 2 with 2 seq ranks
+   (dispatch groups of 128 steps, which divide the shard and the halo):
+   the loss, the aux loss and every gradient equal to the one-process
+   step's; the gathered checkpoint rank 0 wrote restores in one process;
+   a rank that fails or outlasts its spawn's timeout fails the run;
+25. the demo twin (``ecog2txt_tpu_torch.run_demo`` at its defaults, f32,
+   True) reaches WER 0 on the validation and testing blocks, and the
+   decode-quality orderings that ``tests/test_decode_quality.py`` pins
+   hold on the card (greedy in (0, 0.3], beam 8 no worse, the CTC head's
+   lexicon rescoring below 0.5, transfer better than cold; the
+   temperature-1 WER printed beside them);
+
 20. the ``kernels`` JSON line (all ten kernels, with the launches of
-   phases 10-19 and 21 beside the earlier ones), the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+   phases 10-19 and 21-25 beside the earlier ones, per rank where ranks
+   ran), the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is
 present.
@@ -226,9 +257,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ecog2txt_tpu_torch import text_dir
-from ecog2txt_tpu_torch.convert import load_checkpoint, tree_leaves, tree_map
+from ecog2txt_tpu_torch import run_demo, text_dir
+from ecog2txt_tpu_torch.assess import wer_vector
+from ecog2txt_tpu_torch.convert import load_checkpoint, save_checkpoint, tree_leaves, tree_map
 from ecog2txt_tpu_torch.datagen import word_to_phonemes
 from ecog2txt_tpu_torch.demo import make_demo_experiment
 from ecog2txt_tpu_torch.features import (
@@ -261,10 +294,22 @@ from ecog2txt_tpu_torch.models.conformer import (
     ConformerConfig,
     ConformerStream,
     conformer_encode,
+    init_conformer,
 )
 from ecog2txt_tpu_torch.models import conformer as conformer_module
 from ecog2txt_tpu_torch.ops import _build, attention_kernels, layernorm_kernels, lstm_kernels
 from ecog2txt_tpu_torch.ops.lstm import init_lstm_params
+from ecog2txt_tpu_torch.parallel import (
+    gather_params_ep,
+    make_mesh,
+    sequence_parallel_encode,
+    shard_params_ep,
+)
+from ecog2txt_tpu_torch.parallel.expert import expert_mask
+from ecog2txt_tpu_torch.parallel.launch import free_port, spawn
+from ecog2txt_tpu_torch.parallel import mesh as mesh_module
+from ecog2txt_tpu_torch.parallel.mesh import reduce_gradients_
+from ecog2txt_tpu_torch.parallel.multihost import initialize_distributed
 from ecog2txt_tpu_torch.quantize import _column_major, int8_mm, quantize_conformer_params
 from ecog2txt_tpu_torch.serve import (
     OnlinePredictor,
@@ -283,7 +328,9 @@ from ecog2txt_tpu_torch.train import (
     make_optimizer,
     make_segment_runner,
 )
+from ecog2txt_tpu_torch.utils.flops import H100_BF16_PEAK_FLOPS, mfu, train_step_flops
 from ecog2txt_tpu_torch.utils.introspect import _shape_tree
+from ecog2txt_tpu_torch.utils.profiling import StepTimer
 from ecog2txt_tpu_torch.utils.summaries import iter_events
 from ecog2txt_tpu_torch.utils.tf1_import import tf1_variables_from_params
 
@@ -2317,6 +2364,9 @@ def attention_kernel_phase(demo_shape) -> dict:
         ("stream window", 1, 144, D, H, C, L, -64),
         ("stream window", 1, 144, D, H, C, L, 256),
         ("long", LONG_B, LONG_T, D, H, C, L, 0),
+        # the first window of the sequence-parallel long recording (2 seq
+        # ranks): its own half plus the halo, from -halo
+        ("sp window", LONG_B, LONG_T // 2 + 128, D, H, C, L, -128),
         ("demo trainer", *demo_shape, 0),
         # head dims that do not divide K3f's 256 threads (8 and 4 heads)
         ("head dim 48", 16, 104, D, 8, C, L, 0),
@@ -3891,8 +3941,13 @@ def lazy_shard_phase(manifest: str) -> dict:
             "shard": host["shard"]}
 
 
-EXPORT_FAMILIES = (("flash", "flash", {}), ("fused", "fused", {}), ("moe", "fused", MOE),
-                   ("moe_capacity", "flash", {**MOE, "moe_capacity_factor": 1.25}))
+# (name, impl, MoE fields, blocks): tracing time grows with the blocks, so
+# every family but 'flash' (whose program the TF32 check reads) is
+# exported at 2 of the headline's 4 blocks (a depth cut; the widths are the
+# headline's)
+EXPORT_FAMILIES = (("flash", "flash", {}, 4), ("fused", "fused", {}, 2),
+                   ("moe", "fused", MOE, 2),
+                   ("moe_capacity", "flash", {**MOE, "moe_capacity_factor": 1.25}, 2))
 # tokens an exported predictor decodes: tracing the decode loop is most of
 # an export's time (a depth cut; the widths are the headline's)
 EXPORT_DEC_LEN = 6
@@ -3901,19 +3956,19 @@ EXPORT_DEC_LEN = 6
 def conformer_export_phase() -> dict:
     """``export_predictor`` of the headline conformer under 'flash' and
     'fused' and of its MoE (no-drop; capacity 1.25, a group a row), f32,
-    decoding ``EXPORT_DEC_LEN`` tokens, loaded back: calls at B=1, 17 and
-    256 (B·T' from 104 to 26624, across the depthwise conv's eager
-    crossover at 4096) launch per encode 4 K2f or 4 K3f and its K5f
-    through the program, two encodes a call; tokens equal the live
-    predictor's.  Returns the 'flash' program too (the TF32 check's)."""
-    nb = HEADLINE_CONFORMER["num_blocks"]
+    decoding ``EXPORT_DEC_LEN`` tokens, at the blocks of
+    ``EXPORT_FAMILIES``, loaded back: calls at B=1, 17 and 256 (B·T' from
+    104 to 26624, across the depthwise conv's eager crossover at 4096)
+    launch per encode a K2f or K3f a block and its K5f through the
+    program, two encodes a call; tokens equal the live predictor's.
+    Returns the 'flash' program too (the TF32 check's)."""
     rng = np.random.default_rng(21)
     batches = [rng.standard_normal((B, T_RAW, 469), dtype=np.float32) for B in (1, 17, 256)]
     results, programs = {}, {}
-    for name, impl, moe in EXPORT_FAMILIES:
+    for name, impl, moe, nb in EXPORT_FAMILIES:
         config = conformer_config(torch.float32, impl)
-        config = dataclasses.replace(config, max_dec_len=EXPORT_DEC_LEN,
-                                     conformer=dataclasses.replace(config.conformer, **moe))
+        config = dataclasses.replace(config, max_dec_len=EXPORT_DEC_LEN, conformer=dataclasses.replace(
+            config.conformer, **moe, num_blocks=nb))
         params = init_seq2seq(config, torch.Generator().manual_seed(0), device="cuda")
         live = OnlinePredictor(params, config, TARGETS, max_samples=T_RAW, device="cuda")
         kernel = {"flash": "K2f", "fused": "K3f"}[impl]
@@ -4033,11 +4088,646 @@ def trainer_tools_phase(root: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 22-25. data, sequence and expert parallelism over torch.distributed, the
+# demo twin and the decode-quality orderings: main paths
+# --------------------------------------------------------------------------
+
+DIST_STEPS = 3  # timed steps after one warm-up step, on every rank
+RANK_TIMEOUT = 480.0  # seconds a spawn may take: a failed or hung rank fails the run
+SP_F32_T = 2048  # the sp f32 checks' steps
+# normwise over every leaf: summed gradients against one process's at the
+# bf16 rtol (phases 22-24); under dp also the parameters' change over the 1 + DIST_STEPS
+# Adam steps, where bf16 noise in small gradients flips some elements'
+# updates, at a bound that a zero or reversed gradient (error >= 1) fails
+GRAD_REL_TOL = TOL[torch.bfloat16]["rtol"]
+DP_DELTA_TOL = 0.5
+# ep×sp needs dispatch groups that divide the shard (1024 steps) and the
+# headline halo (128 steps): groups of 128 steps, in the one-process
+# reference too
+EP_SP_GROUP = 128
+# the ranks' per-step kernel launches: the headline conformer under 'flash'
+# and the biLSTM under True
+CONFORMER_STEP = {"K2f": 4, "K2b-dq": 4, "K2b-dkv": 4, "K5f": 20, "K5b": 20}
+BILSTM_STEP = {"K1f": LAUNCHES_PER_ENCODE, "K1b": LAUNCHES_PER_ENCODE}
+
+
+def _digest(tree) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(leaf.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _no_dropout(config: Seq2SeqConfig) -> Seq2SeqConfig:
+    return dataclasses.replace(config, FF_dropout=0.0, RNN_dropout=0.0)
+
+
+def _dp_config(which: str) -> Seq2SeqConfig:
+    return _no_dropout(conformer_config() if which == "conformer" else serving_config())
+
+
+def _ep_config(n_seq: int) -> Seq2SeqConfig:
+    group = EP_SP_GROUP if n_seq > 1 else MOE_TRAIN["moe_group_size"]
+    return _no_dropout(moe_config(moe_capacity_factor=MOE_TRAIN["moe_capacity_factor"],
+                                  moe_group_size=group))
+
+
+def _summed_gradients(step_fn):
+    """``step_fn()`` with a spy on the training step's clip
+    (``parallel.mesh.make_dp_train_step`` calls
+    ``mesh.clip_by_global_norm``): returns its result and f32 copies of the
+    gradients the step handed to the clip, summed over the ranks and not
+    yet clipped."""
+    seen, clip = [], mesh_module.clip_by_global_norm
+
+    def spy(grads, *args, **kw):
+        seen.append([g.detach().float().clone() for g in grads])
+        return clip(grads, *args, **kw)
+
+    mesh_module.clip_by_global_norm = spy
+    try:
+        out = step_fn()
+    finally:
+        mesh_module.clip_by_global_norm = clip
+    check(len(seen) == 1, f"the step clipped {len(seen)} times")
+    return out, seen[0]
+
+
+def _rel_norm_err(got: list, want: list) -> float:
+    """|got − want| / |want| over every leaf at once (f32 sums)."""
+    num = sum(float(torch.sum((g.float().cuda() - w.float().cuda()) ** 2))
+              for g, w in zip(got, want))
+    den = sum(float(torch.sum(w.float().cuda() ** 2)) for w in want)
+    return (num / den) ** 0.5
+
+
+def _runner_steps(config: Seq2SeqConfig, mesh, steps: int = DIST_STEPS) -> dict:
+    """One warm-up step and ``steps`` timed steps of the segment runner on
+    global batches of B_TRAIN drawn from the seeded corpus (the same on
+    every rank and in one process; on a mesh each rank takes its slice).
+    The warm-up step's summed gradients (before the clip) are kept, and the
+    parameters' change over all the steps.  Counts are reset after the
+    warm-up and read after the last step."""
+    p = init_seq2seq(config, torch.Generator().manual_seed(0), device="cuda")
+    p0 = [t.detach().clone() for t in tree_leaves(p)]
+    data = _random_corpus(config)
+    state = TrainState(p, tree_map(lambda t: t.detach().clone(), p), make_optimizer(p, 1e-3), 0)
+    runner = make_segment_runner(config, PENALTIES, 0.99, mesh)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    subject = np.zeros((1,), np.int32)
+
+    def step() -> float:
+        nonlocal state
+        idx = rng.permutation(N_TRIALS)[:B_TRAIN][None]
+        state, metrics = runner(state, data, subject, idx, gen, 0)
+        return float(metrics["loss_total"])
+
+    first_loss, grads = _summed_gradients(step)
+    losses = [first_loss]
+    timer = StepTimer("cuda")
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    timer.start()
+    for _ in range(steps):
+        losses.append(step())
+        timer.lap(B_TRAIN)
+    counts, bodies = read_counts(), read_bodies()
+    # ------------------------------------------------------------------
+    delta = [t.detach() - t0 for t, t0 in zip(tree_leaves(state.params), p0)]
+    return {"state": state, "losses": losses, "step_ms": [1e3 * d for d, _ in timer.laps],
+            "counts": counts, "bodies": bodies, "grads": grads, "delta": delta}
+
+
+def _rank_dp(out_dir: str, which: str) -> dict:
+    mesh = make_mesh(n_data=dist.get_world_size())
+    r = _runner_steps(_dp_config(which), mesh)
+    if mesh.rank == 0:
+        torch.save({k: [t.cpu() for t in r[k]] for k in ("grads", "delta")} | {
+            "params": tree_map(lambda t: t.detach().cpu(), r["state"].params)},
+            os.path.join(out_dir, f"dp_{which}.pt"))
+    return {k: r[k] for k in ("losses", "step_ms", "counts", "bodies")} | {
+        "digest": _digest(r["state"].params)}
+
+
+def _long_inputs(T: int, dtype):
+    enc = init_conformer(torch.Generator().manual_seed(0), ConformerConfig(**HEADLINE_CONFORMER),
+                         LONG_IN, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((LONG_B, LONG_T, LONG_IN), generator=gen, device="cuda")[:, :T].to(dtype)
+    w = torch.randn((LONG_B, T, HEADLINE_CONFORMER["model_dim"]),
+                    generator=torch.Generator(device="cuda").manual_seed(12), device="cuda")
+    return enc, x, torch.full((LONG_B,), T, dtype=torch.int32, device="cuda"), w
+
+
+def _long_grads(enc, out_fn, w, scale: float = 1.0):
+    """Gradients of ``scale · Σ out·w`` over the encoder's leaves."""
+    leaves = tree_leaves(enc)
+    for t in leaves:
+        t.requires_grad_(True)
+    out = out_fn()
+    grads = torch.autograd.grad(scale * (out.float() * w).sum(), leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return list(grads)
+
+
+def _rank_sp(out_dir: str) -> dict:
+    """The long recording over the seq ranks: the encode under 'flash' and
+    'fused' (bf16), the f32 encode at SP_F32_T steps, and one training
+    step's gradients (bf16 at T'=8192 and f32 at SP_F32_T) of ``Σ out·w``
+    with each rank's share 1/n of it and the gradients summed over the
+    ranks."""
+    n = dist.get_world_size()
+    mesh = make_mesh(n_data=1, n_model=1, n_seq=n)
+    res = {"counts": {}, "ms": {}}
+    save = (lambda obj, name: torch.save(obj, os.path.join(out_dir, name))) \
+        if mesh.rank == 0 else (lambda obj, name: None)
+    for dtype, T in ((torch.bfloat16, LONG_T), (torch.float32, SP_F32_T)):
+        enc, x, lengths, w = _long_inputs(T, dtype)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for impl in (("flash", "fused") if dtype == torch.bfloat16 else ("flash",)):
+            ccfg = ConformerConfig(**HEADLINE_CONFORMER, attention_impl=impl)
+
+            def encode_sp():
+                with torch.inference_mode():
+                    return sequence_parallel_encode(enc, ccfg, x, mesh, "seq", lengths, dtype)
+
+            encode_sp()
+            torch.cuda.synchronize()
+            timer = StepTimer("cuda")
+            # ---- the main path: counts reset just before, read just after ----
+            reset_counts()
+            timer.start()
+            out = encode_sp()
+            timer.lap(LONG_B * T)
+            res["counts"][f"encode_{impl}_{tag}"] = read_counts()
+            # --------------------------------------------------------------
+            res["ms"][f"encode_{impl}_{tag}"] = 1e3 * timer.laps[0][0]
+            save(out.cpu(), f"sp_encode_{impl}_{tag}.pt")
+            del out
+        ccfg = ConformerConfig(**HEADLINE_CONFORMER, attention_impl="flash")
+
+        def out_sp():
+            return sequence_parallel_encode(enc, ccfg, x, mesh, "seq", lengths, dtype)
+
+        _long_grads(enc, out_sp, w, 1.0 / n)
+        timer = StepTimer("cuda")
+        reset_counts()
+        timer.start()
+        grads = _long_grads(enc, out_sp, w, 1.0 / n)
+        reduce_gradients_(grads, mesh)
+        timer.lap(LONG_B * T)
+        res["counts"][f"train_{tag}"] = read_counts()
+        res["ms"][f"train_{tag}"] = 1e3 * timer.laps[0][0]
+        save([g.cpu() for g in grads], f"sp_grads_{tag}.pt")
+        res[f"grads_digest_{tag}"] = _digest(grads)
+        del enc, x, w, grads
+        torch.cuda.empty_cache()
+    return res
+
+
+def _moe_batch(config: Seq2SeqConfig) -> dict:
+    """The MoE cell's batch: B=16 full-length trials of the seeded corpus."""
+    t_raw = MOE_T * config.decimation_factor
+    data = _random_corpus(config, MOE_TRIALS, t_raw)
+    data["encoder_lengths"].fill_(t_raw)
+    idx = torch.as_tensor(np.random.default_rng(0).permutation(MOE_TRIALS)[:MOE_B], device="cuda")
+    batch = {k: v[0][idx] for k, v in data.items()}
+    batch["subject_idx"] = 0
+    return batch
+
+
+def _moe_grads(config, params, batch, **parallel):
+    """The loss (dropout off) and its gradients over ``params``' leaves,
+    summed over the mesh's ranks when ``parallel`` names one."""
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+        t.grad = None
+    loss, metrics = seq2seq_loss(params, config, batch, None, train=False,
+                                 penalty_scales=PENALTIES, **parallel)
+    loss.backward()
+    grads = [t.grad for t in leaves]
+    ep = parallel.get("ep")
+    if ep is not None:
+        mesh = ep[0]
+        local = config.conformer.moe_experts // mesh.shape["model"]
+        reduce_gradients_(grads, mesh, tree_leaves(expert_mask(params, local)))
+    return float(metrics["loss_total"].detach()), float(metrics["moe_aux"].detach()), grads
+
+
+def _rank_ep(out_dir: str, n_seq: int) -> dict:
+    """The MoE cell over ``world / n_seq`` expert ranks (× ``n_seq`` time
+    shards): the loss, the aux loss and every gradient (experts gathered),
+    then a checkpoint of the gathered trees written by rank 0."""
+    n_model = dist.get_world_size() // n_seq
+    mesh = make_mesh(n_data=1, n_model=n_model, n_seq=n_seq)
+    config = _ep_config(n_seq)
+    E = config.conformer.moe_experts
+    params = shard_params_ep(init_seq2seq(config, torch.Generator().manual_seed(0), "cuda"),
+                             mesh, E)
+    batch = _moe_batch(config)
+    parallel = {"ep": (mesh, "model")}
+    if n_seq > 1:
+        parallel["sp"] = (mesh, "seq", "model")
+    _moe_grads(config, params, batch, **parallel)
+    timer = StepTimer("cuda")
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    timer.start()
+    loss, aux, grads = _moe_grads(config, params, batch, **parallel)
+    timer.lap(MOE_B * MOE_T)
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    tree = tree_map(lambda t: t.grad, params)
+    full_grads = gather_params_ep(tree, mesh, E)
+    full = gather_params_ep(tree_map(lambda t: t.detach(), params), mesh, E)
+    tag = f"ep{n_model}_sp{n_seq}"
+    if mesh.rank == 0:
+        torch.save([g.cpu() for g in tree_leaves(full_grads)],
+                   os.path.join(out_dir, f"{tag}_grads.pt"))
+        save_checkpoint(os.path.join(out_dir, f"{tag}_ckpt.pt"), full, full, 1)
+    dist.barrier()
+    return {"loss": loss, "moe_aux": aux, "ms": 1e3 * timer.laps[0][0], "counts": counts,
+            "local_experts": int(params["encoder"]["conformer"]["blocks"][0]["ffn2"]["w1"]
+                                 .shape[0]),
+            "digest": _digest(full)}
+
+
+def parallel_rank(out_dir: str, phases: list) -> dict:
+    """One rank of phases 22-24 (``parallel.launch.spawn`` runs it on every
+    rank after ``initialize_distributed``): the named phases in order."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for phase in phases:
+        if phase in ("dp_conformer", "dp_bilstm"):
+            out[phase] = _rank_dp(out_dir, phase[3:])
+        elif phase == "sp":
+            out[phase] = _rank_sp(out_dir)
+        elif phase in ("ep", "ep_sp"):
+            out[phase] = _rank_ep(out_dir, 2 if phase == "ep_sp" else 1)
+        torch.cuda.empty_cache()
+    out["backend"] = dist.get_backend()
+    return out
+
+
+def _spawn(world: int, phases: list, root: str, backend: str) -> tuple[list, str]:
+    out_dir = tempfile.mkdtemp(dir=root)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:parallel_rank", world, {"out_dir": out_dir, "phases": phases},
+                  timeout=RANK_TIMEOUT, backend=backend, device="cuda",
+                  pythonpath=[os.path.dirname(os.path.abspath(__file__))])
+    print(f"spawn of {world} {backend} rank(s) for {phases}: {time.perf_counter() - t0:.1f} s")
+    for r in ranks:
+        check(r["backend"] == backend, f"a rank ran {r['backend']}, not {backend}")
+    return ranks, out_dir
+
+
+def _check_rank_counts(path: str, ranks: list, get, per_step: dict, steps: int) -> None:
+    for i, r in enumerate(ranks):
+        check_counts(f"{path}, rank {i}", get(r), {k: v * steps for k, v in per_step.items()})
+
+
+def _nccl_world_of_one(root: str) -> tuple[list, str]:
+    """The data-parallel conformer on a world of one NCCL rank, in this
+    process (the card takes one NCCL rank)."""
+    out_dir = tempfile.mkdtemp(dir=root)
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                           timeout=RANK_TIMEOUT)
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        return [{"dp_conformer": _rank_dp(out_dir, "conformer")}], out_dir
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phase(runs: list) -> dict:
+    """22. Data parallelism: the headline conformer ('flash') and the biLSTM
+    benchmark model (True), bf16, dropout off, global B=256 over the ranks
+    of each run ``(label, ranks, out_dir)`` (2 gloo ranks sharing the card;
+    one NCCL rank), against the one-process run on the same global
+    batches: the first step's gradients summed over the ranks before the
+    clip (normwise, GRAD_REL_TOL) and the parameters' change after
+    1 + DIST_STEPS steps (normwise, DP_DELTA_TOL); the ranks' parameters
+    bit-identical; the parameters and losses within the bf16 tolerance;
+    per rank per step the path's kernels; step times by CUDA events and
+    the conformer step's MFU."""
+    results = {}
+    flops = train_step_flops(_dp_config("conformer"), T_RAW)
+    for which, per_step in (("conformer", CONFORMER_STEP), ("bilstm", BILSTM_STEP)):
+        key = f"dp_{which}"
+        ref = _runner_steps(_dp_config(which), None)
+        ref_params = tree_leaves(ref["state"].params)
+        ref_norm = sum(float(torch.sum(g ** 2)) for g in ref["grads"]) ** 0.5
+        ref_ms = float(np.mean(ref["step_ms"]))
+        results[f"{which}_one_process_ms"] = ref_ms
+        for label, ranks, out_dir in runs:
+            if key not in ranks[0]:
+                continue
+            rr = [r[key] for r in ranks]
+            _check_rank_counts(f"dp {which} ({label})", rr, lambda r: r["counts"], per_step,
+                               DIST_STEPS)
+            body = "tensor_core" if which == "conformer" else "cluster"
+            for k in per_step:
+                if k in BODIES and k != "K5b":
+                    for i, r in enumerate(rr):
+                        check_bodies(f"dp {which} ({label}) rank {i}", r["bodies"], k, body,
+                                     r["counts"][k])
+            check(len({r["digest"] for r in rr}) == 1,
+                  f"dp {which} ({label}): the ranks' parameters differ")
+            got = torch.load(os.path.join(out_dir, f"{key}.pt"))
+            # what the step computes: the warm-up step's gradients summed
+            # over the ranks, before the clip, against one process's (a
+            # dropped all-reduce leaves a rank its own share, about half of
+            # the sum; a doubled one twice it: errors near 0.5 and 1)
+            gerr = _rel_norm_err(got["grads"], ref["grads"])
+            gnorm = sum(float(torch.sum(g ** 2)) for g in got["grads"]) ** 0.5
+            check(gerr <= GRAD_REL_TOL, f"dp {which} ({label}): summed gradients off by "
+                                       f"{gerr:.3e} of their norm (limit {GRAD_REL_TOL})")
+            # and where the steps took the parameters
+            derr = _rel_norm_err(got["delta"], ref["delta"])
+            check(derr <= DP_DELTA_TOL, f"dp {which} ({label}): parameter change off by "
+                                        f"{derr:.3e} of its norm (limit {DP_DELTA_TOL})")
+            err = max(compare(f"dp {which} ({label}) params", g.cuda(), w.detach(),
+                              TOL[torch.bfloat16])[0]
+                      for g, w in zip(tree_leaves(got["params"]), ref_params))
+            lerr = compare(f"dp {which} ({label}) losses", torch.tensor(rr[0]["losses"]),
+                           torch.tensor(ref["losses"]), TOL[torch.bfloat16])[0]
+            ms = float(np.mean([np.mean(r["step_ms"]) for r in rr]))
+            results[f"{which}_{label}"] = {
+                "counts_by_rank": [r["counts"] for r in rr],
+                "step_ms_by_rank": [r["step_ms"] for r in rr], "ms": ms, "param_err": err,
+                "grad_rel_err": gerr, "delta_rel_err": derr, "grad_norm": gnorm,
+                "one_process_grad_norm": ref_norm, "loss_err": lerr, "losses": rr[0]["losses"]}
+            mfu_note = ""
+            if which == "conformer":
+                results[f"{which}_{label}"]["mfu"] = mfu(B_TRAIN / (ms / 1e3), flops)
+                mfu_note = (f"; MFU {results[f'{which}_{label}']['mfu']:.4f} (one process "
+                            f"{mfu(B_TRAIN / (ref_ms / 1e3), flops):.4f}; {flops:.4e} model "
+                            f"FLOPs a sentence, dense bf16 peak {H100_BF16_PEAK_FLOPS:.3e})")
+            print(f"dp {which} ({label}), global B={B_TRAIN}, bf16: losses "
+                  + ", ".join(f"{x:.4f}" for x in rr[0]["losses"])
+                  + " (one process " + ", ".join(f"{x:.4f}" for x in ref["losses"])
+                  + f"); first step's summed gradients (norm {gnorm:.4e}, one process "
+                  f"{ref_norm:.4e}) off by {gerr:.3e} of their norm, parameter change by "
+                  f"{derr:.3e}; parameters max abs err {err:.3e}; ranks bit-identical; "
+                  f"step {ms:.2f} ms (one process {ref_ms:.2f} ms){mfu_note}; per rank per "
+                  f"step {per_step}  [{gpu_line()}]")
+        del ref, ref_params
+        torch.cuda.empty_cache()
+    results["conformer_one_process_mfu"] = mfu(
+        B_TRAIN / (results["conformer_one_process_ms"] / 1e3), flops)
+    return results
+
+
+def _long_reference(dtype, T: int, impl: str, grads: bool):
+    enc, x, lengths, w = _long_inputs(T, dtype)
+    ccfg = ConformerConfig(**HEADLINE_CONFORMER, attention_impl=impl)
+
+    def out_fn():
+        out, _ = conformer_encode(enc, ccfg, x, lengths, compute_dtype=dtype)
+        return out
+
+    if grads:
+        _long_grads(enc, out_fn, w)
+        timer = StepTimer("cuda")
+        timer.start()
+        g = _long_grads(enc, out_fn, w)
+        timer.lap()
+        return g, 1e3 * timer.laps[0][0]
+    with torch.inference_mode():
+        out_fn()
+        timer = StepTimer("cuda")
+        timer.start()
+        out = out_fn()
+        timer.lap()
+    return out, 1e3 * timer.laps[0][0]
+
+
+def sp_phase(ranks: list, out_dir: str) -> dict:
+    """23. Sequence parallelism: the long recording (B=16, T'=8192) over 2
+    seq ranks (gloo, the card shared): the encode under 'flash' and
+    'fused' (bf16) and under 'flash' in f32 at T'=2048 equal the
+    one-process encode; one training step's gradients (bf16, and f32 at
+    T'=2048) equal the one-process step's (normwise: sums over 131072
+    tokens in another order).  Rank 0's window starts at −halo (−128):
+    negative offsets through K2f, K3f and K2b on the tensor cores."""
+    rr = [r["sp"] for r in ranks]
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    per = {"encode_flash": {"K2f": nb, "K5f": nb * LN_PER_BLOCK["flash"]},
+           "encode_fused": {"K3f": nb, "K5f": nb * LN_PER_BLOCK["fused"]},
+           "train": {"K2f": nb, "K2b-dq": nb, "K2b-dkv": nb, "K5f": nb * LN_PER_BLOCK["flash"],
+                     "K5b": nb * LN_PER_BLOCK["flash"]}}
+    for key in ("encode_flash_bf16", "encode_fused_bf16", "encode_flash_f32", "train_bf16",
+                "train_f32"):
+        want = per[key.rsplit("_", 1)[0]]
+        _check_rank_counts(f"sp {key}", rr, lambda r: r["counts"][key], want, 1)
+    check(len({r["grads_digest_bf16"] for r in rr}) == 1,
+          "sp: the ranks' summed gradients differ")
+    errs, ref_ms = {}, {}
+    for dtype, T, tag in ((torch.bfloat16, LONG_T, "bf16"), (torch.float32, SP_F32_T, "f32")):
+        for impl in (("flash", "fused") if tag == "bf16" else ("flash",)):
+            want, ref_ms[f"encode_{impl}_{tag}"] = _long_reference(dtype, T, impl, False)
+            got = torch.load(os.path.join(out_dir, f"sp_encode_{impl}_{tag}.pt")).cuda()
+            errs[f"encode_{impl}_{tag}"] = compare(f"sp encode ({impl}, {tag}, T'={T})", got,
+                                                   want, TOL[dtype])[0]
+            del want, got
+        want, ref_ms[f"train_{tag}"] = _long_reference(dtype, T, "flash", True)
+        got = torch.load(os.path.join(out_dir, f"sp_grads_{tag}.pt"))
+        errs[f"train_{tag}"] = max(
+            compare(f"sp gradient leaf {i} ({tag}, T'={T})", g.cuda(), w, TOL[dtype],
+                    normwise=True)[0] for i, (g, w) in enumerate(zip(got, want)))
+        errs[f"train_{tag}_rel"] = _rel_norm_err(got, want)
+        check(errs[f"train_{tag}_rel"] <= TOL[dtype]["rtol"],
+              f"sp gradients ({tag}) off by {errs[f'train_{tag}_rel']:.3e} of their norm")
+        del want, got
+        torch.cuda.empty_cache()
+    ms = {k: [r["ms"][k] for r in rr] for k in rr[0]["ms"]}
+    print(f"sp ({len(rr)} seq ranks, {ranks[0]['backend']}), B={LONG_B}: max abs err vs one "
+          f"process {errs}; "
+          f"ms by rank {ms}; one process {ref_ms}  [{gpu_line()}]")
+    return {"counts_by_rank": [r["counts"] for r in rr], "errs": errs, "ms_by_rank": ms,
+            "one_process_ms": ref_ms}
+
+
+def ep_phase(runs: list) -> dict:
+    """24. Expert parallelism: the MoE cell (8 experts, top 2, capacity
+    1.25, B=16 × T'=2048, bf16, 'flash', dropout off) over the expert
+    ranks of each run ``(label, ranks, out_dir, n_seq)`` (2 expert ranks,
+    groups of 512; 2 × 2 with 2 seq ranks, groups of 128, which divide the
+    shard and the halo): the loss, the aux loss and every gradient equal
+    the one-process step's; the checkpoint of the gathered trees rank 0
+    wrote restores in one process, bit for bit."""
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    results = {}
+    for label, ranks, out_dir, n_seq in runs:
+        rr = [r["ep_sp" if n_seq > 1 else "ep"] for r in ranks]
+        n_model = len(rr) // n_seq
+        _check_rank_counts(f"{label}", rr, lambda r: r["counts"],
+                           {"K2f": nb, "K2b-dq": nb, "K2b-dkv": nb,
+                            "K5f": nb * LN_PER_BLOCK["flash"], "K5b": nb * LN_PER_BLOCK["flash"]},
+                           1)
+        check(all(r["local_experts"] == MOE["moe_experts"] // n_model for r in rr),
+              f"{label}: local experts {[r['local_experts'] for r in rr]}")
+        check(len({r["digest"] for r in rr}) == 1, f"{label}: gathered trees differ by rank")
+        config = _ep_config(n_seq)
+        params = init_seq2seq(config, torch.Generator().manual_seed(0), "cuda")
+        batch = _moe_batch(config)
+        _moe_grads(config, params, batch)
+        timer = StepTimer("cuda")
+        timer.start()
+        loss, aux, grads = _moe_grads(config, params, batch)
+        timer.lap()
+        tag = f"ep{n_model}_sp{n_seq}"
+        got = torch.load(os.path.join(out_dir, f"{tag}_grads.pt"))
+        gerr = max(compare(f"{label} gradient leaf {i}", g.cuda(), w, TOL[torch.bfloat16],
+                           normwise=True)[0] for i, (g, w) in enumerate(zip(got, grads)))
+        grel = _rel_norm_err(got, grads)
+        check(grel <= GRAD_REL_TOL, f"{label}: gradients off by {grel:.3e} of their norm "
+                                    f"(limit {GRAD_REL_TOL})")
+        lerr = compare(f"{label} loss", torch.tensor([r["loss"] for r in rr]),
+                       torch.tensor([loss] * len(rr)), TOL[torch.bfloat16])[0]
+        aerr = compare(f"{label} moe_aux", torch.tensor([r["moe_aux"] for r in rr]),
+                       torch.tensor([aux] * len(rr)), TOL[torch.bfloat16])[0]
+        ckpt = load_checkpoint(os.path.join(out_dir, f"{tag}_ckpt.pt"), "cuda")
+        check(_shape_tree(ckpt["params"]) == _shape_tree(params),
+              f"{label}: the checkpoint's shapes are not the one-process tree's")
+        check(_digest(ckpt["params"]) == rr[0]["digest"],
+              f"{label}: the restored checkpoint differs from the gathered trees")
+        ms = [r["ms"] for r in rr]
+        results[label] = {"counts_by_rank": [r["counts"] for r in rr], "ms_by_rank": ms,
+                          "one_process_ms": 1e3 * timer.laps[0][0], "grad_err": gerr,
+                          "grad_rel_err": grel, "loss_err": lerr, "aux_err": aerr,
+                          "moe_aux": aux}
+        print(f"{label} ({ranks[0]['backend']}; groups of {config.conformer.moe_group_size}): loss "
+              f"{rr[0]['loss']:.5f} vs {loss:.5f}, moe_aux {rr[0]['moe_aux']:.6f} vs {aux:.6f}; "
+              f"gradients max abs err {gerr:.3e} (normwise), {grel:.3e} of their norm; "
+              f"checkpoint restored in one process "
+              f"bit for bit; loss+backward ms by rank {[f'{x:.2f}' for x in ms]}, one process "
+              f"{1e3 * timer.laps[0][0]:.2f}  [{gpu_line()}]")
+        del params, batch, grads, ckpt
+        torch.cuda.empty_cache()
+    return results
+
+
+def demo_twin_phase(root: str) -> dict:
+    """25a. ``python -m ecog2txt_tpu_torch.run_demo`` (its ``main``) at the
+    JAX demo's defaults, on the card with ``--use-pallas-lstm True``: WER 0
+    on the validation and testing blocks, K1f and K1b launched."""
+    t0 = time.perf_counter()
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    out = run_demo.main([os.path.join(root, "demo_twin"), "--device", "cuda",
+                         "--use-pallas-lstm", "True"])
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    s = time.perf_counter() - t0
+    wers = {p: out[p]["word_error_rate"] for p in ("validation", "testing")}
+    check(counts["K1f"] > 0 and counts["K1b"] > 0, f"demo twin: launches {counts}")
+    check(all(v == 0 for k, v in counts.items() if k not in ("K1f", "K1b")),
+          f"demo twin: launches {counts}")
+    check(wers == {"validation": 0.0, "testing": 0.0}, f"demo twin: WER {wers}")
+    print(f"demo twin (100 epochs, f32, True): WER {wers} in {s:.1f} s; launches {counts}")
+    return {"counts": counts, "wers": wers, "s": s}
+
+
+OP_POINT = dict(synth_pattern_correlation=0.35, synth_noise_scale=0.15,
+                num_unique_sentences=12, num_sentences_per_block=12, num_training_blocks=3)
+
+
+def _op_trainer(root: str, subject_ids=(1,)) -> MultiSubjectTrainer:
+    mp = make_demo_experiment(root, subject_ids=subject_ids, grid_size=(4, 4),
+                              phoneme_sequence_distribution="CTC", **OP_POINT)
+    return MultiSubjectTrainer(mp, list(subject_ids), VERBOSE=False, device="cuda",
+                               SN_kwargs={"batch_size": 12, "max_dec_len": 10,
+                                          "learning_rate": 3e-3, "use_pallas_lstm": True})
+
+
+def _op_assess(trainer: MultiSubjectTrainer, beam: int = 1, temp: float = 0.0) -> dict:
+    trainer.beam_width = beam
+    trainer.SN_kwargs["temperature"] = temp
+    return trainer.assess(["validation"])["validation"]
+
+
+def _lexicon_wer(trainer: MultiSubjectTrainer, references: list) -> tuple[float, float]:
+    """The CTC head alone, its log-probs rescored through the word lexicon
+    (``CTCWordBeamState``, width 8) on the validation trials against the
+    assessment's ``references``: (WER, mean phonemes a trial after
+    collapsing the greedy path)."""
+    from ecog2txt_tpu_torch.models.ctc import CTCWordBeamState, collapse_alignment
+    from ecog2txt_tpu_torch.serve import _ctc_head_apply
+
+    manifests = trainer.target_subject.data_manifests
+    phonemes = manifests["encoder_1_targets"].feature_list
+    ids = {p: i for i, p in enumerate(phonemes)}
+    lex = {w: [ids[p] for p in word_to_phonemes(w.rstrip("_"))]
+           for w in manifests["decoder_targets"].feature_list
+           if not w.startswith("<") and all(p in ids for p in word_to_phonemes(w.rstrip("_")))}
+    trie, blank = LexiconTrie(lex), len(phonemes)
+    ds = trainer.packed_dataset("validation")
+    params, cfg = trainer.state.ema, trainer.net_config
+    hyps, n_phon = [], []
+    with torch.inference_mode():
+        x = torch.from_numpy(ds.encoder_inputs[0]).cuda()
+        lengths = torch.from_numpy(ds.encoder_lengths[0]).cuda()
+        enc_out, _, enc_lens = encode(params, cfg, x, lengths, 0)
+        enc_bm = enc_out.transpose(0, 1)
+        for i in range(int(ds.num_trials[0])):
+            n = int(enc_lens[i])
+            path, logp = _ctc_head_apply(params, cfg, "encoder_1_targets", enc_bm[i:i + 1, :n],
+                                         want_logp=True)
+            n_phon.append(len([x for x in collapse_alignment(path[:, 0]) if int(x) != blank]))
+            state = CTCWordBeamState(trie, beam_width=8)
+            state.advance(logp[:, 0])
+            hyps.append(" ".join(w.rstrip("_") for w in state.best()))
+    return float(np.mean(wer_vector(references, hyps))), float(np.mean(n_phon))
+
+
+def decode_quality_phase(root: str) -> dict:
+    """25b. The orderings ``tests/test_decode_quality.py`` pins at its
+    calibrated operating point, on the card (f32, True): greedy in (0,
+    0.3], beam 8 no worse, the CTC head's lexicon rescoring usable (WER
+    below 0.5, at least 3 phonemes a trial); a donor-pretrained target
+    (the sequential curriculum) beats the cold one at the same target
+    budget.  The temperature-1 WER is printed beside them (the JAX package
+    reports it, one seed, and pins no ordering for it)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    cold = _op_trainer(os.path.join(root, "op_cold"))
+    cold.fit(num_epochs=160, assess=False)
+    greedy = _op_assess(cold)
+    wers = {"greedy": greedy["word_error_rate"],
+            "beam8": _op_assess(cold, beam=8)["word_error_rate"],
+            "temperature1": _op_assess(cold, temp=1.0)["word_error_rate"]}
+    wers["lexicon"], phonemes = _lexicon_wer(cold, greedy["references"])
+    tl = _op_trainer(os.path.join(root, "op_tl"), subject_ids=(2, 1))
+    tl.sequential_transfer_learn(pretraining=40, training=80, posttraining=80)
+    wers["transfer"] = _op_assess(tl)["word_error_rate"]
+    counts = read_counts()
+    s = time.perf_counter() - t0
+    check(0.0 < wers["greedy"] <= 0.3, f"decode quality: greedy WER {wers}")
+    check(wers["beam8"] <= wers["greedy"], f"decode quality: beam worse than greedy {wers}")
+    check(wers["lexicon"] < 0.5 and phonemes >= 3.0,
+          f"decode quality: lexicon rescoring {wers}, {phonemes:.2f} phonemes a trial")
+    check(wers["transfer"] < wers["greedy"], f"decode quality: transfer not better {wers}")
+    check(counts["K1f"] > 0 and counts["K1b"] > 0, f"decode quality: launches {counts}")
+    print(f"decode quality at the operating point (f32, True): WER {wers}, {phonemes:.2f} "
+          f"phonemes a trial from the CTC head, in {s:.1f} s; launches {counts}")
+    return {"counts": counts, "wers": wers, "s": s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     env = environment()
     with tempfile.TemporaryDirectory() as root:
         trainer = demo_trainer(root)
@@ -4085,6 +4775,17 @@ def main() -> int:
         cexport, flash_program = conformer_export_phase()
         tf32 = tf32_phase(flash_program)
         del flash_program
+        torch.cuda.empty_cache()
+        # phases 22-24: the ranks run their phases first (one spawn a world
+        # size), then this process checks them against one process
+        two, d2 = _spawn(2, ["dp_conformer", "dp_bilstm", "sp", "ep"], root, "gloo")
+        four, d4 = _spawn(4, ["ep_sp"], root, "gloo")
+        one, d1 = _nccl_world_of_one(root)
+        dp = dp_phase([("gloo x2", two, d2), ("nccl x1", one, d1)])
+        sp = sp_phase(two, d2)
+        ep = ep_phase([("ep2", two, d2, 1), ("ep2_sp2", four, d4, 2)])
+        twin = demo_twin_phase(root)
+        quality = decode_quality_phase(root)
     t256, t1 = kern["timings"][256], kern["timings"][1]
     b256 = kern_b["timings"][256]
     nb = HEADLINE_CONFORMER["num_blocks"]
@@ -4419,10 +5120,44 @@ def main() -> int:
         "K3f": {"launches_export": {n: cexport[n]["counts"]["K3f"] for n in ("fused", "moe")}},
         "K5f": {"launches_export": {n: r["counts"]["K5f"] for n, r in cexport.items()}},
     }
+    # the launches of phases 22-25 on every rank of each path (all ten
+    # kernels: a 0 says the path does not run it)
+    def by_rank(counts_by_rank, k):
+        return [c[k] for c in counts_by_rank]
+
+    spc = sp["counts_by_rank"]
+    parallel_paths = {k: {
+        "launches_dp_training": {
+            "conformer_gloo_x2": by_rank(dp["conformer_gloo x2"]["counts_by_rank"], k),
+            "bilstm_gloo_x2": by_rank(dp["bilstm_gloo x2"]["counts_by_rank"], k),
+            "conformer_nccl_x1": by_rank(dp["conformer_nccl x1"]["counts_by_rank"], k)},
+        "launches_sp_encode": {impl: [c[f"encode_{impl}_bf16"][k] for c in spc]
+                               for impl in ("flash", "fused")},
+        "launches_sp_training": [c["train_bf16"][k] for c in spc],
+        "launches_ep_training": {label: by_rank(ep[label]["counts_by_rank"], k)
+                                 for label in ("ep2", "ep2_sp2")},
+        "launches_demo_twin": twin["counts"][k],
+        "launches_decode_quality": quality["counts"][k],
+    } for k in WRAPPERS}
+    line["parallel"] = {
+        "dp": {label: {key: dp[label][key] for key in ("ms", "mfu", "param_err", "loss_err")
+                       if key in dp[label]}
+               for label in ("conformer_gloo x2", "conformer_nccl x1", "bilstm_gloo x2")},
+        "dp_one_process_ms": {w: dp[f"{w}_one_process_ms"] for w in ("conformer", "bilstm")},
+        "dp_conformer_one_process_mfu": dp["conformer_one_process_mfu"],
+        "sp": {k: sp[k] for k in ("errs", "ms_by_rank", "one_process_ms")},
+        "ep": {label: {k: v for k, v in r.items() if k != "counts_by_rank"}
+               for label, r in ep.items()},
+    }
+    line["demo_twin"] = {"wers": twin["wers"], "s": twin["s"]}
+    line["decode_quality"] = {"wers": quality["wers"], "s": quality["s"]}
     for entry in line["kernels"]:
         entry.update(slice_paths.get(ids[entry["name"]], {}))
         entry.update(moe_paths.get(ids[entry["name"]], {}))
         entry.update(tools_paths.get(ids[entry["name"]], {}))
+        entry.update(parallel_paths[ids[entry["name"]]])
+    line["script_s"] = time.perf_counter() - t_start
+    print(f"chip_smoke.py took {line['script_s']:.1f} s")
     print(json.dumps(line))
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

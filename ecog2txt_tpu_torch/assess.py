@@ -1,17 +1,24 @@
-"""Assessment: word error rate, accuracies, confusions.
+"""Assessment: word error rate, accuracies, confusions, statistics.
 
-The port's own copy of the scoring half of ``ecog2txt_tpu/assess.py``
-(the ``wer_vector`` edit-distance utility and its companions).  WER is
-token-level Levenshtein distance / reference length, computed on the
-host over decoded hypotheses.  The statistical comparisons of the JAX
-package's module are not ported yet.
+The port's own copy of ``ecog2txt_tpu/assess.py`` (numpy and scipy only):
+(a) the ``wer_vector`` edit-distance utility and its companions, and (b)
+the statistical comparisons of WER vectors: the one-sided Wilcoxon test
+with its rank-biserial effect size, Welch's t-test, the block-stratified
+bootstrap (the same numpy generator and draws as the JAX package's, so
+the same numbers), Holm-Bonferroni, and the archive-level plumbing
+(``apply_comparisons``, ``results_updater``).  WER is token-level
+Levenshtein distance / reference length, computed on the host over
+decoded hypotheses.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+import pickle
+from typing import Any, Callable, Sequence
 
 import numpy as np
+from scipy import stats as sps
 
 
 # --------------------------------------------------------------------------
@@ -92,3 +99,210 @@ def confusion_matrix(
     out = np.zeros((num_classes, num_classes), dtype=np.int64)
     np.add.at(out, (true_ids[valid], pred_ids[valid]), 1)
     return out
+
+
+# --------------------------------------------------------------------------
+# statistical comparisons (reference plotters.py:1943-2120)
+# --------------------------------------------------------------------------
+
+
+def WER_wilcoxon(wers_a: np.ndarray, wers_b: np.ndarray) -> dict:
+    """One-sided Wilcoxon signed-rank test that a < b, with rank-biserial
+    correlation effect size."""
+    wers_a, wers_b = np.asarray(wers_a), np.asarray(wers_b)
+    diff = wers_a - wers_b
+    nonzero = diff[diff != 0]
+    if len(nonzero) == 0:
+        return {"p_value": 1.0, "effect_size": 0.0, "statistic": 0.0}
+    result = sps.wilcoxon(wers_a, wers_b, alternative="less")
+    ranks = sps.rankdata(np.abs(nonzero))
+    favorable = ranks[nonzero < 0].sum()
+    unfavorable = ranks[nonzero > 0].sum()
+    rank_biserial = (favorable - unfavorable) / ranks.sum()
+    return {
+        "p_value": float(result.pvalue),
+        "effect_size": float(rank_biserial),
+        "statistic": float(result.statistic),
+    }
+
+
+def WER_paired_t_test(wers_a: np.ndarray, wers_b: np.ndarray) -> dict:
+    """Welch unequal-variance t-test (one-sided, a < b) with
+    Welch–Satterthwaite dof."""
+    a, b = np.asarray(wers_a, float), np.asarray(wers_b, float)
+    na, nb = len(a), len(b)
+    va, vb = a.var(ddof=1) / na, b.var(ddof=1) / nb
+    t = (a.mean() - b.mean()) / np.sqrt(va + vb)
+    dof = (va + vb) ** 2 / (va**2 / (na - 1) + vb**2 / (nb - 1))
+    return {"p_value": float(sps.t.cdf(t, dof)), "t": float(t), "dof": float(dof)}
+
+
+def resample_means(
+    wers: np.ndarray,
+    blocks: np.ndarray | None,
+    rng: np.random.Generator,
+    num_resamples: int,
+) -> np.ndarray:
+    """``num_resamples`` bootstrap means of ``wers``, drawn from ``rng``
+    (all at once): with ``blocks``, each block resampled within itself
+    (block-stratified), the blocks in sorted order."""
+    wers = np.asarray(wers, float)
+    if blocks is None:
+        idx = rng.integers(0, len(wers), size=(num_resamples, len(wers)))
+        return wers[idx].mean(axis=1)
+    blocks = np.asarray(blocks)
+    total = np.zeros(num_resamples)
+    count = 0
+    for block in np.unique(blocks):
+        w = wers[blocks == block]
+        idx = rng.integers(0, len(w), size=(num_resamples, len(w)))
+        total += w[idx].sum(axis=1)
+        count += len(w)
+    return total / count
+
+
+def WER_bootstrap(
+    wers_a: np.ndarray,
+    wers_b: np.ndarray,
+    blocks_a: np.ndarray | None = None,
+    blocks_b: np.ndarray | None = None,
+    num_resamples: int = 10**6,
+    seed: int = 0,
+) -> dict:
+    """Bootstrap test that mean(a) < mean(b), resampling within blocks;
+    a's draws come first from ``default_rng(seed)``, then b's."""
+    rng = np.random.default_rng(seed)
+    means_a = resample_means(wers_a, blocks_a, rng, num_resamples)
+    means_b = resample_means(wers_b, blocks_b, rng, num_resamples)
+    return {
+        "p_value": float((means_a >= means_b).mean()),
+        "mean_diff": float(np.mean(wers_a) - np.mean(wers_b)),
+    }
+
+
+_COMPARATORS: dict[str, Callable] = {
+    "wilcoxon": WER_wilcoxon,
+    "paired_t_test": WER_paired_t_test,
+    "bootstrap": WER_bootstrap,
+}
+
+
+def results_comparator(method: str) -> Callable:
+    """Dispatch over comparison methods."""
+    try:
+        return _COMPARATORS[method]
+    except KeyError:
+        raise ValueError(
+            f"unknown comparison method {method!r}; known: {sorted(_COMPARATORS)}"
+        )
+
+
+def holm_bonferroni(p_values: Sequence[float], alpha: float = 0.05) -> list[bool]:
+    """Holm-Bonferroni step-down correction → rejection decisions."""
+    p = np.asarray(p_values, float)
+    order = np.argsort(p)
+    m = len(p)
+    reject = np.zeros(m, dtype=bool)
+    for rank, idx in enumerate(order):
+        if p[idx] <= alpha / (m - rank):
+            reject[idx] = True
+        else:
+            break
+    return reject.tolist()
+
+
+class DecodingResults:
+    """A perf-vs-training-size archive as ``apply_comparisons`` loads it:
+    ``training_blocks``, ``validation_blocks`` and the fold × datasize
+    matrices ``word_error_rate``, ``accuracy`` and ``nums_seconds``, from
+    the ``.npz`` (or pickle) files the JAX package's
+    ``plotting.results.save_decoding_results`` writes.  (The reference's
+    hickle archives and the plotting around them are not ported yet: see
+    ROADMAP.md, Queue 1, item 12.)"""
+
+    def __init__(self, path: str):
+        data = self._load(path)
+        self.training_blocks = data["training_blocks"]
+        self.validation_blocks = list(data["validation_blocks"])
+        self.word_error_rate = np.asarray(data["word_error_rate"], float)
+        self.accuracy = np.asarray(data["accuracy"], float)
+        self.nums_seconds = np.asarray(data["nums_seconds"], float)
+
+    @property
+    def num_folds(self) -> int:
+        return int(self.word_error_rate.shape[0])
+
+    @staticmethod
+    def _load(path: str) -> dict[str, Any]:
+        for candidate in (path, path + ".npz", path + ".pkl"):
+            if not os.path.exists(candidate):
+                continue
+            if candidate.endswith(".pkl"):
+                with open(candidate, "rb") as f:
+                    return pickle.load(f)
+            with np.load(candidate, allow_pickle=True) as z:
+                out = {k: z[k] for k in z.files}
+            out["training_blocks"] = [
+                [int(x) for x in str(s).split(",") if x] for s in out["training_blocks"]
+            ]
+            return out
+        raise FileNotFoundError(f"no results archive at {path}(.npz|.pkl)")
+
+
+def apply_comparisons(partial_path, comparisons, application_fxn, VERBOSE=True):
+    """Run ``application_fxn(baseline_results, comparison_results,
+    baseline_suffix, comparison_suffix)`` over every (comparison,
+    baseline) pair of saved result archives.  ``partial_path`` is a
+    ``%``-template over the experiment suffix; ``comparisons`` maps
+    ``comparison_suffix -> {baseline_suffix: stats_dict}``; each archive
+    is loaded as a :class:`DecodingResults`."""
+    for comparison_suffix, baseline_dict in comparisons.items():
+        comparison_results = DecodingResults(partial_path % comparison_suffix)
+        for baseline_suffix in baseline_dict:
+            if VERBOSE:
+                print(f"comparing {comparison_suffix!r} to {baseline_suffix!r}")
+            baseline_results = DecodingResults(partial_path % baseline_suffix)
+            application_fxn(
+                baseline_results, comparison_results, baseline_suffix, comparison_suffix,
+            )
+
+
+def results_updater(partial_path, comparisons, ranks, VERBOSE=True):
+    """Annotate every comparison's stats in place with its Holm-Bonferroni
+    rank and rank-adjusted p value; ``ranks`` are consumed in iteration
+    order."""
+    ranks = list(ranks)
+
+    def application_fxn(baseline_results, comparison_results, baseline_suffix,
+                        comparison_suffix):
+        stats = comparisons[comparison_suffix][baseline_suffix]
+        p = stats.get("p_value", stats.get("p value"))
+        if p is None:
+            raise KeyError(
+                f"no 'p_value' in stats for comparison ({comparison_suffix!r} vs "
+                f"{baseline_suffix!r}): keys={sorted(stats)}"
+            )
+        rank = ranks.pop(0)
+        stats["adjusted_p_value"] = p * rank
+        stats["rank"] = rank
+
+    apply_comparisons(partial_path, comparisons, application_fxn, VERBOSE)
+
+
+def results_summarizer(comparisons: Sequence[dict], alpha: float = 0.05) -> list[dict]:
+    """Run a list of comparison specs and Holm-Bonferroni-correct them.
+    Each spec: ``{'method': str, 'wers_a': ..., 'wers_b': ..., extra
+    kwargs...; 'label': optional}``.  Returns the specs' results annotated
+    with 'significant' after the correction (all p values first, then the
+    correction)."""
+    results = []
+    for spec in comparisons:
+        spec = dict(spec)
+        method = spec.pop("method")
+        label = spec.pop("label", method)
+        out = results_comparator(method)(**spec)
+        results.append({"label": label, "method": method, **out})
+    decisions = holm_bonferroni([r["p_value"] for r in results], alpha)
+    for r, d in zip(results, decisions):
+        r["significant"] = bool(d)
+    return results

@@ -379,10 +379,13 @@ def _conv_module(p, x, tail=None, cd=torch.float32, valid=None):
 
 
 def apply_block(block, x, config: ConformerConfig, lengths, offset: int,
-                cd=torch.float32, tail=None, valid=None):
+                cd=torch.float32, tail=None, valid=None, stats_start=None, ep_axis=None):
     """One block (½FFN → MHSA → conv → ½FFN → LN): (x, new_conv_tail,
     moe_stats), the stats the block's additive router statistics
-    (``models.moe.router_stats``), None without MoE."""
+    (``models.moe.router_stats``), None without MoE.  ``stats_start``: the
+    first absolute position the statistics count (sequence parallelism's
+    halo is computed but not counted); ``ep_axis``: the MoE FFN's expert
+    parallelism (a process group)."""
     x = x + 0.5 * _ffn(block["ffn1"], x, cd)
     x = x + _attention(block["attn"], x, config, lengths, offset, cd)
     conv_out, new_tail = _conv_module(block["conv"], x, tail, cd, valid)
@@ -397,8 +400,9 @@ def apply_block(block, x, config: ConformerConfig, lengths, offset: int,
         tok_valid = (positions >= 0).expand(B, T)
         if lengths is not None:
             tok_valid = tok_valid & (positions < lengths[:, None])
+        stats_valid = None if stats_start is None else tok_valid & (positions >= stats_start)
         moe_out, stats = moe_ffn(block["ffn2"], _layernorm(block["ffn2"]["ln"], x),
-                                 config, cd, tok_valid)
+                                 config, cd, tok_valid, stats_valid, ep_axis)
         x = x + 0.5 * moe_out
     else:
         x = x + 0.5 * _ffn(block["ffn2"], x, cd)
@@ -416,6 +420,8 @@ def conformer_encode(
     mask_invalid: bool = False,
     return_aux: bool = False,
     return_moe_stats: bool = False,
+    stats_start: int | None = None,
+    ep_axis=None,
 ):
     """Full-sequence (training) or continuation (streaming) encode.
 
@@ -428,7 +434,11 @@ def conformer_encode(
     new_carry); with ``return_aux`` also the mean weighted router aux
     loss over the MoE blocks (0 without MoE), with ``return_moe_stats``
     instead the per-block list of router statistics (None for a block
-    without MoE).  ``remat`` recomputes each block in the backward."""
+    without MoE), which sharded callers sum over their shards before
+    :func:`moe_aux_from_stats`.  ``stats_start`` leaves positions below it
+    out of the statistics (not out of the outputs); ``ep_axis`` (a process
+    group) runs the MoE FFN expert-parallel (``models/moe.py``).  ``remat``
+    recomputes each block in the backward."""
     cd = compute_dtype
     x = _dot(xs.to(cd), params["in_proj"]["w"], cd) + params["in_proj"]["b"].to(cd)
     offset = position_offset if _per_row(position_offset) else int(position_offset)
@@ -439,11 +449,11 @@ def conformer_encode(
         if config.remat and torch.is_grad_enabled():
             x, new_tail, stats = checkpoint(
                 apply_block, block, x, config, lengths, offset, cd, tail, valid,
-                use_reentrant=False,
+                stats_start, ep_axis, use_reentrant=False,
             )
         else:
             x, new_tail, stats = apply_block(block, x, config, lengths, offset, cd, tail,
-                                             valid)
+                                             valid, stats_start, ep_axis)
         new_carry.append(new_tail)
         stats_list.append(stats)
     if return_moe_stats:

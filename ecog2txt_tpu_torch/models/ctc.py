@@ -81,9 +81,12 @@ def ctc_loss(
     logit_lengths: torch.Tensor,  # (B,)
     labels: torch.Tensor,  # (B, L) int phoneme ids (no blanks)
     label_lengths: torch.Tensor,  # (B,)
+    normalizer: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Mean per-label-token CTC negative log-likelihood, a scalar in f32
-    (or the wider dtype of the logits)."""
+    (or the wider dtype of the logits).  ``normalizer`` replaces the
+    batch's label-token count as the divisor (a data-parallel rank divides
+    its sum by the global batch's count)."""
     dtype = torch.promote_types(logits.dtype, torch.float32)
     logits_bm = logits.to(dtype).transpose(0, 1)  # (B, T, K+1)
     B, T = logits_bm.shape[:2]
@@ -96,7 +99,8 @@ def ctc_loss(
         torch.log_softmax(logits_bm, dim=-1), logit_paddings, labels.to(dev),
         label_lengths.to(dev), blank_id,
     )
-    return per_seq.sum() / torch.clamp(label_lengths.to(dev).sum(), min=1).to(dtype)
+    count = label_lengths.to(dev).sum() if normalizer is None else normalizer
+    return per_seq.sum() / torch.clamp(count, min=1).to(dtype)
 
 
 def collapse_alignment(aligned) -> np.ndarray:

@@ -29,8 +29,16 @@ stored (in, out)) and the same functions:
 
 Tokens outside the recording (positions below 0 or from ``length`` on)
 take no capacity and do not count in the statistics.  The products take
-both operands in the compute dtype (f32 accumulation inside).  Expert
-parallelism (``ep_axis``) is not ported.
+both operands in the compute dtype (f32 accumulation inside).
+
+Expert parallelism (``ep_axis``, a process group; ``parallel/expert.py``
+places the weights): the expert-stacked leaves of ``p`` hold only this
+rank's E/K experts, from ``k0 = rank · E/K``.  Tokens stay replicated
+over the group, so the router, its choices and the capacity slots (taken
+over all E experts) are every rank's alike; each rank runs its experts
+and the partial combines are summed over the group
+(``parallel.comm.all_reduce_sum``, whose adjoint sums the cotangents).
+The routed function, drops included, is the unsharded one.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.comm import all_reduce_sum, group_rank
 
 
 def glorot(generator: torch.Generator, shape) -> torch.Tensor:
@@ -132,15 +142,24 @@ def _experts(p: dict, h: torch.Tensor, cd, grouped: bool) -> torch.Tensor:
     return torch.einsum(eq_out, hidden, p["w2"].to(cd)) + bias(p["b2"].to(cd))
 
 
-def _moe_nodrop(p: dict, xn: torch.Tensor, config, cd, valid: torch.Tensor):
+def _local_experts(p: dict, ep_axis) -> int:
+    """The first expert this rank holds (0 without expert parallelism)."""
+    return group_rank(ep_axis) * p["w1"].shape[0] if ep_axis is not None else 0
+
+
+def _moe_nodrop(p: dict, xn: torch.Tensor, config, cd, valid: torch.Tensor, ep_axis=None):
     """Every expert on every token, combined by the top-k gates (zero for
-    invalid tokens)."""
+    invalid tokens); under ``ep_axis`` this rank's experts, the combine
+    summed over the group."""
     _, probs, gates, gate_idx = _route(p, xn, config.moe_topk)
-    E = probs.shape[-1]
-    y = _experts(p, xn, cd, grouped=False)  # (B, T, E, D)
+    E = probs.shape[-1]  # the router's width: every expert
+    y = _experts(p, xn, cd, grouped=False)  # (B, T, E_local, D)
     w = (F.one_hot(gate_idx, E).float() * gates[..., None]).sum(dim=-2)
     w = (w * valid[..., None].float()).to(cd)
-    return torch.einsum("bte,bted->btd", w, y)
+    k0 = _local_experts(p, ep_axis)
+    w = w[..., k0:k0 + p["w1"].shape[0]]
+    out = torch.einsum("bte,bted->btd", w, y)
+    return out if ep_axis is None else all_reduce_sum(out, ep_axis)
 
 
 def capacity_slots(gate_idx: torch.Tensor, valid: torch.Tensor, E: int, C: int):
@@ -166,33 +185,41 @@ def capacity_slots(gate_idx: torch.Tensor, valid: torch.Tensor, E: int, C: int):
     return torch.clamp(slot, max=C - 1).long(), keep
 
 
-def _moe_capacity_grouped(p: dict, xn: torch.Tensor, config, cd, valid: torch.Tensor):
+def _moe_capacity_grouped(p: dict, xn: torch.Tensor, config, cd, valid: torch.Tensor,
+                          ep_axis=None):
     """One dispatch group a leading-dim row: xn (G, S, D) → (G, S, D).
     Kept tokens are copied into their (expert, slot) of a (G, E, C, D)
     buffer (each slot holds at most one kept token, so the copy is exact), the
     experts run on the buffer, and each kept choice reads its slot back,
-    weighted by its gate."""
+    weighted by its gate.  Under ``ep_axis`` the buffer holds this rank's
+    experts only (the slots are taken over all of them first) and the
+    combine is summed over the group."""
     G, S, D = xn.shape
     E, k = config.moe_experts, config.moe_topk
     C = max(int(math.ceil(k * S / E * config.moe_capacity_factor)), 1)
     _, _, gates, gate_idx = _route(p, xn, k)
     slot, keep = capacity_slots(gate_idx, valid, E, C)
-    n = G * E * C
+    E_local = p["w1"].shape[0]
+    local = gate_idx - _local_experts(p, ep_axis)
+    keep = keep & (local >= 0) & (local < E_local)
+    n = G * E_local * C
     g = torch.arange(G, device=xn.device)[:, None, None]
-    flat = (g * E + gate_idx) * C + slot  # (G, S, k) row of the buffer
-    # dropped and invalid choices land on a spare last row that no expert
-    # reads (no mask of data-dependent size, so no wait for the card)
+    flat = (g * E_local + local.clamp(0, E_local - 1)) * C + slot  # (G, S, k) buffer row
+    # dropped, invalid (and other ranks') choices land on a spare last row
+    # that no expert reads (no mask of data-dependent size, so no wait for
+    # the card)
     dest = torch.where(keep, flat, n).reshape(-1)
     src = xn.to(cd)[:, :, None, :].expand(G, S, k, D).reshape(-1, D)
     buf = xn.new_zeros((n + 1, D), dtype=cd).index_put((dest,), src)
-    y = _experts(p, buf[:n].reshape(G, E, C, D), cd, grouped=True)
+    y = _experts(p, buf[:n].reshape(G, E_local, C, D), cd, grouped=True)
     back = y.reshape(n, D)[flat]  # (G, S, k, D); dropped choices weigh 0
     w = (gates * keep.float()).to(cd)
     # the combine sums k products in f32, as an einsum in cd accumulates
-    return (w.float()[..., None] * back.float()).sum(dim=2).to(cd)
+    out = (w.float()[..., None] * back.float()).sum(dim=2).to(cd)
+    return out if ep_axis is None else all_reduce_sum(out, ep_axis)
 
 
-def _moe_capacity(p: dict, xn: torch.Tensor, config, cd, valid: torch.Tensor):
+def _moe_capacity(p: dict, xn: torch.Tensor, config, cd, valid: torch.Tensor, ep_axis=None):
     """Grouped capacity dispatch: one group a batch row, or a
     ``moe_group_size``-step segment of a row (T padded up to whole
     segments; pad tokens are invalid and take no slot), so the capacity
@@ -200,24 +227,31 @@ def _moe_capacity(p: dict, xn: torch.Tensor, config, cd, valid: torch.Tensor):
     B, T, D = xn.shape
     seg = int(config.moe_group_size or 0)
     if not seg:
-        return _moe_capacity_grouped(p, xn, config, cd, valid)
+        return _moe_capacity_grouped(p, xn, config, cd, valid, ep_axis)
     pad = (-T) % seg
     if pad:
         xn = F.pad(xn, (0, 0, 0, pad))
         valid = F.pad(valid, (0, pad))
     G = (T + pad) // seg
     out = _moe_capacity_grouped(p, xn.reshape(B * G, seg, D), config, cd,
-                                valid.reshape(B * G, seg))
+                                valid.reshape(B * G, seg), ep_axis)
     return out.reshape(B, G * seg, D)[:, :T]
 
 
-def moe_ffn(p: dict, xn: torch.Tensor, config, cd, valid: torch.Tensor):
+def moe_ffn(p: dict, xn: torch.Tensor, config, cd, valid: torch.Tensor,
+            stats_valid: torch.Tensor | None = None, ep_axis=None):
     """Routed MoE FFN on the LayerNormed ``xn`` (B, T, D) in the compute
     dtype; ``valid`` (B, T) bool marks the tokens inside the recording.
-    Returns (out (B, T, D), :func:`router_stats` sums)."""
+    Returns (out (B, T, D), :func:`router_stats` sums).  ``stats_valid``
+    (default ``valid``) marks the tokens the statistics count: sequence
+    parallelism leaves a shard's halo out of them, so that the sum over
+    the shards counts each token once.  ``ep_axis``: expert parallelism
+    over that process group (the router, hence the statistics, is the same
+    on every rank of it)."""
     if config.moe_capacity_factor > 0:
-        out = _moe_capacity(p, xn, config, cd, valid)
+        out = _moe_capacity(p, xn, config, cd, valid, ep_axis)
     else:
-        out = _moe_nodrop(p, xn, config, cd, valid)
+        out = _moe_nodrop(p, xn, config, cd, valid, ep_axis)
     logits, probs, _, gate_idx = _route(p, xn, config.moe_topk)
-    return out, router_stats(logits, probs, gate_idx, valid)
+    return out, router_stats(logits, probs, gate_idx,
+                             valid if stats_valid is None else stats_valid)

@@ -24,7 +24,12 @@ tree (nested dicts and lists, the same keys and shapes, weights stored
   layers, variational recurrent dropout (one mask per sequence, layer
   and direction), and :func:`seq2seq_loss` with categorical, CTC
   (``models.ctc``), Gaussian and Rayleigh auxiliary heads beside the
-  decoder cross-entropy.
+  decoder cross-entropy;
+* the parallel modes of ``parallel/``: ``dp`` (each rank a slice of the
+  global batch; every mean divides by the global batch's count), ``sp``
+  (the conformer's time axis over ranks, ``parallel/sequence.py``) and
+  ``ep`` (the MoE FFN's experts over ranks), each a ``(mesh, axis)``
+  pair as the JAX package's ``sp`` is.
 
 Sequences are time-major ``(T, B, F)``.  Products round their operands
 to ``compute_dtype`` and accumulate in f32 (``ops.lstm.dot_f32``).
@@ -51,7 +56,8 @@ from ..ops.lstm import (
     lstm_step,
     reverse_padded,
 )
-from .conformer import ConformerConfig, conformer_encode, init_conformer
+from ..parallel.comm import all_reduce_sum, all_reduce_tree
+from .conformer import ConformerConfig, conformer_encode, init_conformer, moe_aux_from_stats
 from .ctc import ctc_loss
 
 
@@ -320,6 +326,9 @@ def encode(
     generator: torch.Generator | None = None,
     train: bool = False,
     return_aux: bool = False,
+    sp: tuple | None = None,
+    ep: tuple | None = None,
+    dp: tuple | None = None,
 ):
     """Full encoder: reversal → conv → biLSTM stack, or (conformer
     family) conv → conformer in natural time order, with dropout when
@@ -329,7 +338,22 @@ def encode(
     (B,)); for the conformer, the outputs are zero past each length and
     the final state is their masked mean over the valid steps.
     ``return_aux`` appends the MoE conformer's weighted router aux loss
-    (0 for every other configuration)."""
+    (0 for every other configuration).
+
+    ``sp=(mesh, axis)`` shards the conformer encode's time axis over
+    ``mesh``'s ``axis`` (``parallel/sequence.py``; differentiable): the
+    subsample conv runs on every rank, the steps are padded to a multiple
+    of the axis's ranks times the chunk, and the output is gathered over
+    time for the decoder.  ``sp=(mesh, axis, ep_axis)`` or ``ep=(mesh,
+    ep_axis)`` runs the MoE FFN with its experts over ``ep_axis``.
+    ``dp=(mesh, axis)``: this batch is the rank's slice of the global
+    batch over ``axis``, and the router statistics are summed over it
+    before the aux loss (the biLSTM encodes its slice as it is)."""
+    if sp is not None and config.encoder_type != "conformer":
+        raise ValueError(
+            "sequence parallelism requires encoder_type='conformer' "
+            "(the biLSTM recurrence cannot shard over time)"
+        )
     _require_generator(generator, train)
     xs = inputs.transpose(0, 1)  # (T, B, C)
     # the LSTM family reads its input reversed (fused into the first
@@ -351,11 +375,31 @@ def encode(
     enc_lengths = torch.clamp((lengths + d - 1) // d, max=xs.shape[0])
 
     if config.encoder_type == "conformer":
-        out_bm, _, moe_aux = conformer_encode(
-            params["encoder"]["conformer"], config.conformer or ConformerConfig(),
-            xs.transpose(0, 1), enc_lengths, compute_dtype=config.compute_dtype,
-            return_aux=True,
-        )  # (B, T', D)
+        ccfg = config.conformer or ConformerConfig()
+        xs_bm = xs.transpose(0, 1)  # (B, T', F)
+        ep_axis = sp[2] if sp is not None and len(sp) > 2 else (ep[1] if ep else None)
+        data_axes = (dp[1],) if dp is not None else ()
+        if sp is not None:
+            from ..parallel.sequence import pad_to_shards, sequence_parallel_encode
+
+            mesh, axis = sp[0], sp[1]
+            out_bm, moe_aux = sequence_parallel_encode(
+                params["encoder"]["conformer"], ccfg,
+                pad_to_shards(xs_bm, mesh, axis, ccfg.chunk_size), mesh, axis,
+                enc_lengths, config.compute_dtype, return_aux=True, ep_axis=ep_axis,
+                stats_axes=(axis, *data_axes),
+            )
+            out_bm = out_bm[:, :xs_bm.shape[1]]
+        else:
+            mesh = (ep or dp or (None,))[0]
+            out_bm, _, stats = conformer_encode(
+                params["encoder"]["conformer"], ccfg, xs_bm, enc_lengths,
+                compute_dtype=config.compute_dtype, return_moe_stats=True,
+                ep_axis=mesh.group(ep_axis) if ep_axis is not None else None,
+            )  # (B, T', D)
+            if data_axes:
+                stats = all_reduce_tree(stats, mesh.group(*data_axes))
+            moe_aux = moe_aux_from_stats(ccfg, stats, out_bm.device)
         T_out = out_bm.shape[1]
         step_mask = (
             torch.arange(T_out, device=out_bm.device)[None, :] < enc_lengths[:, None]
@@ -509,10 +553,55 @@ def rayleigh_nll(log_sigma: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return 2.0 * log_sigma + 0.5 * x * x * torch.exp(-2.0 * log_sigma) - torch.log(x)
 
 
-def _masked_mean(values, mask):
-    """Sum of ``values`` over ``mask`` divided by max(count, 1)."""
+def _masked_mean(values, mask, count=None):
+    """Sum of ``values`` over ``mask`` divided by max(count, 1); ``count``
+    defaults to the mask's own (a data-parallel rank passes the global
+    batch's)."""
     m = mask.to(values.dtype)
-    return (values * m).sum() / torch.clamp(m.sum(), min=1.0)
+    count = m.sum() if count is None else count.to(values.dtype)
+    return (values * m).sum() / torch.clamp(count, min=1.0)
+
+
+class _Shares:
+    """How a rank's loss terms add up to the global loss on a mesh.
+
+    Each rank returns its share: the shares summed over every rank of the
+    mesh are the loss over the global batch, so the gradients summed over
+    the ranks that hold a leaf are its single-device gradient (the
+    collectives' adjoints do the rest, ``parallel/comm.py``).  A mean over
+    tokens divides the rank's sum by the global batch's count (summed over
+    the ``dp`` axis) and by the ranks that see the same slice of the batch
+    (the other axes: under sp and ep every rank of a line computes the same
+    decoder loss); the MoE aux loss, the same on every rank, by the mesh's
+    size.  Without a mesh every factor is 1."""
+
+    def __init__(self, sp, ep, dp):
+        self.mesh = next((p[0] for p in (sp, ep, dp) if p is not None), None)
+        self.dp = dp
+        if self.mesh is None:
+            self.replicas = self.size = 1
+        else:
+            self.size = self.mesh.size
+            self.replicas = self.size // (self.mesh.shape[dp[1]] if dp is not None else 1)
+
+    def counts(self, *counts: torch.Tensor) -> list[torch.Tensor]:
+        """The global batch's token counts (no gradient)."""
+        if self.dp is None:
+            return list(counts)
+        with torch.no_grad():
+            total = all_reduce_sum(torch.stack([c.float() for c in counts]),
+                                   self.mesh.group(self.dp[1]))
+        return list(total.unbind())
+
+    def metrics(self, shares: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The global values of the metrics from every rank's shares."""
+        if self.mesh is None:
+            return shares
+        names = list(shares)
+        with torch.no_grad():
+            total = all_reduce_sum(torch.stack([shares[k].detach().float() for k in names]),
+                                   self.mesh.group(*self.mesh.axis_names))
+        return dict(zip(names, total.unbind()))
 
 
 def seq2seq_loss(
@@ -522,6 +611,9 @@ def seq2seq_loss(
     generator: torch.Generator | None = None,
     train: bool = True,
     penalty_scales: dict[str, float] | None = None,
+    sp: tuple | None = None,
+    ep: tuple | None = None,
+    dp: tuple | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Total loss + metrics.
 
@@ -533,25 +625,45 @@ def seq2seq_loss(
     'decoder_targets'.  Metrics: ``loss_<head>``, ``loss_decoder``,
     ``token_accuracy``, ``loss_total``, and ``moe_aux`` for the MoE
     conformer (its weighted router loss, part of the total).
+
+    ``sp``, ``ep``, ``dp``: the parallel modes of :func:`encode`, on one
+    mesh.  Then the returned loss is this rank's share of the global loss
+    (the shares of every rank of the mesh sum to it: ``_Shares``), and the
+    metrics are the global values, summed over the mesh.
     """
     penalty_scales = penalty_scales or {}
     _require_generator(generator, train)
+    shares = _Shares(sp, ep, dp)
     enc_out, enc_final, enc_lengths, moe_aux = encode(
         params, config, batch["encoder_inputs"], batch["encoder_lengths"],
-        batch["subject_idx"], generator, train, return_aux=True,
+        batch["subject_idx"], generator, train, return_aux=True, sp=sp, ep=ep, dp=dp,
     )
     T_out = enc_out.shape[0]
     step_mask = (
         torch.arange(T_out, device=enc_out.device)[:, None] < enc_lengths[None, :]
     )  # (T', B)
+    targets = batch["decoder_targets"]  # (B, L)
+    L = targets.shape[1]
+    dec_mask = (
+        torch.arange(L, device=enc_out.device)[:, None]
+        < batch["decoder_lengths"].to(enc_out.device)[None, :]
+    )  # (L, B)
+    ctc_heads = [h for h in config.aux_heads if h.distribution == "CTC"]
+    step_count, dec_count, *ctc_counts = shares.counts(
+        step_mask.sum(), dec_mask.sum(),
+        *(batch[f"{h.name}_lengths"].to(enc_out.device).sum() for h in ctc_heads),
+    )
+    ctc_counts = dict(zip((h.name for h in ctc_heads), ctc_counts))
+    inv = 1.0 / shares.replicas
 
     metrics: dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=enc_out.device)
     if config.encoder_type == "conformer" and (config.conformer or ConformerConfig()).moe_experts:
         # already weighted (moe_aux_weight, moe_zloss_weight): keeps the
         # router balanced across experts
-        total = total + moe_aux
-        metrics["moe_aux"] = moe_aux
+        aux_share = moe_aux / shares.size
+        total = total + aux_share
+        metrics["moe_aux"] = aux_share
     for head in config.aux_heads:
         head_params = params["aux"][head.name]
         h = enc_out
@@ -563,7 +675,8 @@ def seq2seq_loss(
         if head.distribution == "CTC":
             # alignment-free phoneme loss (models/ctc.py); pred covers the
             # phonemes and the trailing blank
-            loss = ctc_loss(pred, enc_lengths, raw, batch[f"{head.name}_lengths"])
+            loss = inv * ctc_loss(pred, enc_lengths, raw, batch[f"{head.name}_lengths"],
+                                  ctc_counts[head.name] if shares.dp is not None else None)
             metrics[f"loss_{head.name}"] = loss
             total = total + scale * loss
             continue
@@ -580,37 +693,29 @@ def seq2seq_loss(
         )
         if head.distribution == "categorical":
             logp = torch.log_softmax(pred, dim=-1)
-            nll = -torch.gather(logp, -1, aligned.long()[..., None])[..., 0]
-            loss = _masked_mean(nll, step_mask)
+            values = -torch.gather(logp, -1, aligned.long()[..., None])[..., 0]
         elif head.distribution == "Gaussian":  # masked MSE
-            se = ((pred - aligned) ** 2).sum(dim=-1)
-            loss = _masked_mean(se, step_mask)
+            values = ((pred - aligned) ** 2).sum(dim=-1)
         else:  # Rayleigh: the head predicts log σ per feature
-            nll = rayleigh_nll(pred, aligned).sum(dim=-1)
-            loss = _masked_mean(nll, step_mask)
+            values = rayleigh_nll(pred, aligned).sum(dim=-1)
+        loss = inv * _masked_mean(values, step_mask, step_count)
         metrics[f"loss_{head.name}"] = loss
         total = total + scale * loss
 
-    targets = batch["decoder_targets"]  # (B, L)
     logits = decoder_teacher_forcing(
         params, config, enc_final, targets, generator, train,
         enc_out=enc_out, enc_lengths=enc_lengths,
     )  # (L, B, V)
-    L = targets.shape[1]
-    dec_mask = (
-        torch.arange(L, device=logits.device)[:, None]
-        < batch["decoder_lengths"][None, :]
-    )  # (L, B)
     t_lb = targets.long().transpose(0, 1)  # (L, B)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, t_lb[..., None])[..., 0]
-    dec_loss = _masked_mean(nll, dec_mask)
+    dec_loss = inv * _masked_mean(nll, dec_mask, dec_count)
     total = total + penalty_scales.get("decoder_targets", 1.0) * dec_loss
     metrics["loss_decoder"] = dec_loss
     correct = (torch.argmax(logits, dim=-1) == t_lb).float()
-    metrics["token_accuracy"] = _masked_mean(correct, dec_mask)
+    metrics["token_accuracy"] = inv * _masked_mean(correct, dec_mask, dec_count)
     metrics["loss_total"] = total
-    return total, metrics
+    return total, shares.metrics(metrics)
 
 
 def greedy_decode(

@@ -195,7 +195,7 @@ class OnlinePredictor:
         """Serve a ``train.MultiSubjectTrainer``'s (EMA) weights for its
         target subject, on the trainer's device unless ``device`` is
         given."""
-        params = trainer.state.ema if use_ema else trainer.state.params
+        params = trainer.full_params(use_ema)
         dec_list = trainer.target_subject.data_manifests[
             "decoder_targets"
         ].feature_list
@@ -500,7 +500,7 @@ class _ConformerServing:
         trainer's device unless ``device`` is given, and, when the config
         has a CTC aux head, that head's class list as ``phoneme_list`` so
         that ``partial()`` works."""
-        params = trainer.state.ema if use_ema else trainer.state.params
+        params = trainer.full_params(use_ema)
         manifests = trainer.target_subject.data_manifests
         config = trainer.net_config
         if "phoneme_list" not in kwargs:

@@ -1,6 +1,7 @@
 """Training orchestration: the segment runner and the MultiSubjectTrainer.
 
-The twin of ``ecog2txt_tpu/train.py`` on one device:
+The twin of ``ecog2txt_tpu/train.py``, on one device or on the ranks of a
+``torch.distributed`` world (``parallel/``):
 
 * the corpus lives on the device (``device_data``; the ECoG inputs in
   bf16 under bf16 compute), and each step gathers ``data[subject][idx]``
@@ -32,10 +33,26 @@ checkpoint, then raises ``FloatingPointError``.  ``restore`` rebuilds the
 net from a checkpoint of another architecture (``utils/introspect.py``),
 and ``import_tf1_checkpoint`` reads the reference's TF1 checkpoints
 (``utils/tf1_import.py``).  ``sequential_transfer_learn`` is the
-reference's subject-by-subject curriculum.  The parallel modes
-(``SN_kwargs`` ``data_parallel`` and the others of
-``_UNPORTED_SN_KWARGS``) and ``cluster_embedded_words`` are not ported
-yet: asking for them raises ``NotImplementedError``.
+reference's subject-by-subject curriculum.
+
+The parallel modes, one process a device: ``SN_kwargs['distributed'] =
+{'coordinator_address', 'num_processes', 'process_id'}`` (or the
+environment ``torchrun`` sets) wires the ranks before anything else;
+``data_parallel`` (each rank a slice of every batch), ``sequence_parallel
+= K`` (the conformer's time axis over K ranks) and ``expert_parallel = K``
+(the MoE experts over K ranks) build a ``(data, model[, seq])`` mesh
+(``parallel/mesh.py``) and compose as dp×sp, dp×ep and ep×sp.  Each rank
+computes its share of the global loss; the gradients are summed over the
+ranks that hold each leaf and clipped by the global norm (the expert
+leaves' squares summed over the expert axis), so every rank takes the
+one-process step on the same global batch.  The ranks stay in lockstep:
+the metrics (hence the NaN rollback's decision) are global, rank 0 writes
+the records, the vocab, the checkpoints (experts gathered: the
+one-process format) and the results while the others wait, and every
+rank assesses the same EMA weights.  ``tensor_parallel``,
+``pipeline_parallel`` and ``pipeline_microbatches`` and
+``cluster_embedded_words`` are not ported yet: asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +67,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import DATA_PARTITIONS, EOS_token, TOKEN_TYPES, pad_token, resolve_device
 from .assess import confusion_matrix, sequence_accuracy, wer_vector
@@ -68,6 +86,9 @@ from .models.seq2seq import (
     seq2seq_loss,
 )
 from .ops.lstm import reverse_padded
+from .parallel.expert import gather_params_ep, shard_params_ep
+from .parallel.mesh import clip_by_global_norm, make_dp_train_step, make_mesh, replicate  # noqa: F401
+from .parallel.multihost import initialize_distributed, initialize_from_environment, rank_device
 from .pipeline import (
     _PREFETCH_END,
     LazyShardedDataset,
@@ -89,13 +110,12 @@ from .utils import tf1_import
 from .utils.introspect import _shape_tree, recover_model_sizes
 from .utils.summaries import SummaryWriter
 
-# SN_kwargs of the JAX trainer that the port does not take yet: the
-# parallel modes
-_UNPORTED_SN_KWARGS = (
-    "distributed", "data_parallel", "sequence_parallel", "pipeline_parallel",
-    "tensor_parallel", "expert_parallel",
-)
-_NOT_PORTED_PARALLEL = "is not ported yet (see ROADMAP.md, Queue 1, item 10)"
+# SN_kwargs of the JAX trainer that the port does not take yet: tensor and
+# pipeline parallelism
+_UNPORTED_SN_KWARGS = ("pipeline_parallel", "tensor_parallel", "pipeline_microbatches")
+_NOT_PORTED_PARALLEL = "is not ported yet (see ROADMAP.md, Queue 1, item 10b)"
+# the SN_kwargs that ask for a mesh
+_PARALLEL_SN_KWARGS = ("data_parallel", "sequence_parallel", "expert_parallel")
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 CLIP_NORM = 10.0  # clip_by_global_norm(10), as the JAX trainer's optimizer
 
@@ -203,45 +223,42 @@ def make_optimizer(
     return Optimizer(params, learning_rate, schedule, trainable)
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
-    """optax.clip_by_global_norm in place: ``g * max_norm / max(|g|,
-    max_norm)`` with |g| the norm over every leaf (no host sync)."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-    )
-    torch._foreach_mul_(grads, max_norm / torch.clamp(norm, min=max_norm))
-
-
 def make_segment_runner(
     config: Seq2SeqConfig,
     penalty_scales: dict[str, float],
     ema_decay: float,
+    mesh=None,
+    sp: tuple | None = None,
+    ep: tuple | None = None,
 ) -> Callable:
     """Build the multi-step runner.  ``data`` is the stacked (S, N, ...)
     batch dict on the device; the schedule picks (subject, trials) per
     step.  Returns ``run_segment(state, data, subject_per_step (K,),
     indices_per_step (K, B), generator, epochs_in_segment) -> (state,
     mean metrics)``; ``state.params`` and ``state.ema`` are updated in
-    place and ``state.opt_state`` steps."""
+    place and ``state.opt_state`` steps.
+
+    A step is ``parallel.mesh.make_dp_train_step``'s (clip 10, Adam, EMA).
+    On a ``mesh`` every rank holds the same data and schedule; the step
+    takes this rank's slice of the batch over the ``data`` axis (the whole
+    batch when B does not divide by it: each rank's loss is then 1/n of
+    the batch's), the loss share of ``seq2seq_loss`` under ``sp`` / ``ep``
+    (each a ``(mesh, axis)``), and sums the gradients over the ranks that
+    hold each leaf before the clip; the metrics are the global batch's."""
+    dp = (mesh, "data") if mesh is not None and mesh.shape["data"] > 1 else None
+    local = config.conformer.moe_experts // mesh.shape[ep[1]] if ep is not None else 0
+    step = make_dp_train_step(
+        lambda params, batch, generator: seq2seq_loss(
+            params, config, batch, generator, train=True,
+            penalty_scales=penalty_scales, sp=sp, ep=ep, dp=dp,
+        ),
+        ema_decay, mesh, clip_norm=CLIP_NORM, local_experts=local,
+    )
 
     def train_step(state: TrainState, data, subject: int, idx, generator):
         batch = {key: value[subject][idx] for key, value in data.items()}
         batch["subject_idx"] = subject
-        optimizer = state.opt_state
-        optimizer.zero_grad(set_to_none=True)
-        loss, metrics = seq2seq_loss(
-            state.params, config, batch, generator, train=True,
-            penalty_scales=penalty_scales,
-        )
-        loss.backward()
-        leaves = tree_leaves(state.params)
-        clip_by_global_norm([p.grad for p in leaves], CLIP_NORM)
-        optimizer.step()
-        with torch.no_grad():
-            ema = tree_leaves(state.ema)
-            torch._foreach_mul_(ema, ema_decay)
-            torch._foreach_add_(ema, leaves, alpha=1.0 - ema_decay)
-        return {k: v.detach() for k, v in metrics.items()}
+        return step(state.params, state.ema, state.opt_state, batch, generator)[1]
 
     def run_segment(
         state: TrainState,
@@ -277,7 +294,10 @@ class MultiSubjectTrainer:
     The LAST subject id is the target subject; all earlier ids are
     transfer donors trained with ``pretrain_all_blocks``.  ``device``
     defaults to CUDA and raises without a GPU; pass ``device="cpu"`` to
-    run the plain PyTorch versions of the kernels."""
+    run the plain PyTorch versions of the kernels.  Under
+    ``torch.distributed`` (``SN_kwargs['distributed']`` or ``torchrun``)
+    ``'cuda'`` is the card of the rank's ``LOCAL_RANK`` (modulo the
+    host's cards), and the parallel ``SN_kwargs`` build ``self.mesh``."""
 
     def __init__(
         self,
@@ -293,11 +313,19 @@ class MultiSubjectTrainer:
         device="cuda",
         **kwargs: Any,
     ):
-        self.device = resolve_device(device)
         self.SN_kwargs = dict(SN_kwargs or {})
         for key in _UNPORTED_SN_KWARGS:
             if self.SN_kwargs.get(key):
                 raise NotImplementedError(f"SN_kwargs[{key!r}] {_NOT_PORTED_PARALLEL}")
+        device = resolve_device(device)
+        # the multi-process bootstrap, before anything else: the
+        # 'distributed' key, else the environment torchrun sets when a
+        # parallel mode is asked for
+        if self.SN_kwargs.get("distributed"):
+            initialize_distributed(**{"device": device, **self.SN_kwargs["distributed"]})
+        elif any(self.SN_kwargs.get(k) for k in _PARALLEL_SN_KWARGS):
+            initialize_from_environment(device)
+        self.device = rank_device(device)
         self.subject_ids = [int(s) for s in subject_ids]
         self._manifest_path = experiment_manifest_name
         self._text_dir = text_dir
@@ -313,7 +341,7 @@ class MultiSubjectTrainer:
         self.kwargs = kwargs
         self.VERBOSE = VERBOSE
         self.seed = seed
-        self.vprint = print if VERBOSE else (lambda *a, **k: None)
+        self.vprint = print if VERBOSE and _is_writer() else (lambda *a, **k: None)
 
         manifest = self.manifests[self.subject_ids[-1]]
         token_type = manifest.resolve("token_type", default="word_sequence")
@@ -336,7 +364,14 @@ class MultiSubjectTrainer:
             if self.TARGETS_ARE_SEQUENCES:
                 subject.set_append_eos("decoder_targets", True)
 
+        # rank 0 writes the records and the induced vocab; the other ranks
+        # wait for it, then read them
+        if not _is_writer():
+            dist.barrier()
         self.set_feature_lists()
+        if _is_writer() and _world_size() > 1:
+            self.write_tf_records_maybe()
+            dist.barrier()
         self._build_net()
 
     # -- manifest-derived properties ---------------------------------------
@@ -401,8 +436,9 @@ class MultiSubjectTrainer:
                 class_list = self._training_intersection_validation_union(
                     seq_type
                 )
-                with open(pkl, "wb") as f:
-                    pickle.dump(class_list, f)
+                if _is_writer():
+                    with open(pkl, "wb") as f:
+                        pickle.dump(class_list, f)
             class_list = with_special_tokens(
                 class_list, self.TARGETS_ARE_SEQUENCES
             )
@@ -557,15 +593,59 @@ class MultiSubjectTrainer:
         self.batch_size = int(
             self.SN_kwargs.get("batch_size", manifest.resolve("batch_size", default=32))
         )
+        self._make_mesh()
         self._init_state()
         self.assessments: dict[str, dict] = {}
 
+    def _make_mesh(self) -> None:
+        """The ``(data, model[, seq])`` mesh of the parallel ``SN_kwargs``
+        (``parallel.make_mesh``), with the JAX trainer's checks:
+        ``sequence_parallel`` needs the conformer, ``expert_parallel`` a
+        MoE conformer whose experts it divides.  ``data_parallel`` takes
+        the ranks the other axes leave.  None in a one-process run."""
+        self.mesh = self.sp = self.ep = None
+        n_seq = int(self.SN_kwargs.get("sequence_parallel") or 0)
+        n_ep = int(self.SN_kwargs.get("expert_parallel") or 0)
+        if n_seq > 1 and self.net_config.encoder_type != "conformer":
+            raise ValueError(
+                "sequence_parallel requires encoder_type='conformer' "
+                "(the biLSTM recurrence cannot shard over time)"
+            )
+        if n_ep > 1:
+            ccfg = self.net_config.conformer
+            if self.net_config.encoder_type != "conformer" or not (ccfg and ccfg.moe_experts):
+                raise ValueError(
+                    "expert_parallel requires a MoE conformer "
+                    "(SN_kwargs conformer={'moe_experts': E, ...})"
+                )
+            if ccfg.moe_experts % n_ep:
+                raise ValueError(
+                    f"expert_parallel={n_ep} must divide evenly into "
+                    f"moe_experts={ccfg.moe_experts}"
+                )
+        n_seq, n_ep = max(n_seq, 1), max(n_ep, 1)
+        wants_dp = bool(self.SN_kwargs.get("data_parallel"))
+        if not (wants_dp or n_seq > 1 or n_ep > 1):
+            return
+        if not dist.is_initialized() and n_seq * n_ep == 1:
+            return  # data_parallel in a one-process run: the one-process path
+        n_data = max(_world_size() // (n_ep * n_seq), 1) if wants_dp else 1
+        self.mesh = make_mesh(n_data=n_data, n_model=n_ep, n_seq=n_seq)
+        if n_ep > 1:
+            self.ep = (self.mesh, "model")
+        if n_seq > 1:
+            self.sp = (self.mesh, "seq", "model") if n_ep > 1 else (self.mesh, "seq")
+
     def _init_state(self) -> None:
         """Fresh parameters for ``net_config`` from the trainer's seed, and
-        empty data caches."""
+        empty data caches; on a mesh, the first rank's parameters on every
+        rank, the experts cut to each rank's (``_place``)."""
         params = init_seq2seq(
             self.net_config, torch.Generator().manual_seed(self.seed), self.device
         )
+        if self.mesh is not None:
+            replicate(params, self.mesh)
+        params = self._place(params)
         self.state = TrainState(
             params=params,
             ema=tree_map(lambda t: t.detach().clone(), params),
@@ -574,6 +654,34 @@ class MultiSubjectTrainer:
         )
         self._datasets: dict[str, PackedDataset] = {}
         self._device_data: dict[str, dict] = {}
+
+    # -- placement on the mesh -------------------------------------------------
+
+    def _place(self, tree):
+        """This rank's placement of a whole parameter tree: the expert
+        leaves cut to its experts under ``expert_parallel``
+        (``parallel.shard_params_ep``), the tree itself otherwise (the JAX
+        trainer's ``_place_state``)."""
+        if self.ep is None:
+            return tree
+        return shard_params_ep(tree, self.mesh, self.net_config.conformer.moe_experts)
+
+    def full_params(self, use_ema: bool = True, tree=None):
+        """The whole parameter tree (EMA by default, or ``tree``): under
+        ``expert_parallel`` the experts gathered from every rank of the
+        axis (a collective: every rank calls it), else the tree itself."""
+        if tree is None:
+            tree = self.state.ema if use_ema else self.state.params
+        if self.ep is None:
+            return tree
+        return gather_params_ep(tree, self.mesh, self.net_config.conformer.moe_experts)
+
+    def _rank_seed(self, seed: int) -> int:
+        """A seed for this rank's dropout: the data ranks draw their own
+        masks, the ranks that share a slice of the batch the same."""
+        if self.mesh is None or self.mesh.shape["data"] == 1:
+            return seed
+        return _fold_in(seed, 7919 + self.mesh.coord("data"))
 
     # -- data ---------------------------------------------------------------
 
@@ -760,7 +868,7 @@ class MultiSubjectTrainer:
         else:
             self.state.opt_state.set_rule(schedule, trainable)
         runner = make_segment_runner(
-            self.net_config, self.penalty_scales, self.EMA_decay
+            self.net_config, self.penalty_scales, self.EMA_decay, self.mesh, self.sp, self.ep
         )
         # host-sharded streaming when the corpus exceeds the device budget
         # (max_device_trials): each shard trains `segment` epochs in turn
@@ -779,7 +887,7 @@ class MultiSubjectTrainer:
         try:
             while done < num_epochs:
                 segment = min(self.assessment_epoch_interval, num_epochs - done)
-                seed = self.seed + 1000 + int(self.state.epoch)
+                seed = self._rank_seed(self.seed + 1000 + int(self.state.epoch))
                 if streaming:
                     for si, (subjects_sched, idx_sched), shard_dev in prefetch(
                         self._shard_producer(shards, segment, rng_np, subject_subset)
@@ -817,7 +925,7 @@ class MultiSubjectTrainer:
                         f"(loss={tm['loss_total']}){recovered}. Try a lower "
                         "learning rate or warmup_steps."
                     )
-                writer = self.summary_writer
+                writer = self.summary_writer if _is_writer() else None
                 if writer is not None:
                     writer.scalars(
                         {
@@ -901,8 +1009,7 @@ class MultiSubjectTrainer:
         weights; returns per-partition WER /
         accuracy / confusions.  Every decode is launched before any
         result is copied to the host."""
-        if params is None:
-            params = self.state.ema if use_ema else self.state.params
+        params = self.full_params(use_ema, params)
         dec_list = self.target_subject.data_manifests["decoder_targets"].feature_list
         pending: dict[str, list] = {p: [] for p in partitions}
         with torch.inference_mode():
@@ -1021,11 +1128,18 @@ class MultiSubjectTrainer:
         return max(epochs) if epochs else None
 
     def save_checkpoint(self, epoch: int | None = None) -> str:
-        """Write ``{params, ema, epoch}`` for ``epoch`` (default: current)."""
+        """Write ``{params, ema, epoch}`` for ``epoch`` (default: current).
+        On a mesh rank 0 writes the whole trees (the experts gathered: the
+        one-process format, which ``restore`` reads at any world size) and
+        every rank returns after the file is complete."""
         epoch = int(self.state.epoch) if epoch is None else int(epoch)
-        return save_checkpoint(
-            self._ckpt_path(epoch), self.state.params, self.state.ema, epoch
-        )
+        params, ema = self.full_params(tree=self.state.params), self.full_params()
+        path = self._ckpt_path(epoch)
+        if _is_writer():
+            save_checkpoint(path, params, ema, epoch)
+        if _world_size() > 1:
+            dist.barrier()
+        return path
 
     def restore(self, epoch: int | None = None) -> None:
         """Restore (params, EMA, epoch) from the checkpoint at ``epoch``
@@ -1037,13 +1151,14 @@ class MultiSubjectTrainer:
         if epoch is None:
             raise FileNotFoundError(f"no checkpoints under {self.checkpoint_dir}")
         state = load_checkpoint(self._ckpt_path(epoch), self.device)
-        if _shape_tree(state["params"]) != _shape_tree(self.state.params):
+        if _shape_tree(state["params"]) != _shape_tree(self.full_params(tree=self.state.params)):
             self.vprint(
                 "checkpoint architecture differs from the constructed net; "
                 "rebuilding hyperparameters from tensor shapes"
             )
             self.update_net_from_saved_model(state["params"])
-        self.state = TrainState(state["params"], state["ema"], None, state["epoch"])
+        self.state = TrainState(self._place(state["params"]), self._place(state["ema"]), None,
+                                state["epoch"])
 
     def import_tf1_checkpoint(self, ckpt_path, rebuild="auto") -> dict[str, list[str]]:
         """Import weights (and EMA shadows) from a reference TF1
@@ -1081,9 +1196,11 @@ class MultiSubjectTrainer:
                 )
                 self._apply_recovered_sizes(sizes)
         params, ema, report = tf1_import.import_tf1_checkpoint(
-            variables, self.state.params, self.state.ema, subject_ids=self.subject_ids
+            variables, self.full_params(tree=self.state.params), self.full_params(),
+            subject_ids=self.subject_ids,
         )
-        self.state = self.state._replace(params=params, ema=ema, opt_state=None)
+        self.state = self.state._replace(params=self._place(params), ema=self._place(ema),
+                                         opt_state=None)
         self.vprint(
             f"TF1 import: {len(report['imported'])} variables imported, "
             f"{len(report['skipped'])} skipped"
@@ -1183,7 +1300,7 @@ class MultiSubjectTrainer:
 
     def _save_results(self, history: dict[str, dict]) -> str | None:
         results_dir = self.manifest.resolve("saved_results_dir")
-        if results_dir is None or not history:
+        if results_dir is None or not history or not _is_writer():
             return None
         os.makedirs(results_dir, exist_ok=True)
         path = os.path.join(results_dir, self._results_file_name())
@@ -1227,7 +1344,7 @@ class MultiSubjectTrainer:
     def print_tensor_names(self) -> list[str]:
         """Parameter paths (``seq2seq/...``) and shapes, one a leaf."""
         names = []
-        for path, shape in _shape_tree(self.state.params).items():
+        for path, shape in _shape_tree(self.full_params(tree=self.state.params)).items():
             names.append(f"seq2seq/{path} {shape}")
             self.vprint(names[-1])
         return names
@@ -1254,8 +1371,7 @@ class MultiSubjectTrainer:
         subject by subject."""
         scales = {k: 0.0 for k in self.penalty_scales}
         scales[tensor_key] = 1.0
-        tree = self.state.ema if use_ema else self.state.params
-        params = tree_map(lambda t: t.detach(), tree)
+        params = tree_map(lambda t: t.detach(), self.full_params(use_ema))
         ds = self.packed_dataset(partition)
         grads = []
         for s in range(ds.num_subjects):
@@ -1276,7 +1392,7 @@ class MultiSubjectTrainer:
     def get_weights_as_numpy_array(self, name: str, use_ema: bool = True) -> np.ndarray:
         """One parameter by slash path (e.g. 'decoder/embedding',
         'encoder/rnn/0/fwd/wh')."""
-        node: Any = self.state.ema if use_ema else self.state.params
+        node: Any = self.full_params(use_ema)
         for part in name.split("/"):
             node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
         return node.detach().float().cpu().numpy()
@@ -1318,7 +1434,7 @@ class MultiSubjectTrainer:
         with torch.inference_mode():
             inputs = torch.from_numpy(np.ascontiguousarray(ds.encoder_inputs[s])).to(self.device)
             lengths = torch.from_numpy(np.ascontiguousarray(ds.encoder_lengths[s])).to(self.device)
-            ema = self.state.ema
+            ema = self.full_params()
             enc_out, final, enc_lengths = encode(ema, config, inputs, lengths, s, train=False)
             reverse = config.encoder_type != "conformer"
             xs = inputs.transpose(0, 1)  # (T, B, C)
@@ -1352,6 +1468,16 @@ class MultiSubjectTrainer:
                 "final_state_c": host(final[1])[:n],
                 "encoder_lengths": enc_lengths.cpu().numpy()[:n],
             }
+
+
+def _world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _is_writer() -> bool:
+    """Whether this process writes the files a run shares (records, vocab,
+    checkpoints, results, summaries): rank 0, or a one-process run."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _fold_in(seed: int, i: int) -> int:

@@ -358,26 +358,56 @@ def test_predictor_from_trainer(trained):
     assert np.isfinite(out["probabilities"]).all()
 
 
-@pytest.mark.parametrize("unported", [*ttrain._UNPORTED_SN_KWARGS, "cluster_embedded_words"])
+@pytest.mark.parametrize("unported", [
+    "distributed", "data_parallel", "sequence_parallel", "pipeline_parallel",
+    "tensor_parallel", "expert_parallel", "cluster_embedded_words"])
 def test_trainer_refuses_what_is_not_ported(trained, unported):
     """What the port's trainer does not have yet names its ROADMAP item:
-    each parallel mode's ``SN_kwargs`` key (Queue 1, item 10) and
+    tensor and pipeline parallelism (Queue 1, item 10b) and
     ``cluster_embedded_words`` (item 12).  Scope masks, schedules, lazy
     shards, summaries and rebuilding from a checkpoint are ported
     (``tests/test_torch_transfer.py``, ``test_torch_trainer_tools.py``,
-    ``test_torch_lazy_pipeline.py``)."""
+    ``test_torch_lazy_pipeline.py``), and so are the bootstrap and data,
+    sequence and expert parallelism (``tests/test_torch_parallel*.py``):
+    in one process ``data_parallel`` trains on the one-process path, and
+    sequence and expert parallelism refuse a model they cannot shard."""
     assert set(ttrain._UNPORTED_SN_KWARGS) == {
-        "distributed", "data_parallel", "sequence_parallel", "pipeline_parallel",
-        "tensor_parallel", "expert_parallel"}
+        "pipeline_parallel", "tensor_parallel", "pipeline_microbatches"}
     if unported == "cluster_embedded_words":
         with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 12"):
             trained.cluster_embedded_words()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 10"):
-        ttrain.MultiSubjectTrainer(
-            trained._manifest_path, [1], SN_kwargs={unported: True},
-            VERBOSE=False, device="cpu",
+
+    def build(**sn):
+        return ttrain.MultiSubjectTrainer(
+            trained._manifest_path, [1], SN_kwargs=sn, VERBOSE=False, device="cpu",
         )
+
+    if unported in ttrain._UNPORTED_SN_KWARGS:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 10b"):
+            build(**{unported: 2})
+    elif unported == "data_parallel":
+        assert build(data_parallel=True).mesh is None
+    elif unported == "sequence_parallel":
+        with pytest.raises(ValueError, match="requires encoder_type='conformer'"):
+            build(sequence_parallel=2)
+    elif unported == "expert_parallel":
+        with pytest.raises(ValueError, match="requires a MoE conformer"):
+            build(expert_parallel=2)
+    else:  # a world of one process, over TCP on this host
+        import torch.distributed as dist
+
+        from ecog2txt_tpu_torch.parallel.launch import free_port
+
+        try:
+            trainer = build(data_parallel=True, distributed={
+                "coordinator_address": f"127.0.0.1:{free_port()}",
+                "num_processes": 1, "process_id": 0})
+            assert dist.get_backend() == "gloo"
+            assert trainer.mesh.shape == {"data": 1, "model": 1}
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
 def test_data_side_matches_jax(trained, tmp_path):
