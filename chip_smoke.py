@@ -232,9 +232,25 @@ LayerNorm swapped back to the plain math, in turns with K5.
    hold on the card (greedy in (0, 0.3], beam 8 no worse, the CTC head's
    lexicon rescoring below 0.5, transfer better than cold; the
    temperature-1 WER printed beside them);
+26-28. tensor and pipeline parallelism and their compositions, full
+   width, bf16, dropout off, seed 0, over gloo ranks sharing the card (the
+   2- and 4-rank spawns of phases 22-24 and one of 8; ``TP_PP_CASES``): tp=2
+   of the biLSTM benchmark model training under True and 'bi_grid' and of
+   the headline conformer training under 'flash' and encoding under
+   'fused' (B=256), pp=2 (M=2) and pp=4 (a block a stage, M=4) of the
+   conformer, dp×tp, dp×pp and tp×pp 2×2, tp×sp and sp×pp 2×2 on the long
+   recording's encoder (B=16, T'=8192, ``Σ out·w``), ep×pp 2×2 on the MoE
+   cell, and on 8 ranks ep×sp×pp (groups of 128) and tp×sp×pp (the long
+   recording), each 2×2×2.  Each case against the one-process run of its
+   model (``tp_pp_references``): the first step's summed gradients and the
+   parameters' change after two steps, gathered whole (normwise), each
+   rank's own leaves against its part of the one-process parameters, the
+   replicated leaves bit-identical over the ranks, each rank's launches of
+   the path's kernels (exactly), its step time and parameter bytes beside
+   the expected pipeline bubble (S−1)/(M+S−1);
 
 20. the ``kernels`` JSON line (all ten kernels, with the launches of
-   phases 10-19 and 21-25 beside the earlier ones, per rank where ranks
+   phases 10-19 and 21-28 beside the earlier ones, per rank where ranks
    ran), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -304,11 +320,18 @@ from ecog2txt_tpu_torch.parallel import (
     make_mesh,
     sequence_parallel_encode,
     shard_params_ep,
+    sp_pp_conformer_encode,
 )
 from ecog2txt_tpu_torch.parallel.expert import expert_mask
 from ecog2txt_tpu_torch.parallel.launch import free_port, spawn
 from ecog2txt_tpu_torch.parallel import mesh as mesh_module
-from ecog2txt_tpu_torch.parallel.mesh import reduce_gradients_
+from ecog2txt_tpu_torch.parallel.mesh import (
+    Placement,
+    gather_params_tp,
+    make_dp_train_step,
+    parallel_modes,
+    reduce_gradients_,
+)
 from ecog2txt_tpu_torch.parallel.multihost import initialize_distributed
 from ecog2txt_tpu_torch.quantize import _column_major, int8_mm, quantize_conformer_params
 from ecog2txt_tpu_torch.serve import (
@@ -323,6 +346,7 @@ from ecog2txt_tpu_torch.serve import (
 )
 from ecog2txt_tpu_torch.tokenizers import read_vocab_file
 from ecog2txt_tpu_torch.train import (
+    CLIP_NORM,
     MultiSubjectTrainer,
     TrainState,
     make_optimizer,
@@ -4094,7 +4118,7 @@ def trainer_tools_phase(root: str) -> dict:
 # --------------------------------------------------------------------------
 
 DIST_STEPS = 3  # timed steps after one warm-up step, on every rank
-RANK_TIMEOUT = 480.0  # seconds a spawn may take: a failed or hung rank fails the run
+RANK_TIMEOUT = 600.0  # seconds a spawn may take: a failed or hung rank fails the run
 SP_F32_T = 2048  # the sp f32 checks' steps
 # normwise over every leaf: summed gradients against one process's at the
 # bf16 rtol (phases 22-24); under dp also the parameters' change over the 1 + DIST_STEPS
@@ -4331,9 +4355,7 @@ def _rank_ep(out_dir: str, n_seq: int) -> dict:
     params = shard_params_ep(init_seq2seq(config, torch.Generator().manual_seed(0), "cuda"),
                              mesh, E)
     batch = _moe_batch(config)
-    parallel = {"ep": (mesh, "model")}
-    if n_seq > 1:
-        parallel["sp"] = (mesh, "seq", "model")
+    parallel = parallel_modes(mesh, "ep")
     _moe_grads(config, params, batch, **parallel)
     timer = StepTimer("cuda")
     # ---- the main path: counts reset just before, read just after ----
@@ -4359,8 +4381,10 @@ def _rank_ep(out_dir: str, n_seq: int) -> dict:
 
 
 def parallel_rank(out_dir: str, phases: list) -> dict:
-    """One rank of phases 22-24 (``parallel.launch.spawn`` runs it on every
-    rank after ``initialize_distributed``): the named phases in order."""
+    """One rank of phases 22-24 and 26-28 (``parallel.launch.spawn`` runs it
+    on every rank after ``initialize_distributed``): the named phases in
+    order (``tp_pp:<case>`` a case of ``TP_PP_CASES``, read against the
+    one-process runs ``tp_pp_references`` saved beside ``out_dir``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
@@ -4371,6 +4395,10 @@ def parallel_rank(out_dir: str, phases: list) -> dict:
             out[phase] = _rank_sp(out_dir)
         elif phase in ("ep", "ep_sp"):
             out[phase] = _rank_ep(out_dir, 2 if phase == "ep_sp" else 1)
+        elif phase.startswith("tp_pp:"):
+            name = phase.split(":", 1)[1]
+            spec = next(c[name] for c in TP_PP_CASES.values() if name in c)
+            out[phase] = _rank_tp_pp(os.path.dirname(out_dir), name, spec)
         torch.cuda.empty_cache()
     out["backend"] = dist.get_backend()
     return out
@@ -4722,6 +4750,296 @@ def decode_quality_phase(root: str) -> dict:
     return {"counts": counts, "wers": wers, "s": s}
 
 
+# --------------------------------------------------------------------------
+# 26-28. tensor and pipeline parallelism, and their compositions
+# --------------------------------------------------------------------------
+
+# world → case → (model, (data, model, seq, pp) ranks, microbatches, what the
+# model axis splits): one spawn a world size
+TP_PP_CASES = {
+    2: {"tp2_bilstm_true": ("bilstm_true", (1, 2, 1, 1), 0, "tp"),
+        "tp2_bilstm_grid": ("bilstm_grid", (1, 2, 1, 1), 0, "tp"),
+        "tp2_conformer": ("conformer", (1, 2, 1, 1), 0, "tp"),
+        "tp2_fused_encode": ("fused_encode", (1, 2, 1, 1), 0, "tp"),
+        "pp2": ("conformer", (1, 1, 1, 2), 2, None)},
+    4: {"pp4": ("conformer", (1, 1, 1, 4), 4, None),
+        "dp2_tp2": ("conformer", (2, 2, 1, 1), 0, "tp"),
+        "dp2_pp2": ("conformer", (2, 1, 1, 2), 2, None),
+        "tp2_sp2": ("long", (1, 2, 2, 1), 0, "tp"),
+        "sp2_pp2": ("long", (1, 1, 2, 2), 2, None),
+        "ep2_pp2": ("moe", (1, 2, 1, 2), 2, "ep"),
+        "tp2_pp2": ("conformer", (1, 2, 1, 2), 2, "tp")},
+    8: {"ep2_sp2_pp2": ("moe_sp", (1, 2, 2, 2), 2, "ep"),
+        "tp2_sp2_pp2": ("long", (1, 2, 2, 2), 2, "tp")},
+}
+TP_PP_LR = 1e-3
+LSTM_BODIES = ("K1f", "K1b", "K4f", "K4b")
+
+
+def _tp_pp_problem(model: str) -> dict:
+    """One case's model at full width (bf16, dropout off, seed 0) and its
+    two global batches, the same on every rank and in one process: the
+    biLSTM benchmark model (True or 'bi_grid') and the headline conformer
+    ('flash'; 'fused' for the encode) on B=256 of the seeded corpus, the MoE
+    cell (groups of 512, or of 128 where a seq axis cuts it), or the long
+    recording's encoder (B=16, T'=8192) under ``Σ out·w``."""
+    if model == "long":
+        enc, x, lengths, w = _long_inputs(LONG_T, torch.bfloat16)
+        batch = {"x": x, "w": w, "lengths": lengths}
+        return {"config": ConformerConfig(**HEADLINE_CONFORMER, attention_impl="flash"),
+                "params": enc, "batches": [batch, batch], "tokens": LONG_B * LONG_T}
+    if model.startswith("moe"):
+        config = _ep_config(2 if model == "moe_sp" else 1)
+        batch = _moe_batch(config)
+        return {"config": config, "params": init_seq2seq(config, torch.Generator()
+                                                        .manual_seed(0), "cuda"),
+                "batches": [batch, batch], "tokens": MOE_B * MOE_T}
+    config = {"bilstm_true": _no_dropout(serving_config()),
+              "bilstm_grid": _no_dropout(serving_config(use_pallas_lstm="bi_grid")),
+              "conformer": _dp_config("conformer"),
+              "fused_encode": conformer_config(impl="fused")}[model]
+    data = _random_corpus(config)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        idx = torch.as_tensor(rng.permutation(N_TRIALS)[:B_TRAIN], device="cuda")
+        batch = {k: v[0][idx] for k, v in data.items()}
+        batch["subject_idx"] = 0
+        batches.append(batch)
+    return {"config": config, "batches": batches, "tokens": B_TRAIN,
+            "params": init_seq2seq(config, torch.Generator().manual_seed(0), "cuda")}
+
+
+def _tp_pp_loss(model: str, config, modes=None, M: int = 0):
+    """``loss_fn(params, batch, generator)`` of a case: the seq2seq loss (the
+    encode under 'fused' for ``fused_encode``, whose first output it
+    returns) or the long recording's ``Σ out·w``, under the case's parallel
+    keywords ``modes`` (``Placement.modes``; one process without), each
+    rank's share of it."""
+    modes = modes or {}
+    if model == "long":
+        mesh = next((m[0] for m in modes.values()), None)
+        share = 1.0 / mesh.size if mesh is not None else 1.0
+        tp = modes.get("tp")
+
+        def encode_long(p, b):
+            if tp is not None:
+                p = gather_params_tp(p, mesh, tp[2], tp[1])
+            if "pp" in modes and "sp" in modes:
+                return sp_pp_conformer_encode(p, config, b["x"], mesh, "seq", "pp", M,
+                                              b["lengths"], torch.bfloat16)
+            if "sp" in modes:
+                return sequence_parallel_encode(p, config, b["x"], mesh, "seq", b["lengths"],
+                                                torch.bfloat16)
+            return conformer_encode(p, config, b["x"], b["lengths"],
+                                    compute_dtype=torch.bfloat16)[0]
+
+        return lambda p, b, g: (share * (encode_long(p, b).float() * b["w"]).sum(), {})
+    if model == "fused_encode":
+        return lambda p, b, g: encode(p, config, b["encoder_inputs"], b["encoder_lengths"], 0,
+                                      tp=modes.get("tp"))[0]
+    return lambda p, b, g: seq2seq_loss(p, config, b, None, train=False,
+                                        penalty_scales=PENALTIES, **modes)
+
+
+def _tp_pp_placement(mesh, tree, spec, config) -> Placement:
+    """Where a case puts each leaf of ``tree`` (the whole tree) on its mesh."""
+    _, (_, _, _, n_pp), _, split_by = spec
+    return Placement(mesh, tree, tp=split_by == "tp", pp=n_pp > 1,
+                     experts=config.conformer.moe_experts if split_by == "ep" else 0)
+
+
+def _tp_pp_steps(problem: dict, loss_fn, params, mesh=None, split=None) -> dict:
+    """A warm-up step (its summed gradients kept, before the clip) and a
+    timed step of ``make_dp_train_step`` (clip 10, Adam, EMA); counts reset
+    just before the timed step and read just after."""
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    ema = tree_map(lambda t: t.detach().clone(), params)
+    optimizer = make_optimizer(params, TP_PP_LR)
+    step = make_dp_train_step(loss_fn, 0.99, mesh, clip_norm=CLIP_NORM, split=split)
+    first, grads = _summed_gradients(
+        lambda: step(params, ema, optimizer, problem["batches"][0]))
+    timer = StepTimer("cuda")
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    timer.start()
+    second = step(params, ema, optimizer, problem["batches"][1])
+    timer.lap(problem["tokens"])
+    counts, bodies = read_counts(), read_bodies()
+    # ------------------------------------------------------------------
+    adam = optimizer.adam.state
+    held = tree_leaves(params) + tree_leaves(ema) + [
+        adam[p][k] for p in tree_leaves(params) for k in ("exp_avg", "exp_avg_sq")]
+    return {"losses": [float(first[0]), float(second[0])], "grads": grads, "counts": counts,
+            "bodies": bodies, "ms": 1e3 * timer.laps[0][0],
+            "state_bytes": sum(t.numel() * t.element_size() for t in held),
+            "param_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params))}
+
+
+def tp_pp_references(root: str) -> dict:
+    """The one-process run of every model the tp/pp cases use (the two steps,
+    or the 'fused' encode), saved for the ranks to compare with."""
+    out = {}
+    models = {spec[0] for cases in TP_PP_CASES.values() for spec in cases.values()}
+    for model in sorted(models):
+        problem = _tp_pp_problem(model)
+        params0 = tree_map(lambda t: t.detach().cpu().clone(), problem["params"])
+        loss_fn = _tp_pp_loss(model, problem["config"])
+        if model == "fused_encode":
+            with torch.inference_mode():
+                loss_fn(problem["params"], problem["batches"][0], None)
+                timer = StepTimer("cuda")
+                timer.start()
+                enc = loss_fn(problem["params"], problem["batches"][0], None)
+                timer.lap()
+            ref = {"out": enc.float().cpu(), "ms": 1e3 * timer.laps[0][0], "params0": params0}
+        else:
+            r = _tp_pp_steps(problem, loss_fn, problem["params"])
+            ref = {"grads": [g.cpu() for g in r["grads"]], "ms": r["ms"],
+                   "losses": r["losses"], "param_bytes": r["param_bytes"],
+                   "state_bytes": r["state_bytes"],
+                   "delta": [t.detach().cpu() - t0 for t, t0 in
+                             zip(tree_leaves(problem["params"]), tree_leaves(params0))],
+                   "params0": params0}
+        torch.save(ref, os.path.join(root, f"tp_pp_ref_{model}.pt"))
+        out[model] = {k: ref[k] for k in ("ms", "losses", "param_bytes", "state_bytes")
+                      if k in ref}
+        del problem, ref, params0
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_tp_pp(root: str, name: str, spec: tuple) -> dict:
+    """One case on this rank: its leaves before the steps against its part
+    of the one-process parameters (bit for bit), the path's steps, then
+    their checks against the one-process run (``tp_pp_references``): the
+    summed first-step gradients and the parameters' change gathered whole
+    (normwise), and a digest of its replicated leaves."""
+    model, dims, M, _ = spec
+    mesh = make_mesh(*dims)
+    problem = _tp_pp_problem(model)
+    config = problem["config"]
+    placement = _tp_pp_placement(mesh, problem["params"], spec, config)
+    params = placement.place(problem["params"])
+    split = placement.split(params)
+    ref = torch.load(os.path.join(root, f"tp_pp_ref_{model}.pt"))
+    loss_fn = _tp_pp_loss(model, config, placement.modes(M or None), M)
+    res = {"mesh": dict(mesh.shape),
+           "placed_exactly": all(torch.equal(t.detach().cpu(), w) for t, w in zip(
+               tree_leaves(params), tree_leaves(placement.place(ref["params0"]))))}
+    if model == "fused_encode":
+        with torch.inference_mode():
+            loss_fn(params, problem["batches"][0], None)
+            timer = StepTimer("cuda")
+            reset_counts()
+            timer.start()
+            enc = loss_fn(params, problem["batches"][0], None)
+            timer.lap()
+            res["counts"], res["bodies"] = read_counts(), read_bodies()
+        res["ms"] = 1e3 * timer.laps[0][0]
+        res["out_err"] = _rel_norm_err([enc.float()], [ref["out"]])
+        res["param_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        return res
+    local0 = [t.detach().clone() for t in tree_leaves(params)]
+    r = _tp_pp_steps(problem, loss_fn, params, mesh, split)
+    grads = tree_leaves(placement.gather(_tree_of(params, r["grads"])))
+    delta = tree_leaves(placement.gather(
+        _tree_of(params, [t.detach() - t0 for t, t0 in zip(tree_leaves(params), local0)])))
+    res.update({k: r[k] for k in ("losses", "counts", "bodies", "ms", "state_bytes",
+                                  "param_bytes")})
+    res["grad_rel_err"] = _rel_norm_err(grads, ref["grads"])
+    res["delta_rel_err"] = _rel_norm_err(delta, ref["delta"])
+    res["replicated_digest"] = _digest([t for t, s in zip(tree_leaves(params), split) if not s])
+    return res
+
+
+def _tree_of(like, leaves: list):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def _tp_pp_expected(spec) -> dict:
+    """A case's kernel launches on every rank: a full model's per step, or
+    under pp the rank's blocks once a microbatch."""
+    model, (_, _, _, n_pp), M, _ = spec
+    if model == "bilstm_true":
+        return dict(BILSTM_STEP)
+    if model == "bilstm_grid":
+        return {"K4f": len(serving_config().rnn_sizes), "K4b": len(serving_config().rnn_sizes)}
+    nb = HEADLINE_CONFORMER["num_blocks"]
+    if model == "fused_encode":
+        return {"K3f": nb, "K5f": nb * LN_PER_BLOCK["fused"]}
+    runs = nb // n_pp * (M if n_pp > 1 else 1)
+    return {"K2f": runs, "K2b-dq": runs, "K2b-dkv": runs, "K5f": runs * LN_PER_BLOCK["flash"],
+            "K5b": runs * LN_PER_BLOCK["flash"]}
+
+
+def tp_pp_phase(ranks_by_world: dict, refs: dict) -> dict:
+    """26-28. Tensor and pipeline parallelism and their compositions at full
+    width, bf16, dropout off, seed 0, over gloo ranks that share the card
+    (one spawn a world size): 26, tp=2 (the biLSTM benchmark model training
+    under True and 'bi_grid', the headline conformer training under 'flash'
+    and its 'fused' encode, B=256) and pp=2 (M=2); 27, on 4 ranks pp=4 (a
+    block a stage, M=4), dp×tp, dp×pp, tp×sp and sp×pp on the long recording
+    (B=16, T'=8192), ep×pp on the MoE cell and tp×pp; 28, on 8 ranks
+    ep×sp×pp (groups of 128) and tp×sp×pp (the long recording), each 2×2×2.
+    Each case against one process: the first step's summed gradients
+    (normwise, GRAD_REL_TOL) and the parameters' change after two steps
+    (DP_DELTA_TOL), gathered whole; every rank's own leaves before the
+    steps equal to its part of the one-process parameters; the replicated leaves
+    bit-identical over the ranks; each rank's launches of the path's kernels
+    (exactly); each rank's step time and the bytes of its parameters and
+    its whole training state, beside the pipeline bubble (S−1)/(M+S−1)."""
+    results = {}
+    for world, cases in TP_PP_CASES.items():
+        for i, (name, spec) in enumerate(cases.items()):
+            rr = [r[i] for r in ranks_by_world[world]]
+            model, dims, M, _ = spec
+            want = _tp_pp_expected(spec)
+            _check_rank_counts(name, rr, lambda r: r["counts"], want, 1)
+            for k in want:
+                if k in BODIES and k != "K5b":
+                    body = "cluster" if k in LSTM_BODIES else "tensor_core"
+                    for j, r in enumerate(rr):
+                        check_bodies(f"{name} rank {j}", r["bodies"], k, body, r["counts"][k])
+            S = dims[3]
+            bubble = (S - 1) / (M + S - 1) if S > 1 else 0.0
+            ref = refs[model]
+            out = {"counts_by_rank": [r["counts"] for r in rr], "ms_by_rank":
+                   [r["ms"] for r in rr], "param_bytes_by_rank": [r["param_bytes"] for r in rr],
+                   "one_process_ms": ref["ms"], "bubble": bubble, "mesh": rr[0]["mesh"]}
+            check(all(r["placed_exactly"] for r in rr),
+                  f"{name}: a rank's leaves are not its part of one process's")
+            if model == "fused_encode":
+                err = max(r["out_err"] for r in rr)
+                check(err <= TOL[torch.bfloat16]["rtol"],
+                      f"{name}: encode off by {err:.3e} of its norm")
+                out["out_rel_err"] = err
+            else:
+                gerr = max(r["grad_rel_err"] for r in rr)
+                derr = max(r["delta_rel_err"] for r in rr)
+                check(gerr <= GRAD_REL_TOL, f"{name}: summed gradients off by {gerr:.3e} of "
+                                            f"their norm (limit {GRAD_REL_TOL})")
+                check(derr <= DP_DELTA_TOL, f"{name}: parameter change off by {derr:.3e} "
+                                            f"of its norm (limit {DP_DELTA_TOL})")
+                check(len({r["replicated_digest"] for r in rr}) == 1,
+                      f"{name}: the ranks' replicated leaves differ")
+                out.update({"grad_rel_err": gerr, "delta_rel_err": derr,
+                            "state_bytes_by_rank": [r["state_bytes"] for r in rr],
+                            "one_process_state_bytes": ref["state_bytes"],
+                            "losses": rr[0]["losses"], "one_process_losses": ref["losses"]})
+            results[name] = out
+            errs = {k: f"{out[k]:.3e}" for k in ("grad_rel_err", "delta_rel_err",
+                                                 "out_rel_err") if k in out}
+            print(f"{name} {out['mesh']} ({model}, M={M or '-'}): {errs}; step ms by rank "
+                  + ", ".join(f"{x:.2f}" for x in out["ms_by_rank"])
+                  + f" (one process {ref['ms']:.2f}); parameter bytes by rank "
+                  f"{out['param_bytes_by_rank']} (one process {ref.get('param_bytes', '-')}); "
+                  f"expected bubble {bubble:.3f}; launches per rank {want}  [{gpu_line()}]")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a GPU",
@@ -4776,14 +5094,21 @@ def main() -> int:
         tf32 = tf32_phase(flash_program)
         del flash_program
         torch.cuda.empty_cache()
-        # phases 22-24: the ranks run their phases first (one spawn a world
-        # size), then this process checks them against one process
-        two, d2 = _spawn(2, ["dp_conformer", "dp_bilstm", "sp", "ep"], root, "gloo")
-        four, d4 = _spawn(4, ["ep_sp"], root, "gloo")
+        # phases 22-24 and 26-28: the one-process runs of 26-28 first, then
+        # the ranks run their phases (one spawn a world size), then this
+        # process checks them against one process
+        tp_pp_refs = tp_pp_references(root)
+        tp_pp = {w: [f"tp_pp:{n}" for n in cases] for w, cases in TP_PP_CASES.items()}
+        two, d2 = _spawn(2, ["dp_conformer", "dp_bilstm", "sp", "ep", *tp_pp[2]], root,
+                         "gloo")
+        four, d4 = _spawn(4, ["ep_sp", *tp_pp[4]], root, "gloo")
+        eight, _ = _spawn(8, tp_pp[8], root, "gloo")
         one, d1 = _nccl_world_of_one(root)
         dp = dp_phase([("gloo x2", two, d2), ("nccl x1", one, d1)])
         sp = sp_phase(two, d2)
         ep = ep_phase([("ep2", two, d2, 1), ("ep2_sp2", four, d4, 2)])
+        tpp = tp_pp_phase({w: [[r[p] for p in tp_pp[w]] for r in ranks]
+                           for w, ranks in ((2, two), (4, four), (8, eight))}, tp_pp_refs)
         twin = demo_twin_phase(root)
         quality = decode_quality_phase(root)
     t256, t1 = kern["timings"][256], kern["timings"][1]
@@ -5138,6 +5463,8 @@ def main() -> int:
                                  for label in ("ep2", "ep2_sp2")},
         "launches_demo_twin": twin["counts"][k],
         "launches_decode_quality": quality["counts"][k],
+        "launches_tp_pp_by_rank": {name: by_rank(r["counts_by_rank"], k)
+                                   for name, r in tpp.items()},
     } for k in WRAPPERS}
     line["parallel"] = {
         "dp": {label: {key: dp[label][key] for key in ("ms", "mfu", "param_err", "loss_err")
@@ -5148,6 +5475,8 @@ def main() -> int:
         "sp": {k: sp[k] for k in ("errs", "ms_by_rank", "one_process_ms")},
         "ep": {label: {k: v for k, v in r.items() if k != "counts_by_rank"}
                for label, r in ep.items()},
+        "tp_pp": {name: {k: v for k, v in r.items() if k != "counts_by_rank"}
+                  for name, r in tpp.items()},
     }
     line["demo_twin"] = {"wers": twin["wers"], "s": twin["s"]}
     line["decode_quality"] = {"wers": quality["wers"], "s": quality["s"]}

@@ -33,7 +33,13 @@ same function, because K3f reads the float ``wqkv``.
 
 Products take both operands in ``compute_dtype`` and return it (f32
 accumulation inside); LayerNorm statistics and the attention softmax
-stay f32.  The parallel modes are a later slice of the port.
+stay f32.
+
+Sequence and pipeline parallelism (``parallel/sequence.py``,
+``parallel/pipeline.py``, ``parallel/sp_pp.py``) call :func:`apply_block`
+and :func:`conformer_encode` with their shard's positions; tensor
+parallelism gathers the split weights before the encode
+(``models/seq2seq.py``), so nothing here knows of it.
 """
 
 from __future__ import annotations
@@ -440,7 +446,7 @@ def conformer_encode(
     group) runs the MoE FFN expert-parallel (``models/moe.py``).  ``remat``
     recomputes each block in the backward."""
     cd = compute_dtype
-    x = _dot(xs.to(cd), params["in_proj"]["w"], cd) + params["in_proj"]["b"].to(cd)
+    x = in_projection(params, xs, cd)
     offset = position_offset if _per_row(position_offset) else int(position_offset)
     valid = _positions(x.shape[1], offset, x.device) >= 0 if mask_invalid else None
     new_carry, stats_list = [], []
@@ -461,6 +467,11 @@ def conformer_encode(
     if return_aux:
         return x, new_carry, moe_aux_from_stats(config, stats_list, x.device)
     return x, new_carry
+
+
+def in_projection(params: dict, xs: torch.Tensor, cd) -> torch.Tensor:
+    """The input projection ``xs @ in_proj.w + b`` in the stream dtype."""
+    return _dot(xs.to(cd), params["in_proj"]["w"], cd) + params["in_proj"]["b"].to(cd)
 
 
 def moe_aux_from_stats(config: ConformerConfig, stats_list, device=None) -> torch.Tensor:

@@ -27,9 +27,15 @@ tree (nested dicts and lists, the same keys and shapes, weights stored
   decoder cross-entropy;
 * the parallel modes of ``parallel/``: ``dp`` (each rank a slice of the
   global batch; every mean divides by the global batch's count), ``sp``
-  (the conformer's time axis over ranks, ``parallel/sequence.py``) and
-  ``ep`` (the MoE FFN's experts over ranks), each a ``(mesh, axis)``
-  pair as the JAX package's ``sp`` is.
+  (the conformer's time axis over ranks, ``parallel/sequence.py``), ``ep``
+  (the MoE FFN's experts over ranks), each a ``(mesh, axis)`` pair as the
+  JAX package's ``sp`` is, ``pp`` (the conformer's block stack over ranks,
+  ``parallel/pipeline.py``; with ``sp`` too, ``parallel/sp_pp.py``), a
+  ``(mesh, axis, microbatches)``, and ``tp`` (the wide weights' columns
+  over ranks), a ``(mesh, axis, mask)``: the leaves ``mask`` marks are
+  gathered whole on entry (``parallel.mesh.gather_params_tp``) and every
+  rank runs the unsharded function.  ``parallel.mesh.parallel_modes``
+  builds these keywords from a mesh.
 
 Sequences are time-major ``(T, B, F)``.  Products round their operands
 to ``compute_dtype`` and accumulate in f32 (``ops.lstm.dot_f32``).
@@ -57,6 +63,7 @@ from ..ops.lstm import (
     reverse_padded,
 )
 from ..parallel.comm import all_reduce_sum, all_reduce_tree
+from ..parallel.mesh import gather_params_tp
 from .conformer import ConformerConfig, conformer_encode, init_conformer, moe_aux_from_stats
 from .ctc import ctc_loss
 
@@ -317,6 +324,12 @@ def convolve_sequences(
     return xs
 
 
+def _whole(params: dict, tp: tuple | None) -> dict:
+    """``params`` with the column-split leaves of ``tp=(mesh, axis, mask)``
+    gathered whole (itself without ``tp``)."""
+    return params if tp is None else gather_params_tp(params, tp[0], tp[2], tp[1])
+
+
 def encode(
     params: dict,
     config: Seq2SeqConfig,
@@ -329,6 +342,8 @@ def encode(
     sp: tuple | None = None,
     ep: tuple | None = None,
     dp: tuple | None = None,
+    pp: tuple | None = None,
+    tp: tuple | None = None,
 ):
     """Full encoder: reversal → conv → biLSTM stack, or (conformer
     family) conv → conformer in natural time order, with dropout when
@@ -344,17 +359,25 @@ def encode(
     ``mesh``'s ``axis`` (``parallel/sequence.py``; differentiable): the
     subsample conv runs on every rank, the steps are padded to a multiple
     of the axis's ranks times the chunk, and the output is gathered over
-    time for the decoder.  ``sp=(mesh, axis, ep_axis)`` or ``ep=(mesh,
-    ep_axis)`` runs the MoE FFN with its experts over ``ep_axis``.
+    time for the decoder.  ``ep=(mesh, ep_axis)`` runs the MoE FFN with its
+    experts over ``ep_axis``.
     ``dp=(mesh, axis)``: this batch is the rank's slice of the global
     batch over ``axis``, and the router statistics are summed over it
-    before the aux loss (the biLSTM encodes its slice as it is)."""
+    before the aux loss (the biLSTM encodes its slice as it is).
+    ``pp=(mesh, axis, microbatches)`` pipelines the conformer's blocks over
+    ``axis`` (``parallel/pipeline.py``; with ``sp`` on the same mesh,
+    ``parallel/sp_pp.py``).  ``tp=(mesh, axis, mask)``: the leaves of
+    ``params`` that ``mask`` marks hold this rank's columns, and are
+    gathered over ``axis`` first."""
     if sp is not None and config.encoder_type != "conformer":
         raise ValueError(
             "sequence parallelism requires encoder_type='conformer' "
             "(the biLSTM recurrence cannot shard over time)"
         )
+    if pp is not None and config.encoder_type != "conformer":
+        raise ValueError("pipeline parallelism requires encoder_type='conformer'")
     _require_generator(generator, train)
+    params = _whole(params, tp)
     xs = inputs.transpose(0, 1)  # (T, B, C)
     # the LSTM family reads its input reversed (fused into the first
     # conv layer); the chunked-causal conformer reads natural order so
@@ -377,23 +400,42 @@ def encode(
     if config.encoder_type == "conformer":
         ccfg = config.conformer or ConformerConfig()
         xs_bm = xs.transpose(0, 1)  # (B, T', F)
-        ep_axis = sp[2] if sp is not None and len(sp) > 2 else (ep[1] if ep else None)
+        ep_axis = ep[1] if ep is not None else None
         data_axes = (dp[1],) if dp is not None else ()
-        if sp is not None:
+        conformer = params["encoder"]["conformer"]
+        if sp is not None and pp is not None:
+            from ..parallel.sequence import pad_to_shards
+            from ..parallel.sp_pp import sp_pp_conformer_encode
+
+            mesh, axis = sp[0], sp[1]
+            out_bm, moe_aux = sp_pp_conformer_encode(
+                conformer, ccfg, pad_to_shards(xs_bm, mesh, axis, ccfg.chunk_size), mesh,
+                axis, pp[1], pp[2], enc_lengths, config.compute_dtype, return_aux=True,
+                ep_axis=ep_axis,
+            )
+            out_bm = out_bm[:, :xs_bm.shape[1]]
+        elif sp is not None:
             from ..parallel.sequence import pad_to_shards, sequence_parallel_encode
 
             mesh, axis = sp[0], sp[1]
             out_bm, moe_aux = sequence_parallel_encode(
-                params["encoder"]["conformer"], ccfg,
+                conformer, ccfg,
                 pad_to_shards(xs_bm, mesh, axis, ccfg.chunk_size), mesh, axis,
                 enc_lengths, config.compute_dtype, return_aux=True, ep_axis=ep_axis,
                 stats_axes=(axis, *data_axes),
             )
             out_bm = out_bm[:, :xs_bm.shape[1]]
+        elif pp is not None:
+            from ..parallel.pipeline import pipeline_conformer_encode
+
+            out_bm, moe_aux = pipeline_conformer_encode(
+                conformer, ccfg, xs_bm, pp[0], pp[1], pp[2], enc_lengths,
+                config.compute_dtype, return_aux=True, ep_axis=ep_axis,
+            )
         else:
             mesh = (ep or dp or (None,))[0]
             out_bm, _, stats = conformer_encode(
-                params["encoder"]["conformer"], ccfg, xs_bm, enc_lengths,
+                conformer, ccfg, xs_bm, enc_lengths,
                 compute_dtype=config.compute_dtype, return_moe_stats=True,
                 ep_axis=mesh.group(ep_axis) if ep_axis is not None else None,
             )  # (B, T', D)
@@ -571,12 +613,12 @@ class _Shares:
     collectives' adjoints do the rest, ``parallel/comm.py``).  A mean over
     tokens divides the rank's sum by the global batch's count (summed over
     the ``dp`` axis) and by the ranks that see the same slice of the batch
-    (the other axes: under sp and ep every rank of a line computes the same
-    decoder loss); the MoE aux loss, the same on every rank, by the mesh's
-    size.  Without a mesh every factor is 1."""
+    (the other axes: under sp, ep, tp and pp every rank of a line computes
+    the same decoder loss); the MoE aux loss, the same on every rank, by
+    the mesh's size.  Without a mesh every factor is 1."""
 
-    def __init__(self, sp, ep, dp):
-        self.mesh = next((p[0] for p in (sp, ep, dp) if p is not None), None)
+    def __init__(self, sp, ep, dp, pp=None, tp=None):
+        self.mesh = next((p[0] for p in (sp, ep, dp, pp, tp) if p is not None), None)
         self.dp = dp
         if self.mesh is None:
             self.replicas = self.size = 1
@@ -614,6 +656,8 @@ def seq2seq_loss(
     sp: tuple | None = None,
     ep: tuple | None = None,
     dp: tuple | None = None,
+    pp: tuple | None = None,
+    tp: tuple | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Total loss + metrics.
 
@@ -626,17 +670,21 @@ def seq2seq_loss(
     ``token_accuracy``, ``loss_total``, and ``moe_aux`` for the MoE
     conformer (its weighted router loss, part of the total).
 
-    ``sp``, ``ep``, ``dp``: the parallel modes of :func:`encode`, on one
-    mesh.  Then the returned loss is this rank's share of the global loss
-    (the shares of every rank of the mesh sum to it: ``_Shares``), and the
-    metrics are the global values, summed over the mesh.
+    ``sp``, ``ep``, ``dp``, ``pp``, ``tp``: the parallel modes of
+    :func:`encode`, on one mesh (under ``tp`` the whole tree is gathered
+    first).  Then the returned loss is this rank's share of the
+    global loss (the shares of every rank of the mesh sum to it:
+    ``_Shares``), and the metrics are the global values, summed over the
+    mesh.
     """
     penalty_scales = penalty_scales or {}
     _require_generator(generator, train)
-    shares = _Shares(sp, ep, dp)
+    shares = _Shares(sp, ep, dp, pp, tp)
+    params = _whole(params, tp)
     enc_out, enc_final, enc_lengths, moe_aux = encode(
         params, config, batch["encoder_inputs"], batch["encoder_lengths"],
         batch["subject_idx"], generator, train, return_aux=True, sp=sp, ep=ep, dp=dp,
+        pp=pp,
     )
     T_out = enc_out.shape[0]
     step_mask = (

@@ -9,7 +9,13 @@ runs one process a device, so each one is written here as a
   the cotangents over the group (the adjoint of ``psum``);
 * :func:`all_gather` — forward the group's pieces concatenated along a
   dim, backward the cotangent summed over the group and this rank's piece
-  taken back out (a reduce-scatter).
+  taken back out (a reduce-scatter); along the last dim it is tensor
+  parallelism's column gather (``parallel/mesh.py::gather_params_tp``);
+* :func:`ring_shift` — the pipeline ring's send/receive pair (JAX's
+  ``ppermute`` to the next rank): each rank of the group sends its tensor
+  to the rank ``step`` places on and receives from the rank ``step``
+  places back (zeros where there is none); the adjoint is the shift back,
+  so the gradient travels back along the ring.
 
 With these adjoints, a loss that every rank of a group computes alike
 (after a gather, or after the expert combine's sum) counts once when each
@@ -18,8 +24,10 @@ rank scales it by 1/n and the gradients are summed over the ranks.
 Where the tensors live decides how a collective runs, before it runs:
 NCCL takes CUDA tensors for all of them; gloo takes CUDA tensors for
 ``all_reduce`` and ``broadcast`` only, so under gloo a CUDA tensor of the
-other collective here, the gather, is staged through host memory
-(:func:`stages_through_host`).  Nothing is retried on another
+other collectives here, the gathers and the ring's sends and receives, is
+staged through host memory (:func:`stages_through_host`).  The ring posts
+its send and its receive together (``isend`` / ``irecv``) before it waits
+for either, so no two ranks block on each other.  Nothing is retried on another
 path after a failure.
 """
 
@@ -124,6 +132,46 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _AllGather.apply(x, group, dim)
+
+
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """Send ``x`` to the group rank ``step`` places on and receive the same
+    shape from the rank ``step`` places back (zeros where there is none):
+    one ``isend`` and one ``irecv`` posted together, then waited for."""
+    n, r = group_size(group), group_rank(group)
+    host = stages_through_host(group, x, "send")
+    buf = x.detach().contiguous()
+    buf = buf.cpu() if host else buf
+    recv = torch.zeros_like(buf)
+    works = []
+    if 0 <= r + step < n:
+        works.append(dist.isend(buf, dist.get_global_rank(group, r + step), group=group))
+    if 0 <= r - step < n:
+        works.append(dist.irecv(recv, dist.get_global_rank(group, r - step), group=group))
+    for w in works:
+        w.wait()
+    return recv.to(x.device) if host else recv
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, step):
+        ctx.group, ctx.step = group, step
+        return _shift(x, group, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -ctx.step), None, None
+
+
+def ring_shift(x: torch.Tensor, group, step: int = 1) -> torch.Tensor:
+    """JAX's ``ppermute`` by ``step`` along the group's ranks, without wrap:
+    every rank calls it with a tensor of the same shape; it returns what the
+    rank ``step`` places back sent (zeros for the first ``step`` ranks); the
+    adjoint shifts the cotangents back by ``step``."""
+    if group_size(group) == 1:
+        return torch.zeros_like(x)
+    return _RingShift.apply(x, group, step)
 
 
 def broadcast_(tensors: list[torch.Tensor], group, src_group_rank: int = 0) -> None:

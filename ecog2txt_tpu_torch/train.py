@@ -39,19 +39,24 @@ The parallel modes, one process a device: ``SN_kwargs['distributed'] =
 {'coordinator_address', 'num_processes', 'process_id'}`` (or the
 environment ``torchrun`` sets) wires the ranks before anything else;
 ``data_parallel`` (each rank a slice of every batch), ``sequence_parallel
-= K`` (the conformer's time axis over K ranks) and ``expert_parallel = K``
-(the MoE experts over K ranks) build a ``(data, model[, seq])`` mesh
-(``parallel/mesh.py``) and compose as dp×sp, dp×ep and ep×sp.  Each rank
-computes its share of the global loss; the gradients are summed over the
-ranks that hold each leaf and clipped by the global norm (the expert
-leaves' squares summed over the expert axis), so every rank takes the
-one-process step on the same global batch.  The ranks stay in lockstep:
-the metrics (hence the NaN rollback's decision) are global, rank 0 writes
-the records, the vocab, the checkpoints (experts gathered: the
-one-process format) and the results while the others wait, and every
-rank assesses the same EMA weights.  ``tensor_parallel``,
-``pipeline_parallel`` and ``pipeline_microbatches`` and
-``cluster_embedded_words`` are not ported yet: asking for them raises
+= K`` (the conformer's time axis over K ranks), ``expert_parallel = K``
+(the MoE experts over K ranks), ``tensor_parallel = K`` (the wide
+weights' columns over K ranks) and ``pipeline_parallel = S`` (the
+conformer's blocks in S stages, ``pipeline_microbatches`` a batch) build
+the JAX trainer's meshes (``parallel/mesh.py``): ``(data, model[, seq])``,
+or ``(data[, seq], pp[, model])`` with a pipeline.  They compose as the
+JAX trainer's do (dp×sp, dp×ep, ep×sp, dp×tp, tp×sp, dp×pp, sp×pp, ep×pp,
+ep×sp×pp, tp×pp, tp×sp×pp); tp×ep is refused.  Each rank holds its part
+of every leaf (tp columns, experts, a stage's blocks), with its EMA and
+Adam moments, and computes its share of the global loss; the gradients
+are summed over the ranks that hold the same part and clipped by the
+global norm (a split leaf's squares summed over the axes that split it),
+so every rank takes the one-process step on the same global batch.  The
+ranks stay in lockstep: the metrics (hence the NaN rollback's decision)
+are global, rank 0 writes the records, the vocab, the checkpoints (every
+part gathered: the one-process format) and the results while the others
+wait, and every rank assesses the same EMA weights.
+``cluster_embedded_words`` is not ported yet: it raises
 ``NotImplementedError``.
 """
 
@@ -86,8 +91,15 @@ from .models.seq2seq import (
     seq2seq_loss,
 )
 from .ops.lstm import reverse_padded
-from .parallel.expert import gather_params_ep, shard_params_ep
-from .parallel.mesh import clip_by_global_norm, make_dp_train_step, make_mesh, replicate  # noqa: F401
+from .parallel.mesh import (  # noqa: F401
+    Placement,
+    clip_by_global_norm,
+    make_dp_train_step,
+    make_mesh,
+    parallel_modes,
+    replicate,
+)
+from .parallel.pipeline import check_microbatches
 from .parallel.multihost import initialize_distributed, initialize_from_environment, rank_device
 from .pipeline import (
     _PREFETCH_END,
@@ -110,12 +122,9 @@ from .utils import tf1_import
 from .utils.introspect import _shape_tree, recover_model_sizes
 from .utils.summaries import SummaryWriter
 
-# SN_kwargs of the JAX trainer that the port does not take yet: tensor and
-# pipeline parallelism
-_UNPORTED_SN_KWARGS = ("pipeline_parallel", "tensor_parallel", "pipeline_microbatches")
-_NOT_PORTED_PARALLEL = "is not ported yet (see ROADMAP.md, Queue 1, item 10b)"
 # the SN_kwargs that ask for a mesh
-_PARALLEL_SN_KWARGS = ("data_parallel", "sequence_parallel", "expert_parallel")
+_PARALLEL_SN_KWARGS = ("data_parallel", "sequence_parallel", "expert_parallel",
+                       "tensor_parallel", "pipeline_parallel")
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 CLIP_NORM = 10.0  # clip_by_global_norm(10), as the JAX trainer's optimizer
 
@@ -228,8 +237,8 @@ def make_segment_runner(
     penalty_scales: dict[str, float],
     ema_decay: float,
     mesh=None,
-    sp: tuple | None = None,
-    ep: tuple | None = None,
+    modes: dict | None = None,
+    split: list | None = None,
 ) -> Callable:
     """Build the multi-step runner.  ``data`` is the stacked (S, N, ...)
     batch dict on the device; the schedule picks (subject, trials) per
@@ -242,20 +251,28 @@ def make_segment_runner(
     On a ``mesh`` every rank holds the same data and schedule; the step
     takes this rank's slice of the batch over the ``data`` axis (the whole
     batch when B does not divide by it: each rank's loss is then 1/n of
-    the batch's), the loss share of ``seq2seq_loss`` under ``sp`` / ``ep``
-    (each a ``(mesh, axis)``), and sums the gradients over the ranks that
-    hold each leaf before the clip; the metrics are the global batch's."""
-    dp = (mesh, "data") if mesh is not None and mesh.shape["data"] > 1 else None
-    local = config.conformer.moe_experts // mesh.shape[ep[1]] if ep is not None else 0
+    the batch's), the loss share of ``seq2seq_loss`` under its parallel
+    keywords ``modes`` (default: ``parallel.mesh.parallel_modes(mesh)``;
+    the trainer passes ``Placement.modes``), and sums the gradients over
+    the ranks that hold each leaf before the clip (``split``: the axes each
+    leaf is split over, ``parallel.mesh.Placement.split``); the metrics
+    are the global batch's.  Under ``pp`` a batch must split into the
+    microbatches, and each microbatch over the data ranks (``ValueError``,
+    as JAX raises)."""
+    if modes is None:
+        modes = parallel_modes(mesh) if mesh is not None else {}
+    pp = modes.get("pp")
     step = make_dp_train_step(
         lambda params, batch, generator: seq2seq_loss(
             params, config, batch, generator, train=True,
-            penalty_scales=penalty_scales, sp=sp, ep=ep, dp=dp,
+            penalty_scales=penalty_scales, **modes,
         ),
-        ema_decay, mesh, clip_norm=CLIP_NORM, local_experts=local,
+        ema_decay, mesh, clip_norm=CLIP_NORM, split=split,
     )
 
     def train_step(state: TrainState, data, subject: int, idx, generator):
+        if pp is not None:
+            check_microbatches(len(idx), pp[2], mesh.shape["data"])
         batch = {key: value[subject][idx] for key, value in data.items()}
         batch["subject_idx"] = subject
         return step(state.params, state.ema, state.opt_state, batch, generator)[1]
@@ -314,9 +331,6 @@ class MultiSubjectTrainer:
         **kwargs: Any,
     ):
         self.SN_kwargs = dict(SN_kwargs or {})
-        for key in _UNPORTED_SN_KWARGS:
-            if self.SN_kwargs.get(key):
-                raise NotImplementedError(f"SN_kwargs[{key!r}] {_NOT_PORTED_PARALLEL}")
         device = resolve_device(device)
         # the multi-process bootstrap, before anything else: the
         # 'distributed' key, else the environment torchrun sets when a
@@ -598,22 +612,39 @@ class MultiSubjectTrainer:
         self.assessments: dict[str, dict] = {}
 
     def _make_mesh(self) -> None:
-        """The ``(data, model[, seq])`` mesh of the parallel ``SN_kwargs``
-        (``parallel.make_mesh``), with the JAX trainer's checks:
-        ``sequence_parallel`` needs the conformer, ``expert_parallel`` a
-        MoE conformer whose experts it divides.  ``data_parallel`` takes
-        the ranks the other axes leave.  None in a one-process run."""
-        self.mesh = self.sp = self.ep = None
-        n_seq = int(self.SN_kwargs.get("sequence_parallel") or 0)
-        n_ep = int(self.SN_kwargs.get("expert_parallel") or 0)
-        if n_seq > 1 and self.net_config.encoder_type != "conformer":
+        """The mesh of the parallel ``SN_kwargs``, as the JAX trainer builds
+        it, with its checks: ``sequence_parallel`` and ``pipeline_parallel``
+        need the conformer, ``tensor_parallel`` × ``expert_parallel`` is
+        refused (both split weights over ``model``), ``expert_parallel``
+        needs a MoE conformer whose experts it divides.  Without a pipeline
+        the mesh is ``(data, model[, seq])``; with one ``(data[, seq], pp[,
+        model])``, ``pipeline_microbatches`` (default: the stages) a batch.
+        ``data_parallel`` takes the ranks the other axes leave.  Sets
+        ``self.mesh`` (None in a one-process run) and what the ``model``
+        axis splits; ``_init_state`` places the parameters and sets the
+        loss's parallel keywords, ``self.sp``, ``self.ep``, ``self.tp`` and
+        ``self.pp`` (``parallel.mesh.parallel_modes``)."""
+        self.mesh = self._split_by = None
+        n_seq, n_pp, n_tp, n_ep = (int(self.SN_kwargs.get(k) or 0) for k in (
+            "sequence_parallel", "pipeline_parallel", "tensor_parallel", "expert_parallel"))
+        conformer = self.net_config.encoder_type == "conformer"
+        if n_seq > 1 and not conformer:
             raise ValueError(
                 "sequence_parallel requires encoder_type='conformer' "
                 "(the biLSTM recurrence cannot shard over time)"
             )
+        if n_pp > 1 and not conformer:
+            raise ValueError("pipeline_parallel requires encoder_type='conformer'")
+        if n_tp > 1 and n_ep > 1:
+            raise ValueError(
+                "tensor_parallel × expert_parallel is not supported: "
+                "both shard weight matrices over the 'model' axis "
+                "(expert leaves on their expert dim, wide kernels on "
+                "their output dim)"
+            )
         if n_ep > 1:
             ccfg = self.net_config.conformer
-            if self.net_config.encoder_type != "conformer" or not (ccfg and ccfg.moe_experts):
+            if not (conformer and ccfg and ccfg.moe_experts):
                 raise ValueError(
                     "expert_parallel requires a MoE conformer "
                     "(SN_kwargs conformer={'moe_experts': E, ...})"
@@ -623,28 +654,34 @@ class MultiSubjectTrainer:
                     f"expert_parallel={n_ep} must divide evenly into "
                     f"moe_experts={ccfg.moe_experts}"
                 )
-        n_seq, n_ep = max(n_seq, 1), max(n_ep, 1)
+        n_seq, n_pp, n_tp, n_ep = (max(n, 1) for n in (n_seq, n_pp, n_tp, n_ep))
+        n_model = max(n_tp, n_ep)
         wants_dp = bool(self.SN_kwargs.get("data_parallel"))
-        if not (wants_dp or n_seq > 1 or n_ep > 1):
+        if not (wants_dp or n_seq * n_pp * n_model > 1):
             return
-        if not dist.is_initialized() and n_seq * n_ep == 1:
+        if not dist.is_initialized() and n_seq * n_pp * n_model == 1:
             return  # data_parallel in a one-process run: the one-process path
-        n_data = max(_world_size() // (n_ep * n_seq), 1) if wants_dp else 1
-        self.mesh = make_mesh(n_data=n_data, n_model=n_ep, n_seq=n_seq)
-        if n_ep > 1:
-            self.ep = (self.mesh, "model")
-        if n_seq > 1:
-            self.sp = (self.mesh, "seq", "model") if n_ep > 1 else (self.mesh, "seq")
+        n_data = max(_world_size() // (n_model * n_seq * n_pp), 1) if wants_dp else 1
+        self.mesh = make_mesh(n_data=n_data, n_model=n_model, n_seq=n_seq, n_pp=n_pp)
+        self._split_by = "ep" if n_ep > 1 else "tp" if n_tp > 1 else None
 
     def _init_state(self) -> None:
         """Fresh parameters for ``net_config`` from the trainer's seed, and
         empty data caches; on a mesh, the first rank's parameters on every
-        rank, the experts cut to each rank's (``_place``)."""
+        rank, cut to each rank's placement (``_place``), and the loss's
+        parallel keywords."""
         params = init_seq2seq(
             self.net_config, torch.Generator().manual_seed(self.seed), self.device
         )
+        self._placement, self._modes = None, {}
         if self.mesh is not None:
             replicate(params, self.mesh)
+            self._placement = Placement(
+                self.mesh, params, tp=self._split_by == "tp", pp="pp" in self.mesh.shape,
+                experts=self.net_config.conformer.moe_experts if self._split_by == "ep" else 0)
+            self._modes = self._placement.modes(
+                int(self.SN_kwargs.get("pipeline_microbatches") or 0) or None)
+        self.sp, self.ep, self.tp, self.pp = (self._modes.get(k) for k in ("sp", "ep", "tp", "pp"))
         params = self._place(params)
         self.state = TrainState(
             params=params,
@@ -658,23 +695,20 @@ class MultiSubjectTrainer:
     # -- placement on the mesh -------------------------------------------------
 
     def _place(self, tree):
-        """This rank's placement of a whole parameter tree: the expert
-        leaves cut to its experts under ``expert_parallel``
-        (``parallel.shard_params_ep``), the tree itself otherwise (the JAX
-        trainer's ``_place_state``)."""
-        if self.ep is None:
-            return tree
-        return shard_params_ep(tree, self.mesh, self.net_config.conformer.moe_experts)
+        """This rank's placement of a whole parameter tree (the JAX
+        trainer's ``_place_state``; ``parallel.mesh.Placement``): the wide
+        leaves' columns under ``tensor_parallel``, the experts under
+        ``expert_parallel``, the blocks of the rank's stage under
+        ``pipeline_parallel``; the tree itself in one process."""
+        return self._placement.place(tree) if self._placement is not None else tree
 
     def full_params(self, use_ema: bool = True, tree=None):
-        """The whole parameter tree (EMA by default, or ``tree``): under
-        ``expert_parallel`` the experts gathered from every rank of the
-        axis (a collective: every rank calls it), else the tree itself."""
+        """The whole parameter tree (EMA by default, or ``tree``): the
+        inverse of ``_place``, gathered from the ranks that hold its parts
+        (a collective: every rank calls it), else the tree itself."""
         if tree is None:
             tree = self.state.ema if use_ema else self.state.params
-        if self.ep is None:
-            return tree
-        return gather_params_ep(tree, self.mesh, self.net_config.conformer.moe_experts)
+        return self._placement.gather(tree) if self._placement is not None else tree
 
     def _rank_seed(self, seed: int) -> int:
         """A seed for this rank's dropout: the data ranks draw their own
@@ -765,12 +799,18 @@ class MultiSubjectTrainer:
         if train_vars_scope is None:
             return None
         pattern = re.compile(train_vars_scope)
+        # a pipeline stage's blocks keep their place in the whole stack
+        first_block = 0
+        if getattr(self, "pp", None) is not None:
+            first_block = self.mesh.coord("pp") * (
+                self.net_config.conformer.num_blocks // self.mesh.shape["pp"])
 
         def walk(node, path):
             if isinstance(node, dict):
                 return {k: walk(v, path + [str(k)]) for k, v in node.items()}
             if isinstance(node, (list, tuple)):
-                return [walk(v, path + [str(i)]) for i, v in enumerate(node)]
+                base = first_block if path == ["encoder", "conformer", "blocks"] else 0
+                return [walk(v, path + [str(base + i)]) for i, v in enumerate(node)]
             return bool(pattern.match("seq2seq/" + "/".join(path)))
 
         return walk(self.state.params, [])
@@ -868,7 +908,8 @@ class MultiSubjectTrainer:
         else:
             self.state.opt_state.set_rule(schedule, trainable)
         runner = make_segment_runner(
-            self.net_config, self.penalty_scales, self.EMA_decay, self.mesh, self.sp, self.ep
+            self.net_config, self.penalty_scales, self.EMA_decay, self.mesh, self._modes,
+            self._placement.split(self.state.params) if self._placement is not None else None,
         )
         # host-sharded streaming when the corpus exceeds the device budget
         # (max_device_trials): each shard trains `segment` epochs in turn

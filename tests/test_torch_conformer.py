@@ -376,13 +376,13 @@ def test_trainer_fits_and_serves_a_conformer(tmp_path):
     val = tr.packed_dataset("validation")
     out = predictor(val.encoder_inputs[0, 0, : int(val.encoder_lengths[0, 0])])
     assert out["tokens"].shape == (1, 6) and np.isfinite(out["probabilities"]).all()
-    # sequence parallelism needs the ranks of a torch.distributed world
-    # (tests/test_torch_parallel_dist.py); tensor parallelism is not ported
+    # sequence and tensor parallelism need the ranks of a torch.distributed
+    # world (tests/test_torch_parallel_dist.py, tests/test_torch_tp_pp_dist.py)
     with pytest.raises(RuntimeError, match="torch.distributed"):
         ttrain.MultiSubjectTrainer(
             mp, [1], VERBOSE=False, device="cpu",
             SN_kwargs={"encoder_type": "conformer", "conformer": conformer,
                        "sequence_parallel": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         ttrain.MultiSubjectTrainer(mp, [1], SN_kwargs={"tensor_parallel": 2},
                                    VERBOSE=False, device="cpu")

@@ -1537,3 +1537,63 @@ def test_featurization_on_the_card_matches_the_cpu(zscore):
         want = extract_high_gamma_np(ints, cfg, device="cpu")
         scale = np.abs(want).mean()
         np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-3 * scale)
+
+
+def collective_rank() -> dict:
+    """One gloo rank's check of the tensor-parallel column gather and the
+    pipeline ring on CUDA tensors (``parallel.comm``; run by
+    ``parallel.launch.spawn``): forward values and adjoints against their
+    definitions, and whether the calls staged through the host."""
+    import torch.distributed as dist
+
+    from ecog2txt_tpu_torch.parallel.comm import ring_shift, stages_through_host
+    from ecog2txt_tpu_torch.parallel.mesh import gather_params_tp, make_mesh
+
+    group, r, n = dist.group.WORLD, dist.get_rank(), dist.get_world_size()
+    g = torch.Generator().manual_seed(0)
+    pieces = [torch.randn((3, 5, 4), generator=g) for _ in range(n)]
+    w = torch.randn((3, 5, 4 * n), generator=g).cuda()
+    x = pieces[r].cuda().requires_grad_()
+    y = gather_params_tp({"w": x}, make_mesh(n_data=1, n_model=n), {"w": True})["w"]
+    (y * w).sum().backward()
+    # the adjoint: this rank's block of the cotangent summed over the ranks
+    gather_ok = (torch.equal(y.cpu(), torch.cat(pieces, dim=-1))
+                 and torch.allclose(x.grad, n * w[..., 4 * r:4 * (r + 1)]))
+    z_in = pieces[r].cuda().to(torch.bfloat16).requires_grad_()
+    z = ring_shift(z_in, group)
+    v = w[..., :4].to(torch.bfloat16)
+    (z.float() * v.float()).sum().backward()
+    want_z = pieces[r - 1].to(torch.bfloat16) if r else torch.zeros_like(z_in).cpu()
+    # the adjoint: the shift back (the last rank sends nothing on)
+    want_grad = v if r < n - 1 else torch.zeros_like(v)
+    ring_ok = torch.equal(z.cpu(), want_z) and torch.equal(z_in.grad, want_grad)
+    return {"gather_ok": bool(gather_ok), "ring_ok": bool(ring_ok),
+            "staged": stages_through_host(group, x, "all_gather")
+            and stages_through_host(group, z_in, "send")}
+
+
+@pytest.fixture(scope="module")
+def collective_ranks():
+    import os
+
+    from ecog2txt_tpu_torch.parallel.launch import spawn
+
+    _need_cuda()
+    return spawn("test_torch_gpu:collective_rank", 2, timeout=300, backend="gloo",
+                 device="cuda", pythonpath=[os.path.dirname(os.path.abspath(__file__))])
+
+
+@pytest.mark.gpu
+def test_column_gather_adjoint_on_cuda_under_gloo(collective_ranks):
+    """Two gloo ranks on the card: the column gather of CUDA tensors (staged
+    through the host) concatenates the ranks' blocks, and its adjoint gives
+    each rank its block of the summed cotangent."""
+    assert all(r["staged"] and r["gather_ok"] for r in collective_ranks), collective_ranks
+
+
+@pytest.mark.gpu
+def test_ring_shift_adjoint_on_cuda_under_gloo(collective_ranks):
+    """The ring's send/receive pair on bf16 CUDA tensors (staged through the
+    host): rank r gets rank r−1's tensor (rank 0 zeros), and the gradient
+    travels back along the ring (the last rank's is zero)."""
+    assert all(r["staged"] and r["ring_ok"] for r in collective_ranks), collective_ranks

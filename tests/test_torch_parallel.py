@@ -8,9 +8,8 @@ tail fed to the next, the router statistics summed over the shards)
 against JAX's ``sequence_parallel_encode`` on n = 2 and 4 devices (dense
 and capacity MoE, f32), the refusals of shards that do not align (the
 JAX package's ``ValueError`` conditions, both packages raising), the
-backend choice, and the trainer's refusal of tensor and pipeline
-parallelism naming ROADMAP item 10b.  Tolerances: f32 rtol 1e-4 / atol
-1e-5.
+backend choice, and the trainer's checks of the tensor- and
+pipeline-parallel keys.  Tolerances: f32 rtol 1e-4 / atol 1e-5.
 """
 
 import jax
@@ -192,7 +191,26 @@ def test_backend_is_chosen_before_the_start(monkeypatch):
 @pytest.mark.parametrize("key", ["tensor_parallel", "pipeline_parallel",
                                  "pipeline_microbatches"])
 def test_tensor_and_pipeline_parallel_name_item_10b(tmp_path_factory, key):
+    """The tensor- and pipeline-parallel keys, which raised
+    ``NotImplementedError`` before they were ported, are taken now, with
+    the JAX trainer's checks: in one process
+    ``tensor_parallel`` asks for ``torch.distributed`` (as
+    ``sequence_parallel`` does), ``pipeline_parallel`` refuses the biLSTM
+    with ``ValueError``, and ``pipeline_microbatches`` alone builds the
+    one-process trainer (``tests/test_torch_tp_pp*.py`` run the modes)."""
     root = tmp_path_factory.mktemp("refuse")
     mp = tdemo.make_demo_experiment(str(root / "exp"), subject_ids=(1,), N_epochs=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 10b"):
-        ttrain.MultiSubjectTrainer(mp, [1], SN_kwargs={key: 2}, VERBOSE=False, device="cpu")
+
+    def build():
+        return ttrain.MultiSubjectTrainer(mp, [1], SN_kwargs={key: 2}, VERBOSE=False,
+                                          device="cpu")
+
+    if key == "tensor_parallel":
+        with pytest.raises(RuntimeError, match="make_mesh needs torch.distributed"):
+            build()
+    elif key == "pipeline_parallel":
+        with pytest.raises(ValueError, match="requires encoder_type='conformer'"):
+            build()
+    else:
+        trainer = build()
+        assert trainer.mesh is None and trainer.pp is None

@@ -164,7 +164,8 @@ def test_port_imports_with_jax_blocked():
         "'models.beam', 'models.conformer', 'utils.introspect', 'utils.summaries', "
         "'utils.tf1_import', 'utils.profiling', 'utils.flops', 'run_demo', "
         "'parallel', 'parallel.comm', 'parallel.mesh', 'parallel.multihost', "
-        "'parallel.expert', 'parallel.sequence', 'parallel.launch'}\n"
+        "'parallel.expert', 'parallel.sequence', 'parallel.launch', 'parallel.pipeline', "
+        "'parallel.sp_pp', 'parallel.dryrun'}\n"
         "assert need <= {n.split('.', 1)[1] for n in names}, names\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

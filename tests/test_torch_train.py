@@ -363,16 +363,15 @@ def test_predictor_from_trainer(trained):
     "tensor_parallel", "expert_parallel", "cluster_embedded_words"])
 def test_trainer_refuses_what_is_not_ported(trained, unported):
     """What the port's trainer does not have yet names its ROADMAP item:
-    tensor and pipeline parallelism (Queue 1, item 10b) and
-    ``cluster_embedded_words`` (item 12).  Scope masks, schedules, lazy
-    shards, summaries and rebuilding from a checkpoint are ported
+    ``cluster_embedded_words`` (Queue 1, item 12).  Scope masks, schedules,
+    lazy shards, summaries and rebuilding from a checkpoint are ported
     (``tests/test_torch_transfer.py``, ``test_torch_trainer_tools.py``,
     ``test_torch_lazy_pipeline.py``), and so are the bootstrap and data,
-    sequence and expert parallelism (``tests/test_torch_parallel*.py``):
-    in one process ``data_parallel`` trains on the one-process path, and
-    sequence and expert parallelism refuse a model they cannot shard."""
-    assert set(ttrain._UNPORTED_SN_KWARGS) == {
-        "pipeline_parallel", "tensor_parallel", "pipeline_microbatches"}
+    sequence, expert, tensor and pipeline parallelism
+    (``tests/test_torch_parallel*.py``, ``tests/test_torch_tp_pp*.py``): in
+    one process ``data_parallel`` trains on the one-process path, tensor
+    parallelism asks for ``torch.distributed``, and sequence, expert and
+    pipeline parallelism refuse a model they cannot shard."""
     if unported == "cluster_embedded_words":
         with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 12"):
             trained.cluster_embedded_words()
@@ -383,9 +382,12 @@ def test_trainer_refuses_what_is_not_ported(trained, unported):
             trained._manifest_path, [1], SN_kwargs=sn, VERBOSE=False, device="cpu",
         )
 
-    if unported in ttrain._UNPORTED_SN_KWARGS:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 10b"):
-            build(**{unported: 2})
+    if unported == "tensor_parallel":
+        with pytest.raises(RuntimeError, match="make_mesh needs torch.distributed"):
+            build(tensor_parallel=2)
+    elif unported == "pipeline_parallel":
+        with pytest.raises(ValueError, match="requires encoder_type='conformer'"):
+            build(pipeline_parallel=2)
     elif unported == "data_parallel":
         assert build(data_parallel=True).mesh is None
     elif unported == "sequence_parallel":

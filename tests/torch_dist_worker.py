@@ -26,7 +26,7 @@ from ecog2txt_tpu_torch.parallel import (
     shard_params_ep,
 )
 from ecog2txt_tpu_torch.parallel.expert import expert_mask
-from ecog2txt_tpu_torch.parallel.mesh import reduce_gradients_
+from ecog2txt_tpu_torch.parallel.mesh import parallel_modes, reduce_gradients_
 from ecog2txt_tpu_torch.train import (
     MultiSubjectTrainer,
     TrainState,
@@ -68,15 +68,10 @@ def _grads(case: dict) -> dict:
     for p in tree_leaves(params):
         p.requires_grad_(True)
     batch = _tensors(case["batch"])
-    kw = {}
     if n_data > 1:
         batch = batch_sharding(mesh)(batch)
-        kw["dp"] = (mesh, "data")
-    if n_model > 1:
-        kw["ep"] = (mesh, "model")
-    if n_seq > 1:
-        kw["sp"] = (mesh, "seq", "model") if n_model > 1 else (mesh, "seq")
-    loss, metrics = seq2seq_loss(params, cfg, batch, None, train=False, **kw)
+    loss, metrics = seq2seq_loss(params, cfg, batch, None, train=False,
+                                 **parallel_modes(mesh, "ep" if n_model > 1 else None))
     loss.backward()
     leaves = tree_leaves(params)
     sharded = tree_leaves(expert_mask(params, E // n_model)) if n_model > 1 else None
