@@ -249,8 +249,25 @@ LayerNorm swapped back to the plain math, in turns with K5.
    the path's kernels (exactly), its step time and parameter bytes beside
    the expected pipeline bubble (S−1)/(M+S−1);
 
+29. the experiment sweeps and the electrode contributions (main paths;
+   run right after phase 21, on its experiment and its trained trainer):
+   ``experiments.perf_vs_training_size`` under ``'bi_grid'`` (2 folds x
+   fractions 0.5 and 1.0 of the target's trials, 2 epochs a cell: 3 K4f
+   and 3 K4b a step, 3 K4f an assessment encode, no K1f or K1b; the
+   archive through ``DecodingResults``, finite WERs),
+   ``experiments.grid_search`` over both encoder families and two
+   learning rates (biLSTM cells 6 K1f + 6 K1b a step; headline-conformer
+   cells, 'flash', 4 K2f + 4 K2b-dq + 4 K2b-dkv + 20 K5f + 20 K5b a step;
+   the archive through ``GridSearchResults``, ``best()`` a cell), and
+   ``ResultsPlotter(target, trainer).elec_contribs`` for weight norms,
+   saliency (6 K1f + 6 K1b a subject) and occlusion (6 K1f a mask
+   position's decode and an assessment encode); at f32 the kernel path's
+   occlusion WERs equal the plain path's and its saliency contributions
+   are within the f32 tolerance normwise.  Seconds a cell (the first
+   apart, set-up apart) and for the phase;
+
 20. the ``kernels`` JSON line (all ten kernels, with the launches of
-   phases 10-19 and 21-28 beside the earlier ones, per rank where ranks
+   phases 10-19 and 21-29 beside the earlier ones, per rank where ranks
    ran), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -275,7 +292,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ecog2txt_tpu_torch import run_demo, text_dir
+from ecog2txt_tpu_torch import experiments, run_demo, text_dir
 from ecog2txt_tpu_torch.assess import wer_vector
 from ecog2txt_tpu_torch.convert import load_checkpoint, save_checkpoint, tree_leaves, tree_map
 from ecog2txt_tpu_torch.datagen import word_to_phonemes
@@ -333,6 +350,7 @@ from ecog2txt_tpu_torch.parallel.mesh import (
     reduce_gradients_,
 )
 from ecog2txt_tpu_torch.parallel.multihost import initialize_distributed
+from ecog2txt_tpu_torch.plotting import DecodingResults, GridSearchResults, ResultsPlotter
 from ecog2txt_tpu_torch.quantize import _column_major, int8_mm, quantize_conformer_params
 from ecog2txt_tpu_torch.serve import (
     OnlinePredictor,
@@ -4092,8 +4110,10 @@ def tf32_phase(flash: dict) -> dict:
     return out
 
 
-def trainer_tools_phase(root: str) -> dict:
-    """Phase 21's trainer paths on one two-subject experiment, in order."""
+def trainer_tools_phase(root: str) -> tuple:
+    """Phase 21's trainer paths on one two-subject experiment, in order;
+    returns their results, the trained trainer and the manifest (phase 29
+    goes on with both)."""
     t0 = time.perf_counter()
     manifest = transfer_experiment(root)
     logdir = f"{root}/xfer/tb"
@@ -4109,6 +4129,267 @@ def trainer_tools_phase(root: str) -> dict:
     out["tf1"] = tf1_phase(manifest, trainer, out["recovery"]["want"])
     out["analysis"] = analysis_phase(trainer)
     out["lazy"] = lazy_shard_phase(manifest)
+    return out, trainer, manifest
+
+
+# --------------------------------------------------------------------------
+# 29. the experiment sweeps and the electrode contributions: main paths
+# --------------------------------------------------------------------------
+
+# the sweeps' epochs a cell, folds and fractions of the target's trials
+SWEEP_EPOCHS = 2
+SWEEP_FOLDS, SWEEP_FRACTIONS = 2, (0.5, 1.0)
+# the grid: both encoder families, two learning rates; the conformer at the
+# headline widths of phases 7 and 8 under 'flash' (the biLSTM cells ignore it)
+SWEEP_GRID = {"encoder_type": ["lstm", "conformer"], "learning_rate": [1e-3, 5e-4]}
+OCCLUSION = dict(mask_extent=(2, 2), stride=2)
+
+
+class _CellClock:
+    """Wall time of each trainer a sweep builds (a cell): its set-up (the
+    constructor, packing the records, the upload; outermost calls only),
+    ``fit`` and ``assess``, each ending in a synchronise.  Wraps the
+    trainer's methods while the ``with`` lasts."""
+
+    SETUP = ("__init__", "packed_dataset", "device_data")
+
+    def __enter__(self):
+        self.cells: list = []
+        self._saved = {m: getattr(MultiSubjectTrainer, m)
+                       for m in (*self.SETUP, "fit", "assess")}
+        for name, fn in self._saved.items():
+            setattr(MultiSubjectTrainer, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(MultiSubjectTrainer, name, fn)
+
+    def _wrap(self, name, fn):
+        setup = name in self.SETUP
+
+        def clocked(trainer, *args, **kw):
+            outer = not trainer.__dict__.get("_clock_depth", 0)
+            trainer.__dict__["_clock_depth"] = trainer.__dict__.get("_clock_depth", 0) + 1
+            t0 = time.perf_counter()
+            try:
+                return fn(trainer, *args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                trainer.__dict__["_clock_depth"] -= 1
+                if name == "__init__":
+                    trainer.__dict__["_clock_cell"] = len(self.cells)
+                    self.cells.append({"start": t0, "setup_s": 0.0, "fit_s": 0.0,
+                                       "assess_s": 0.0})
+                cell = (self.cells[trainer.__dict__["_clock_cell"]]
+                        if "_clock_cell" in trainer.__dict__ else None)
+                if cell is not None:
+                    if setup and outer:
+                        cell["setup_s"] += t1 - t0
+                    elif not setup:
+                        cell[f"{name}_s"] += t1 - t0
+                    cell["end"] = t1
+
+        return clocked
+
+    def summary(self) -> list:
+        return [{"s": c["end"] - c["start"], "setup_s": c["setup_s"], "fit_s": c["fit_s"],
+                 "assess_s": c["assess_s"]} for c in self.cells]
+
+
+def _sweep_steps(counts, batch_size: int, epochs: int) -> int:
+    return epochs * sum(-(-int(n) // batch_size) for n in counts if n)
+
+
+def _describe_cells(cells: list) -> str:
+    first, rest = cells[0], cells[1:]
+    mean = lambda key: float(np.mean([c[key] for c in rest])) if rest else 0.0  # noqa: E731
+    return (f"first cell {first['s']:.2f} s (set-up {first['setup_s']:.2f} s, fit "
+            f"{first['fit_s']:.2f} s, assess {first['assess_s']:.2f} s); the other "
+            f"{len(rest)} cells {mean('s'):.2f} s a cell (set-up {mean('setup_s'):.2f} s, fit "
+            f"{mean('fit_s'):.2f} s, assess {mean('assess_s'):.2f} s)")
+
+
+def perf_sweep_phase(manifest: str) -> dict:
+    """``experiments.perf_vs_training_size`` under ``use_pallas_lstm='bi_grid'``:
+    every cell a fresh full-width trainer on the target's subset (the donor
+    whole), K4f 3 a training step and 3 an assessment encode, K4b 3 a step,
+    nothing else, all on the cluster bodies; the archive loads through ``DecodingResults`` with shape
+    (folds, fractions), finite WERs and more seconds for more trials."""
+    base = transfer_trainer(manifest, tf_summaries_dir=None, checkpoint_every_assessment=False,
+                            use_pallas_lstm="bi_grid")
+    counts = base.packed_dataset("training").num_trials
+    n_target = int(counts[-1])
+    steps = sum(_sweep_steps([*counts[:-1], max(int(round(f * n_target)), 1)],
+                             base.batch_size, SWEEP_EPOCHS) for f in SWEEP_FRACTIONS)
+    steps *= SWEEP_FOLDS
+    encodes = _encodes(base, ["validation"]) * SWEEP_FOLDS * len(SWEEP_FRACTIONS)
+    layers = len(base.net_config.rnn_sizes)
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    with _CellClock() as clock:
+        t0 = time.perf_counter()
+        path = experiments.perf_vs_training_size(
+            base, num_folds=SWEEP_FOLDS, fractions=SWEEP_FRACTIONS, num_epochs=SWEEP_EPOCHS,
+            suffix="bi_grid")
+        sweep_s = time.perf_counter() - t0
+    counts_k = read_counts()
+    bodies = read_bodies()
+    # ------------------------------------------------------------------
+    check_counts("perf_vs_training_size (bi_grid)", counts_k,
+                 {"K4f": layers * (steps + encodes), "K4b": layers * steps})
+    for kernel in ("K4f", "K4b"):
+        check_bodies("perf_vs_training_size (bf16)", bodies, kernel, "cluster", counts_k[kernel])
+    res = DecodingResults("", "", path=path)
+    wer = np.asarray(res.word_error_rate)
+    check(wer.shape == (SWEEP_FOLDS, len(SWEEP_FRACTIONS)) and np.isfinite(wer).all()
+          and np.isfinite(np.asarray(res.accuracy)).all(),
+          f"perf_vs_training_size: WER {wer}")
+    secs = np.asarray(res.nums_seconds)
+    check(bool((np.diff(secs, axis=1) > 0).all()), f"perf_vs_training_size: seconds {secs}")
+    cells = clock.summary()
+    check(len(cells) == SWEEP_FOLDS * len(SWEEP_FRACTIONS), f"perf sweep: {len(cells)} cells")
+    print(f"perf_vs_training_size ('bi_grid', {SWEEP_FOLDS} folds x fractions "
+          f"{SWEEP_FRACTIONS} of {n_target} target trials, {SWEEP_EPOCHS} epochs a cell, "
+          f"B={base.batch_size}, bf16): {sweep_s:.2f} s, {steps} steps, {encodes} assessment "
+          f"encodes; {_describe_cells(cells)}; launches {counts_k}; WER by fold x size "
+          f"{wer.tolist()}, seconds {secs.tolist()}  [{gpu_line()}]")
+    return {"counts": counts_k, "s": sweep_s, "cells": cells, "steps": steps,
+            "encodes": encodes, "wers": wer.tolist()}
+
+
+def grid_sweep_phase(manifest: str) -> dict:
+    """``experiments.grid_search`` over both encoder families and two
+    learning rates: the biLSTM cells (True) launch K1f and K1b 6 a step
+    (K1f 6 an assessment encode too) on the cluster bodies, the conformer
+    cells ('flash', the headline widths) K2f / K2b-dq / K2b-dkv once a
+    block and K5f / K5b 5 times a block in every step (K2f and K5f in every
+    encode too), K2 on the tensor cores, K5b on its registers body;
+    the archive loads through ``GridSearchResults`` and ``best()`` names a
+    cell."""
+    conformer = {**HEADLINE_CONFORMER, "attention_impl": "flash"}
+    base = transfer_trainer(manifest, tf_summaries_dir=None, checkpoint_every_assessment=False,
+                            conformer=conformer)
+    counts = base.packed_dataset("training").num_trials
+    cells_a_family = len(SWEEP_GRID["learning_rate"])
+    steps = cells_a_family * _sweep_steps(counts, base.batch_size, SWEEP_EPOCHS)
+    encodes = cells_a_family * _encodes(base, ["validation"])
+    nb, ln = conformer["num_blocks"], conformer["num_blocks"] * LN_PER_BLOCK["flash"]
+    lstm = 2 * len(base.net_config.rnn_sizes)
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    with _CellClock() as clock:
+        t0 = time.perf_counter()
+        path = experiments.grid_search(base, SWEEP_GRID, num_epochs=SWEEP_EPOCHS, suffix="families")
+        sweep_s = time.perf_counter() - t0
+    counts_k = read_counts()
+    bodies = read_bodies()
+    # ------------------------------------------------------------------
+    check_counts("grid_search", counts_k, {
+        "K1f": lstm * (steps + encodes), "K1b": lstm * steps,
+        "K2f": nb * (steps + encodes), "K2b-dq": nb * steps, "K2b-dkv": nb * steps,
+        "K5f": ln * (steps + encodes), "K5b": ln * steps})
+    for kernel in ("K2f", "K2b-dq", "K2b-dkv"):
+        check_bodies("grid_search conformer cells (bf16)", bodies, kernel, "tensor_core",
+                     counts_k[kernel])
+    check_bodies("grid_search conformer cells (bf16)", bodies, "K5b", "registers",
+                 counts_k["K5b"])
+    for kernel in ("K1f", "K1b"):
+        check_bodies("grid_search biLSTM cells (bf16)", bodies, kernel, "cluster",
+                     counts_k[kernel])
+    gs = GridSearchResults(path)
+    check(gs.wers.shape == tuple(len(v) for v in SWEEP_GRID.values())
+          and np.isfinite(gs.wers).all(), f"grid_search: WERs {gs.wers}")
+    best = gs.best()
+    check(str(best["encoder_type"]) in SWEEP_GRID["encoder_type"]
+          and float(best["learning_rate"]) in SWEEP_GRID["learning_rate"],
+          f"grid_search: best {best}")
+    cells = clock.summary()
+    check(len(cells) == gs.wers.size, f"grid sweep: {len(cells)} cells")
+    print(f"grid_search ({SWEEP_GRID}, conformer {conformer}, {SWEEP_EPOCHS} epochs a cell, "
+          f"B={base.batch_size}, bf16): {sweep_s:.2f} s, {steps} steps and {encodes} "
+          f"assessment encodes a family; {_describe_cells(cells)}; launches {counts_k}; "
+          f"WERs {gs.wers.tolist()}, best {best}  [{gpu_line()}]")
+    return {"counts": counts_k, "s": sweep_s, "cells": cells, "steps": steps,
+            "encodes": encodes, "wers": gs.wers.tolist(),
+            "best": {k: (v if isinstance(v, float) else str(v)) for k, v in best.items()}}
+
+
+def contributions_phase(trainer: MultiSubjectTrainer) -> dict:
+    """``ResultsPlotter(target, trainer).elec_contribs`` on phase 21's
+    trained biLSTM (bf16, True): weight norms (no kernel), saliency (6 K1f
+    + 6 K1b a subject), occlusion of the validation trials (6 K1f a mask
+    position's decode and an assessment encode), all on the cluster
+    bodies; in f32 the kernel path
+    against the plain path: the occlusion WERs equal, the saliency
+    contributions within the f32 tolerance normwise."""
+    plotter = ResultsPlotter(trainer.target_subject, trainer, VERBOSE=False)
+    S = len(trainer.ecog_subjects)
+    out: dict = {}
+    for method, kw in (("weight_norms", {}), ("saliency_map", {}),
+                       ("occlusion_tested", OCCLUSION)):
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        contribs = plotter.elec_contribs(method, **kw)
+        torch.cuda.synchronize()
+        out[method] = {"s": time.perf_counter() - t0, "counts": read_counts(),
+                       "bodies": read_bodies()}
+        # ------------------------------------------------------------------
+        for kernel in ("K1f", "K1b"):
+            check_bodies(f"{method} (bf16)", out[method]["bodies"], kernel, "cluster",
+                         out[method]["counts"][kernel])
+        check(contribs.shape == (plotter.grid.num_channels,) and np.isfinite(contribs).all(),
+              f"{method}: contributions {contribs.shape}")
+        out[method]["contribs"] = contribs
+    rows, cols = plotter.grid.layout.shape
+    (er, ec), stride = OCCLUSION["mask_extent"], OCCLUSION["stride"]
+    positions = len(range(0, rows - er + 1, stride)) * len(range(0, cols - ec + 1, stride))
+    check_counts("weight norms", out["weight_norms"]["counts"], {})
+    check_counts("saliency contributions", out["saliency_map"]["counts"],
+                 {"K1f": 6 * S, "K1b": 6 * S})
+    check_counts("occlusion contributions", out["occlusion_tested"]["counts"],
+                 {"K1f": 6 * (positions + _encodes(trainer, ["validation"]))})
+    check(out["saliency_map"]["contribs"].max() > 0, "saliency: all zero")
+    # f32: the kernel path against the plain path
+    cfg = trainer.net_config
+    f32 = {}
+    try:
+        for name, pallas in (("kernel", True), ("plain", False)):
+            trainer.net_config = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                                                     use_pallas_lstm=pallas)
+            trainer._device_data.clear()  # inputs uploaded in f32
+            f32[name] = (plotter.elec_contribs("saliency_map"),
+                         plotter._occlusion_wers("validation", **OCCLUSION)[0])
+    finally:
+        trainer.net_config = cfg
+        trainer._device_data.clear()
+    sal_err, _ = compare("saliency contributions f32 kernel vs plain",
+                         torch.from_numpy(f32["kernel"][0]), torch.from_numpy(f32["plain"][0]),
+                         TOL[torch.float32], normwise=True)
+    check(np.array_equal(f32["kernel"][1], f32["plain"][1]),
+          f"occlusion WERs f32: kernel {f32['kernel'][1]} vs plain {f32['plain'][1]}")
+    occl = out["occlusion_tested"]
+    print(f"electrode contributions of the target ({plotter.grid.num_channels} channels, "
+          f"bf16): weight norms {out['weight_norms']['s']:.3f} s; saliency "
+          f"{out['saliency_map']['s']:.2f} s, launches {out['saliency_map']['counts']}; "
+          f"occlusion ({positions} mask positions {OCCLUSION}) {occl['s']:.2f} s, launches "
+          f"{occl['counts']}; f32 kernel vs plain: occlusion WERs equal at all {positions} "
+          f"positions, saliency max abs err {sal_err:.3e} (normwise)  [{gpu_line()}]")
+    return {"counts": {m: r["counts"] for m, r in out.items()},
+            "s": {m: r["s"] for m, r in out.items()}, "positions": positions,
+            "sal_err": sal_err}
+
+
+def sweeps_phase(trainer: MultiSubjectTrainer, manifest: str) -> dict:
+    """Phase 29 on phase 21's experiment and trained trainer."""
+    t0 = time.perf_counter()
+    out = {"perf": perf_sweep_phase(manifest), "grid": grid_sweep_phase(manifest),
+           "contributions": contributions_phase(trainer)}
+    out["s"] = time.perf_counter() - t0
+    print(f"phase 29 (sweeps and contributions): {out['s']:.2f} s  [{gpu_line()}]")
     return out
 
 
@@ -4724,7 +5005,25 @@ def decode_quality_phase(root: str) -> dict:
     below 0.5, at least 3 phonemes a trial); a donor-pretrained target
     (the sequential curriculum) beats the cold one at the same target
     budget.  The temperature-1 WER is printed beside them (the JAX package
-    reports it, one seed, and pins no ordering for it)."""
+    reports it, one seed, and pins no ordering for it).
+
+    The phase runs under ``torch.use_deterministic_algorithms``: with
+    PyTorch's default algorithms two runs of the same training differ in
+    the last bits (5.96e-08 after 5 epochs) and the orderings, taken at
+    one seed, came out either way (beam worse than greedy once, transfer
+    worse than cold once, in four runs on an H100).  Under them two runs
+    give the same parameters bit for bit; ``warn_only``, because an op
+    without a deterministic version would raise otherwise."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _decode_quality(root)
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def _decode_quality(root: str) -> dict:
     t0 = time.perf_counter()
     reset_counts()
     cold = _op_trainer(os.path.join(root, "op_cold"))
@@ -5045,6 +5344,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script drives the port on a GPU",
               file=sys.stderr)
         return 2
+    # cuBLAS's workspace fixed before its first call (32 MiB, its default on
+    # Hopper), so phase 25b can ask for deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     env = environment()
     with tempfile.TemporaryDirectory() as root:
@@ -5089,7 +5391,9 @@ def main() -> int:
         feat = featurization_phase()
         raw_session = raw_session_phase(ctc_params)
         del ctc_params
-        tools = trainer_tools_phase(root)
+        tools, tools_trainer, tools_manifest = trainer_tools_phase(root)
+        sweeps = sweeps_phase(tools_trainer, tools_manifest)
+        del tools_trainer
         cexport, flash_program = conformer_export_phase()
         tf32 = tf32_phase(flash_program)
         del flash_program
@@ -5478,6 +5782,20 @@ def main() -> int:
         "tp_pp": {name: {k: v for k, v in r.items() if k != "counts_by_rank"}
                   for name, r in tpp.items()},
     }
+    # the launches of phase 29's paths (all ten kernels: a 0 says the path
+    # does not run it)
+    sweep_paths = {k: {
+        "launches_sweeps": {"perf_vs_training_size_bi_grid": sweeps["perf"]["counts"][k],
+                            "grid_search": sweeps["grid"]["counts"][k]},
+        "launches_contributions": {m: c[k] for m, c in sweeps["contributions"]["counts"].items()},
+    } for k in WRAPPERS}
+    line["sweeps"] = {
+        "s": sweeps["s"],
+        **{name: {key: sweeps[name][key] for key in ("s", "cells", "steps", "encodes", "wers")}
+           for name in ("perf", "grid")},
+        "grid_best": sweeps["grid"]["best"],
+        "contributions": {key: sweeps["contributions"][key]
+                          for key in ("s", "positions", "sal_err")}}
     line["demo_twin"] = {"wers": twin["wers"], "s": twin["s"]}
     line["decode_quality"] = {"wers": quality["wers"], "s": quality["s"]}
     for entry in line["kernels"]:
@@ -5485,6 +5803,7 @@ def main() -> int:
         entry.update(moe_paths.get(ids[entry["name"]], {}))
         entry.update(tools_paths.get(ids[entry["name"]], {}))
         entry.update(parallel_paths[ids[entry["name"]]])
+        entry.update(sweep_paths[ids[entry["name"]]])
     line["script_s"] = time.perf_counter() - t_start
     print(f"chip_smoke.py took {line['script_s']:.1f} s")
     print(json.dumps(line))

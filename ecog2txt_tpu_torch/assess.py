@@ -13,9 +13,7 @@ decoded hypotheses.
 
 from __future__ import annotations
 
-import os
-import pickle
-from typing import Any, Callable, Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 from scipy import stats as sps
@@ -211,57 +209,21 @@ def holm_bonferroni(p_values: Sequence[float], alpha: float = 0.05) -> list[bool
     return reject.tolist()
 
 
-class DecodingResults:
-    """A perf-vs-training-size archive as ``apply_comparisons`` loads it:
-    ``training_blocks``, ``validation_blocks`` and the fold × datasize
-    matrices ``word_error_rate``, ``accuracy`` and ``nums_seconds``, from
-    the ``.npz`` (or pickle) files the JAX package's
-    ``plotting.results.save_decoding_results`` writes.  (The reference's
-    hickle archives and the plotting around them are not ported yet: see
-    ROADMAP.md, Queue 1, item 12.)"""
-
-    def __init__(self, path: str):
-        data = self._load(path)
-        self.training_blocks = data["training_blocks"]
-        self.validation_blocks = list(data["validation_blocks"])
-        self.word_error_rate = np.asarray(data["word_error_rate"], float)
-        self.accuracy = np.asarray(data["accuracy"], float)
-        self.nums_seconds = np.asarray(data["nums_seconds"], float)
-
-    @property
-    def num_folds(self) -> int:
-        return int(self.word_error_rate.shape[0])
-
-    @staticmethod
-    def _load(path: str) -> dict[str, Any]:
-        for candidate in (path, path + ".npz", path + ".pkl"):
-            if not os.path.exists(candidate):
-                continue
-            if candidate.endswith(".pkl"):
-                with open(candidate, "rb") as f:
-                    return pickle.load(f)
-            with np.load(candidate, allow_pickle=True) as z:
-                out = {k: z[k] for k in z.files}
-            out["training_blocks"] = [
-                [int(x) for x in str(s).split(",") if x] for s in out["training_blocks"]
-            ]
-            return out
-        raise FileNotFoundError(f"no results archive at {path}(.npz|.pkl)")
-
-
 def apply_comparisons(partial_path, comparisons, application_fxn, VERBOSE=True):
     """Run ``application_fxn(baseline_results, comparison_results,
     baseline_suffix, comparison_suffix)`` over every (comparison,
     baseline) pair of saved result archives.  ``partial_path`` is a
     ``%``-template over the experiment suffix; ``comparisons`` maps
     ``comparison_suffix -> {baseline_suffix: stats_dict}``; each archive
-    is loaded as a :class:`DecodingResults`."""
+    is loaded as a :class:`plotting.results.DecodingResults`."""
+    from .plotting.results import DecodingResults
+
     for comparison_suffix, baseline_dict in comparisons.items():
-        comparison_results = DecodingResults(partial_path % comparison_suffix)
+        comparison_results = DecodingResults("", "", path=partial_path % comparison_suffix)
         for baseline_suffix in baseline_dict:
             if VERBOSE:
                 print(f"comparing {comparison_suffix!r} to {baseline_suffix!r}")
-            baseline_results = DecodingResults(partial_path % baseline_suffix)
+            baseline_results = DecodingResults("", "", path=partial_path % baseline_suffix)
             application_fxn(
                 baseline_results, comparison_results, baseline_suffix, comparison_suffix,
             )

@@ -56,8 +56,14 @@ ranks stay in lockstep: the metrics (hence the NaN rollback's decision)
 are global, rank 0 writes the records, the vocab, the checkpoints (every
 part gathered: the one-process format) and the results while the others
 wait, and every rank assesses the same EMA weights.
-``cluster_embedded_words`` is not ported yet: it raises
-``NotImplementedError``.
+
+The analysis layer hangs off the trainer as in the JAX package:
+``results_plotter`` (``plotting.ResultsPlotter``: electrode
+contributions by weight norms, saliency and occlusion, and the figures),
+``cluster_embedded_words`` (``plotting.embeddings``; needs sklearn) and
+the sweeps of ``experiments.py``.  ``torch_learn`` is ``fit`` under the
+JAX trainer's name for its PyTorch engine: here the trainer is that
+engine.
 """
 
 from __future__ import annotations
@@ -397,6 +403,22 @@ class MultiSubjectTrainer:
     @property
     def manifest(self) -> Manifest:
         return self.manifests[self.subject_ids[-1]]
+
+    @property
+    def results_plotter(self):
+        """Lazily-constructed per-target-subject plotter (reference
+        trainers.py:259-275); assign to replace."""
+        if getattr(self, "_results_plotter", None) is None:
+            from .plotting import ResultsPlotter
+
+            self._results_plotter = ResultsPlotter(
+                self.target_subject, self, VERBOSE=self.VERBOSE
+            )
+        return self._results_plotter
+
+    @results_plotter.setter
+    def results_plotter(self, plotter) -> None:
+        self._results_plotter = plotter
 
     @property
     def checkpoint_dir(self) -> str:
@@ -1125,6 +1147,34 @@ class MultiSubjectTrainer:
         self.save_checkpoint()
         return history
 
+    def torch_learn(
+        self,
+        N_epochs: int | None = None,
+        device=None,
+        push_weights: bool = True,
+        **ST_kwargs,
+    ) -> dict:
+        """The JAX trainer's second engine (reference trainers.py:278-301,
+        PyTorch ``SequenceTrainer.train_and_assess``): train this
+        trainer's model for ``N_epochs`` (default ``N_epochs``) from its
+        current weights, assessing every ``assessment_epoch_interval``,
+        and return the history in ``fit``'s format.
+
+        In the port the trainer is that PyTorch engine, so this is
+        ``fit`` (``ST_kwargs`` are ``fit``'s keywords) and the JAX
+        package's ``torch_engine.py`` has no copy here.  ``device=None``
+        means the trainer's device; any other device must be it, or this
+        raises ``ValueError``.  ``push_weights`` is accepted for the JAX
+        signature: the weights trained are the trainer's already."""
+        if device is not None and not _same_device(device, self.device):
+            raise ValueError(
+                f"torch_learn: device {str(device)!r} is not the trainer's "
+                f"({str(self.device)!r}); build the trainer on that device"
+            )
+        history = self.fit(num_epochs=N_epochs or self.N_epochs, **ST_kwargs)
+        self._save_results(history)
+        return history
+
     def sequential_transfer_learn(
         self,
         pretraining: int = 60,
@@ -1438,12 +1488,22 @@ class MultiSubjectTrainer:
             node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
         return node.detach().float().cpu().numpy()
 
-    def cluster_embedded_words(self, *args, **kwargs):
-        """Clusters the decoder's word embeddings through the plotting
-        package, which the port does not have yet."""
-        raise NotImplementedError(
-            "cluster_embedded_words needs plotting/embeddings.py, which is not "
-            "ported yet (see ROADMAP.md, Queue 1, item 12)"
+    def cluster_embedded_words(
+        self, method: str = "pca", num_clusters: int = 8, plot: bool = True
+    ):
+        """Cluster the decoder word-embedding rows (reference
+        trainers.py:677-679 → plotters cluster_embeddings); needs
+        sklearn."""
+        from .plotting.embeddings import cluster_embeddings
+
+        embeddings = self.get_weights_as_numpy_array("decoder/embedding")
+        class_list = self.target_subject.data_manifests["decoder_targets"].feature_list
+        return cluster_embeddings(
+            embeddings,
+            class_list=class_list,
+            method=method,
+            num_clusters=num_clusters,
+            plot=plot,
         )
 
     def get_encoder_embedding(
@@ -1509,6 +1569,18 @@ class MultiSubjectTrainer:
                 "final_state_c": host(final[1])[:n],
                 "encoder_lengths": enc_lengths.cpu().numpy()[:n],
             }
+
+
+def _same_device(a, b) -> bool:
+    """Whether two device names are one device (``'cuda'`` is the
+    current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
 
 
 def _world_size() -> int:

@@ -165,12 +165,42 @@ def test_port_imports_with_jax_blocked():
         "'utils.tf1_import', 'utils.profiling', 'utils.flops', 'run_demo', "
         "'parallel', 'parallel.comm', 'parallel.mesh', 'parallel.multihost', "
         "'parallel.expert', 'parallel.sequence', 'parallel.launch', 'parallel.pipeline', "
-        "'parallel.sp_pp', 'parallel.dryrun'}\n"
+        "'parallel.sp_pp', 'parallel.dryrun', 'experiments', 'plotting', 'plotting.hkl', "
+        "'plotting.results', 'plotting.gridsearch', 'plotting.anatomy', 'plotting.plotters', "
+        "'plotting.latex', 'plotting.figures', 'plotting.embeddings'}\n"
         "assert need <= {n.split('.', 1)[1] for n in names}, names\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'ecog2txt_tpu', 'tensorflow', 'pandas') "
         "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_imports_without_the_host_only_libraries():
+    """Every module of the package (walked) imports with matplotlib,
+    h5py, sklearn, seaborn and pandas blocked, as on a machine that lacks
+    them: the analysis layer imports them only inside the functions that
+    draw, read a hickle file, cluster or tabulate."""
+    blocked = ("matplotlib", "h5py", "sklearn", "seaborn", "pandas")
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"for m in {blocked!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import ecog2txt_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "ecog2txt_tpu_torch.__path__, 'ecog2txt_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'ecog2txt_tpu_torch.plotting.plotters' in names, names\n"
+        "from ecog2txt_tpu_torch.plotting import DecodingResults, ResultsPlotter\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{blocked!r} and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(

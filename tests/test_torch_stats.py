@@ -15,6 +15,7 @@ import pytest
 from ecog2txt_tpu import assess as jassess
 from ecog2txt_tpu.plotting.results import save_decoding_results
 from ecog2txt_tpu_torch import assess as tassess
+from ecog2txt_tpu_torch.plotting.results import DecodingResults
 from torch_threads import one_torch_thread  # noqa: F401
 
 EXACT = dict(rtol=1e-12, atol=1e-12)
@@ -118,4 +119,4 @@ def test_apply_comparisons_and_results_updater(tmp_path):
     assert got == want
     assert got["_untargeted"][""]["adjusted_p_value"] == pytest.approx(0.02)
     with pytest.raises(FileNotFoundError):
-        tassess.DecodingResults(str(tmp_path / "missing"))
+        DecodingResults("", "", path=str(tmp_path / "missing"))

@@ -362,8 +362,10 @@ def test_predictor_from_trainer(trained):
     "distributed", "data_parallel", "sequence_parallel", "pipeline_parallel",
     "tensor_parallel", "expert_parallel", "cluster_embedded_words"])
 def test_trainer_refuses_what_is_not_ported(trained, unported):
-    """What the port's trainer does not have yet names its ROADMAP item:
-    ``cluster_embedded_words`` (Queue 1, item 12).  Scope masks, schedules,
+    """What the port's trainer once refused, naming its ROADMAP item, it
+    now does: ``cluster_embedded_words`` (Queue 1, item 12) clusters the
+    decoder's embedding rows (``tests/test_torch_plotting.py`` holds it to
+    JAX's).  Scope masks, schedules,
     lazy shards, summaries and rebuilding from a checkpoint are ported
     (``tests/test_torch_transfer.py``, ``test_torch_trainer_tools.py``,
     ``test_torch_lazy_pipeline.py``), and so are the bootstrap and data,
@@ -373,8 +375,10 @@ def test_trainer_refuses_what_is_not_ported(trained, unported):
     parallelism asks for ``torch.distributed``, and sequence, expert and
     pipeline parallelism refuse a model they cannot shard."""
     if unported == "cluster_embedded_words":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 12"):
-            trained.cluster_embedded_words()
+        projection, ids, fig = trained.cluster_embedded_words(num_clusters=4, plot=False)
+        vocab = trained.net_config.vocab_size
+        assert projection.shape == (vocab, 2) and ids.shape == (vocab,) and fig is None
+        assert np.isfinite(projection).all() and set(ids.tolist()) <= {0, 1, 2, 3}
         return
 
     def build(**sn):

@@ -12,7 +12,8 @@ and the trainer's curves; ``get_saliencies`` and
 ``get_internal_activations`` against JAX's with the same weights; and the
 inspection tools (``print_tensor_names``, ``subject_to_table``,
 ``count_all_targets``, ``tf_record_to_numpy_data``,
-``restricted_to_trials``) against JAX's outputs.  Tolerances: f32 rtol
+``restricted_to_trials``, ``cluster_embedded_words``) against JAX's
+outputs.  Tolerances: f32 rtol
 1e-4 / atol 1e-5.
 """
 
@@ -435,5 +436,7 @@ def test_inspection_tools_match_jax(pair):
     for k, v in jds.batch_dict().items():
         np.testing.assert_array_equal(tds.batch_dict()[k], v, err_msg=k)
     assert tds.references == jds.references
-    with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
-        tr.cluster_embedded_words()
+    proj, ids, _ = tr.cluster_embedded_words(num_clusters=4, plot=False)
+    jproj, jids, _ = jtr.cluster_embedded_words(num_clusters=4, plot=False)
+    np.testing.assert_array_equal(proj, jproj)
+    np.testing.assert_array_equal(ids, jids)
