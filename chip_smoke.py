@@ -266,8 +266,27 @@ LayerNorm swapped back to the plain math, in turns with K5.
    are within the f32 tolerance normwise.  Seconds a cell (the first
    apart, set-up apart) and for the phase;
 
+30. the examples (main paths; the user entry points of
+   ``ecog2txt_tpu_torch.examples``, each through its ``main`` with the
+   counts reset just before): ``run_mocha_scale`` at full width (16x16
+   grid, 450 training trials, conv 100 / 12, 3x400 biLSTM, aux 225,
+   decoder 150 / 800, B=128, bf16, True) for ``MOCHA_EPOCHS`` epochs, K1f
+   6 x (steps + assessment encodes) and K1b 6 x steps exactly, all on the
+   cluster bodies, the last interval's mean loss below the first's;
+   ``stream_long_recording`` at its defaults (K5f, K5b) and under 'flash'
+   (K2f, K2b-dq, K2b-dkv too), every sentence streamed == offline;
+   ``serve_pool`` (K5f, K5b), pooled == dedicated == offline;
+   ``raw_voltage_demo`` under 'bi_grid' (K4f, K4b exactly), validation WER
+   at most 0.25 and streamed featurization within 1e-3; ``moe_expert_parallel``
+   on 4 gloo ranks sharing the card (experts over 4), streamed == offline
+   on every rank; ``migrate_from_reference`` (the stand-in TF1 source is a
+   mapping: no tensorflow on the card's machine), the architecture read
+   from the source equal to the trainer's, exported tokens == the
+   predictor's (K1f, K1b); phase 25 checks the demo twin's electrode
+   contributions too;
+
 20. the ``kernels`` JSON line (all ten kernels, with the launches of
-   phases 10-19 and 21-29 beside the earlier ones, per rank where ranks
+   phases 10-19 and 21-30 beside the earlier ones, per rank where ranks
    ran), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -297,6 +316,14 @@ from ecog2txt_tpu_torch.assess import wer_vector
 from ecog2txt_tpu_torch.convert import load_checkpoint, save_checkpoint, tree_leaves, tree_map
 from ecog2txt_tpu_torch.datagen import word_to_phonemes
 from ecog2txt_tpu_torch.demo import make_demo_experiment
+from ecog2txt_tpu_torch.examples import (
+    migrate_from_reference,
+    moe_expert_parallel,
+    raw_voltage_demo,
+    run_mocha_scale,
+    serve_pool,
+    stream_long_recording,
+)
 from ecog2txt_tpu_torch.features import (
     HighGammaConfig,
     _next_fast_len,
@@ -4928,7 +4955,9 @@ def ep_phase(runs: list) -> dict:
 def demo_twin_phase(root: str) -> dict:
     """25a. ``python -m ecog2txt_tpu_torch.run_demo`` (its ``main``) at the
     JAX demo's defaults, on the card with ``--use-pallas-lstm True``: WER 0
-    on the validation and testing blocks, K1f and K1b launched."""
+    on the validation and testing blocks, K1f and K1b launched, and the
+    analysis step's electrode contributions finite, one a channel of the
+    4x4 grid."""
     t0 = time.perf_counter()
     # ---- the main path: counts reset just before, read just after ----
     reset_counts()
@@ -4942,8 +4971,14 @@ def demo_twin_phase(root: str) -> dict:
     check(all(v == 0 for k, v in counts.items() if k not in ("K1f", "K1b")),
           f"demo twin: launches {counts}")
     check(wers == {"validation": 0.0, "testing": 0.0}, f"demo twin: WER {wers}")
-    print(f"demo twin (100 epochs, f32, True): WER {wers} in {s:.1f} s; launches {counts}")
-    return {"counts": counts, "wers": wers, "s": s}
+    contribs = out["elec_contribs"]
+    check(contribs.shape == (16,) and bool(np.isfinite(contribs).all()),
+          f"demo twin: electrode contributions {contribs}")
+    print(f"demo twin (100 epochs, f32, True): WER {wers} in {s:.1f} s; electrode "
+          f"contributions (weight norms, 4x4 grid) {contribs.round(3).tolist()}; "
+          f"launches {counts}")
+    return {"counts": counts, "wers": wers, "s": s,
+            "elec_contribs": [float(c) for c in contribs]}
 
 
 OP_POINT = dict(synth_pattern_correlation=0.35, synth_noise_scale=0.15,
@@ -5339,6 +5374,228 @@ def tp_pp_phase(ranks_by_world: dict, refs: dict) -> dict:
     return results
 
 
+# --------------------------------------------------------------------------
+# 30. the examples: the user entry points of ``ecog2txt_tpu_torch.examples``
+# --------------------------------------------------------------------------
+
+# run_mocha_scale at full width for this many epochs (two assessments)
+MOCHA_EPOCHS = 20
+# the flash run of stream_long_recording and the MoE ranks: epochs enough to
+# train through the kernels (their checks hold at any epoch)
+FLASH_STREAM_EPOCHS = 20
+MOE_EPOCHS = 10
+
+
+def _only(path: str, counts: dict, launched: tuple) -> None:
+    """Every kernel in ``launched`` ran on ``path``, no other one."""
+    check(all(counts[k] > 0 for k in launched)
+          and all(v == 0 for k, v in counts.items() if k not in launched),
+          f"{path}: kernel launches {counts}, expected {launched} and no other")
+
+
+def _loss_by_interval(logdir: str) -> list:
+    (path,) = glob.glob(os.path.join(logdir, "events.out.tfevents.*"))
+    by_step: dict = {}
+    for event in iter_events(path):
+        by_step.setdefault(event["step"], {}).update(event.get("scalars", {}))
+    return [by_step[s]["loss/total"] for s in sorted(by_step) if "loss/total" in by_step[s]]
+
+
+def mocha_example_phase(root: str) -> dict:
+    """30a. ``examples.run_mocha_scale`` at full width (16x16 grid, 450
+    training trials, conv 100 / 12, 3x400 biLSTM, aux 225, decoder 150 /
+    800, B=128, bf16, True) for ``MOCHA_EPOCHS`` epochs: K1f 6 x (steps +
+    assessment encodes) and K1b 6 x steps exactly, all on the cluster
+    bodies; the mean loss of the last assessment interval below the
+    first's."""
+    logdir = os.path.join(root, "mocha_tb")
+    t0 = time.perf_counter()
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    out = run_mocha_scale.main([os.path.join(root, "mocha"), "--epochs", str(MOCHA_EPOCHS)],
+                               SN_kwargs={"tf_summaries_dir": logdir})
+    counts, bodies = read_counts(), read_bodies()
+    # ------------------------------------------------------------------
+    s = time.perf_counter() - t0
+    trainer = out["trainer"]
+    cfg = trainer.net_config
+    check((cfg.rnn_sizes, cfg.dec_rnn_sizes, cfg.conv_sizes, cfg.compute_dtype,
+           cfg.use_pallas_lstm, trainer.batch_size, cfg.in_channels)
+          == ((400, 400, 400), (800,), (100,), torch.bfloat16, True, 128, 256),
+          f"mocha example: config {cfg}")
+    encodes = 2 * len(out["history"])  # training and validation, one encode each
+    layers = len(cfg.rnn_sizes) * 2
+    check_counts("mocha example", counts, {"K1f": layers * (out["steps"] + encodes),
+                                           "K1b": layers * out["steps"]})
+    check_bodies("mocha example", bodies, "K1f", "cluster", counts["K1f"])
+    check_bodies("mocha example", bodies, "K1b", "cluster", counts["K1b"])
+    losses = _loss_by_interval(logdir)
+    check(len(losses) == len(out["history"]) and all(np.isfinite(losses))
+          and losses[-1] < losses[0], f"mocha example: loss by interval {losses}")
+    print(f"mocha example (full width, B=128, bf16, True): {MOCHA_EPOCHS} epochs, "
+          f"{out['steps']} steps, {encodes} assessment encodes in {out['wall_s']:.1f} s "
+          f"(data set-up {out['setup_s']:.1f} s, {s:.1f} s in all); {out['step_ms']:.2f} ms "
+          f"a step; loss by interval "
+          f"{losses}; final WERs {out['wers']}; launches {counts}  [{gpu_line()}]")
+    return {"counts": counts, "bodies": bodies, "epochs": MOCHA_EPOCHS,
+            **{k: out[k] for k in ("steps", "wall_s", "setup_s", "step_ms", "wers",
+                                   "epochs_to_wer_0")},
+            "assessments": len(out["history"]), "losses": losses, "s": s}
+
+
+def stream_example_phase(root: str) -> dict:
+    """30b. ``examples.stream_long_recording`` at its defaults ('auto':
+    dense attention at these lengths; K5f and K5b) and under 'flash' (K2f,
+    K2b-dq, K2b-dkv as well): every sentence's streamed tokens equal its
+    offline decode (the example exits 1 otherwise)."""
+    runs = {}
+    for impl, epochs, launched in (
+            ("auto", None, ("K5f", "K5b")),
+            ("flash", FLASH_STREAM_EPOCHS, ("K2f", "K2b-dq", "K2b-dkv", "K5f", "K5b"))):
+        argv = [os.path.join(root, f"stream_{impl}")]
+        argv += ["--epochs", str(epochs)] if epochs else []
+        sn = {"conformer": {"attention_impl": impl}} if impl != "auto" else None
+        t0 = time.perf_counter()
+        # ---- the main path: counts reset just before, read just after ----
+        reset_counts()
+        out = stream_long_recording.main(argv, SN_kwargs=sn)
+        counts = read_counts()
+        # ------------------------------------------------------------------
+        s = time.perf_counter() - t0
+        n = len(out["sentences"])
+        check(n == 8 and out["matches"] == n, f"stream example {impl}: {out['matches']}/{n}")
+        _only(f"stream example {impl}", counts, launched)
+        print(f"stream example ({impl}, {epochs or 120} epochs): streamed == offline for "
+              f"{n}/{n}; final training WER {out['final_training_wer']:.3f}; median warm "
+              f"real-time factor {out['rtf_warm']:.1f}x; {s:.1f} s; launches {counts}")
+        runs[impl] = {"counts": counts, "s": s, "rtf_warm": out["rtf_warm"],
+                      "final_training_wer": out["final_training_wer"]}
+    return runs
+
+
+def pool_example_phase(root: str) -> dict:
+    """30c. ``examples.serve_pool`` at its defaults: every stream's pooled
+    hypothesis equals a dedicated session's and the offline decode's (the
+    example exits 1 otherwise); K5f and K5b, no attention kernel (the pool
+    pins 'dense', the demo lengths pick it)."""
+    t0 = time.perf_counter()
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    out = serve_pool.main([os.path.join(root, "pool")])
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    s = time.perf_counter() - t0
+    check(len(out["streams"]) == 3 and all(x["agree"] for x in out["streams"]),
+          f"pool example: {out['streams']}")
+    _only("pool example", counts, ("K5f", "K5b"))
+    print(f"pool example: 3/3 streams pooled == dedicated == offline; {s:.1f} s; "
+          f"launches {counts}")
+    return {"counts": counts, "s": s}
+
+
+def raw_example_phase(root: str) -> dict:
+    """30d. ``examples.raw_voltage_demo`` under ``use_pallas_lstm='bi_grid'``
+    at its defaults (150 epochs, f32): the JAX bounds (validation WER at
+    most 0.25, streamed featurization within 1e-3 of offline), 3 K4f an
+    encode and 3 K4b a step (2 layers here: one a layer), no other kernel."""
+    t0 = time.perf_counter()
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    out = raw_voltage_demo.main([os.path.join(root, "raw")],
+                                SN_kwargs={"use_pallas_lstm": "bi_grid"})
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    s = time.perf_counter() - t0
+    trainer = out["trainer"]
+    steps = trainer.N_epochs * run_mocha_scale.steps_per_epoch(trainer)
+    # two encodes an assessment, every interval, and the final two partitions
+    encodes = 2 * (trainer.N_epochs // trainer.assessment_epoch_interval) + 2
+    layers = len(trainer.net_config.rnn_sizes)
+    check_counts("raw example", counts, {"K4f": layers * (steps + encodes),
+                                         "K4b": layers * steps})
+    check(out["wer"] <= 0.25 and out["stream_err"] < 1e-3,
+          f"raw example: WER {out['wer']}, streamed featurization {out['stream_err']}")
+    print(f"raw-voltage example ('bi_grid', f32): {out['n_trials']} trials; validation WER "
+          f"{out['wer']:.3f}, testing {out['out']['testing']['word_error_rate']:.3f}; "
+          f"streamed featurization max |err| {out['stream_err']:.2e}; {s:.1f} s; "
+          f"launches {counts}")
+    return {"counts": counts, "s": s, "wer": out["wer"], "stream_err": out["stream_err"]}
+
+
+def moe_example_rank(argv: list) -> dict:
+    """One rank of phase 30e: ``examples.moe_expert_parallel.main`` with the
+    launches it made."""
+    reset_counts()
+    out = moe_expert_parallel.main(argv)
+    return {"counts": read_counts(), "mesh": out["mesh"], "final_wer": out["final_wer"],
+            "tokens": out["tokens"], "offline": out["offline"]}
+
+
+def moe_example_phase(root: str) -> dict:
+    """30e. ``examples.moe_expert_parallel`` on 4 gloo ranks sharing the
+    card (``parallel.launch.spawn``): the experts over 4 ranks (data 1 x
+    model 4); on every rank the streamed decode equals the offline one, and
+    K5f and K5b ran, no other kernel."""
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:moe_example_rank", 4,
+                  {"argv": [os.path.join(root, "moe"), "--epochs", str(MOE_EPOCHS)]},
+                  timeout=RANK_TIMEOUT, backend="gloo", device="cuda",
+                  pythonpath=[os.path.dirname(os.path.abspath(__file__))])
+    s = time.perf_counter() - t0
+    for i, r in enumerate(ranks):
+        check(r["mesh"] == {"data": 1, "model": 4}, f"moe example rank {i}: mesh {r['mesh']}")
+        check(np.array_equal(r["tokens"], r["offline"]), f"moe example rank {i}: streamed "
+              "decode differs from offline")
+        _only(f"moe example rank {i}", r["counts"], ("K5f", "K5b"))
+    print(f"MoE example (4 gloo ranks, experts over 4, {MOE_EPOCHS} epochs): streamed == "
+          f"offline on every rank; final val WER {ranks[0]['final_wer']:.3f}; {s:.1f} s; "
+          f"launches by rank {[r['counts'] for r in ranks]}")
+    return {"counts_by_rank": [r["counts"] for r in ranks], "s": s}
+
+
+def migrate_example_phase(root: str) -> dict:
+    """30f. ``examples.migrate_from_reference`` at its defaults (the
+    packaged manifest, the stand-in TF1 source: a mapping, since tensorflow
+    is not on the card's machine): every variable imported, the architecture
+    read from the source equal to the trainer's, the exported program's
+    tokens equal to the predictor's; K1f and K1b (True), no other kernel."""
+    t0 = time.perf_counter()
+    # ---- the main path: counts reset just before, read just after ----
+    reset_counts()
+    out = migrate_from_reference.main([os.path.join(root, "migrate")])
+    counts = read_counts()
+    # ------------------------------------------------------------------
+    s = time.perf_counter() - t0
+    cfg, sizes = out["trainer"].net_config, out["recovered"]["layer_sizes"]
+    check("tensorflow is not installed" in out["tf1_source"],
+          f"migrate example: expected the mapping stand-in, got {out['tf1_source']}")
+    check(out["report"]["skipped"] == [] and len(out["report"]["imported"]) > 0,
+          f"migrate example: import report {out['report']}")
+    check((list(cfg.conv_sizes), list(cfg.rnn_sizes), list(cfg.dec_rnn_sizes))
+          == (sizes["encoder_embedding"], sizes["encoder_rnn"], sizes["decoder_rnn"]),
+          f"migrate example: recovered {sizes}, trainer {cfg}")
+    check(np.array_equal(out["exported_tokens"], out["tokens"]),
+          "migrate example: exported tokens differ")
+    _only("migrate example", counts, ("K1f", "K1b"))
+    print(f"migrate example: {out['tf1_source']}; {len(out['report']['imported'])} variables "
+          f"imported, architecture {sizes}; validation WER {out['wer']:.3f}; exported "
+          f"tokens == predictor's; {s:.1f} s; launches {counts}")
+    return {"counts": counts, "s": s, "wer": out["wer"],
+            "variables": len(out["report"]["imported"])}
+
+
+def examples_phase(root: str) -> dict:
+    """30. Every example of ``ecog2txt_tpu_torch.examples`` through its
+    ``main``, on the card."""
+    t0 = time.perf_counter()
+    out = {"mocha": mocha_example_phase(root), "stream": stream_example_phase(root),
+           "pool": pool_example_phase(root), "raw": raw_example_phase(root),
+           "moe": moe_example_phase(root), "migrate": migrate_example_phase(root)}
+    out["s"] = time.perf_counter() - t0
+    print(f"phase 30 (the examples): {out['s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a GPU",
@@ -5415,6 +5672,7 @@ def main() -> int:
                            for w, ranks in ((2, two), (4, four), (8, eight))}, tp_pp_refs)
         twin = demo_twin_phase(root)
         quality = decode_quality_phase(root)
+        examples = examples_phase(root)
     t256, t1 = kern["timings"][256], kern["timings"][1]
     b256 = kern_b["timings"][256]
     nb = HEADLINE_CONFORMER["num_blocks"]
@@ -5796,7 +6054,29 @@ def main() -> int:
         "grid_best": sweeps["grid"]["best"],
         "contributions": {key: sweeps["contributions"][key]
                           for key in ("s", "positions", "sal_err")}}
-    line["demo_twin"] = {"wers": twin["wers"], "s": twin["s"]}
+    # the launches of phase 30's paths (all ten kernels: a 0 says the path
+    # does not run it)
+    example_paths = {k: {"launches_examples": {
+        "run_mocha_scale": examples["mocha"]["counts"][k],
+        **{f"stream_long_recording_{impl}": r["counts"][k]
+           for impl, r in examples["stream"].items()},
+        "serve_pool": examples["pool"]["counts"][k],
+        "raw_voltage_demo_bi_grid": examples["raw"]["counts"][k],
+        "moe_expert_parallel_by_rank": by_rank(examples["moe"]["counts_by_rank"], k),
+        "migrate_from_reference": examples["migrate"]["counts"][k]}} for k in WRAPPERS}
+    line["examples"] = {
+        "s": examples["s"],
+        "run_mocha_scale": {k: v for k, v in examples["mocha"].items()
+                            if k not in ("counts", "bodies")},
+        **{name: {k: v for k, v in r.items() if k not in ("counts", "counts_by_rank")}
+           for name, r in (("serve_pool", examples["pool"]),
+                           ("raw_voltage_demo", examples["raw"]),
+                           ("moe_expert_parallel", examples["moe"]),
+                           ("migrate_from_reference", examples["migrate"]))},
+        "stream_long_recording": {impl: {k: v for k, v in r.items() if k != "counts"}
+                                  for impl, r in examples["stream"].items()}}
+    line["demo_twin"] = {"wers": twin["wers"], "s": twin["s"],
+                         "elec_contribs": twin["elec_contribs"]}
     line["decode_quality"] = {"wers": quality["wers"], "s": quality["s"]}
     for entry in line["kernels"]:
         entry.update(slice_paths.get(ids[entry["name"]], {}))
@@ -5804,6 +6084,7 @@ def main() -> int:
         entry.update(tools_paths.get(ids[entry["name"]], {}))
         entry.update(parallel_paths[ids[entry["name"]]])
         entry.update(sweep_paths[ids[entry["name"]]])
+        entry.update(example_paths[ids[entry["name"]]])
     line["script_s"] = time.perf_counter() - t_start
     print(f"chip_smoke.py took {line['script_s']:.1f} s")
     print(json.dumps(line))

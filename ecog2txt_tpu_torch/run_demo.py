@@ -7,11 +7,10 @@
 
 The twin of ``examples/run_demo.py``: build the trainer from the demo
 manifest, write the records, train with periodic assessment
-(``parallel_transfer_learn``), assess the validation and testing blocks
-and serve one trial online.  At the default 100 epochs the demo reaches
-WER 0.  The JAX demo's analysis step (``ResultsPlotter``'s electrode
-contributions) is left out: the plotting package is not ported yet (see
-ROADMAP.md, Queue 1, item 12).
+(``parallel_transfer_learn``), assess the validation and testing blocks,
+run the analysis step (the target subject's electrode contributions by
+weight norms, ``plotting.ResultsPlotter.elec_contribs``) and serve one
+trial online.  At the default 100 epochs the demo reaches WER 0.
 
 ``--data-parallel`` trains over the ranks that ``torchrun`` (or the
 trainer's ``distributed`` key) gives, each rank a slice of every batch,
@@ -33,7 +32,9 @@ def _pallas_flag(value: str):
 
 
 def main(argv=None) -> dict:
-    """Run the demo; returns the final assessment ``{partition: snapshot}``."""
+    """Run the demo; returns the final assessment ``{partition: snapshot}``
+    and, under ``"elec_contribs"``, the (num_channels,) electrode
+    contributions by weight norms."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("workdir", nargs="?", default=None)
     parser.add_argument("--epochs", type=int, default=100)
@@ -51,6 +52,7 @@ def main(argv=None) -> dict:
 
     from .demo import make_demo_experiment
     from .parallel.multihost import initialize_from_environment
+    from .plotting import ResultsPlotter
     from .serve import OnlinePredictor
     from .train import MultiSubjectTrainer
 
@@ -100,11 +102,16 @@ def main(argv=None) -> dict:
     say("example decodes:")
     for ref, hyp in zip(out["validation"]["references"][:3], out["validation"]["hypotheses"][:3]):
         say(f"  ref: {ref!r}\n  hyp: {hyp!r}")
+
+    # analysis hooks
+    plotter = ResultsPlotter(trainer.target_subject, trainer, VERBOSE=False)
+    contribs = plotter.elec_contribs("weight_norms")
+    say(f"electrode contributions (weight norms): {contribs.round(2)}")
     predictor = OnlinePredictor.from_trainer(trainer)
     ds = trainer.packed_dataset("testing")
     trial = ds.encoder_inputs[0, 0, : int(ds.encoder_lengths[0, 0])]
     say("online predict:", predictor(trial)["sequences"])
-    return out
+    return {**out, "elec_contribs": contribs}
 
 
 if __name__ == "__main__":

@@ -31,11 +31,14 @@ OP_POINT = dict(synth_pattern_correlation=0.35, synth_noise_scale=0.15,
 
 def test_demo_twin_runs_end_to_end(tmp_path, capsys):
     out = run_demo.main([str(tmp_path), "--epochs", "2", "--device", "cpu"])
-    assert set(out) == {"validation", "testing"}
-    for snap in out.values():
+    assert set(out) == {"validation", "testing", "elec_contribs"}
+    for partition in ("validation", "testing"):
+        snap = out[partition]
         assert np.isfinite(snap["word_error_rate"]) and len(snap["hypotheses"]) > 0
+    assert out["elec_contribs"].shape == (16,) and np.isfinite(out["elec_contribs"]).all()
     printed = capsys.readouterr().out
     assert "validation: WER" in printed and "online predict:" in printed
+    assert "electrode contributions (weight norms):" in printed
     assert (tmp_path / "exp" / "demo_word_sequence.yaml").is_file()
 
 

@@ -167,7 +167,10 @@ def test_port_imports_with_jax_blocked():
         "'parallel.expert', 'parallel.sequence', 'parallel.launch', 'parallel.pipeline', "
         "'parallel.sp_pp', 'parallel.dryrun', 'experiments', 'plotting', 'plotting.hkl', "
         "'plotting.results', 'plotting.gridsearch', 'plotting.anatomy', 'plotting.plotters', "
-        "'plotting.latex', 'plotting.figures', 'plotting.embeddings'}\n"
+        "'plotting.latex', 'plotting.figures', 'plotting.embeddings', 'examples', "
+        "'examples.run_mocha_scale', 'examples.stream_long_recording', 'examples.serve_pool', "
+        "'examples.raw_voltage_demo', 'examples.moe_expert_parallel', "
+        "'examples.migrate_from_reference'}\n"
         "assert need <= {n.split('.', 1)[1] for n in names}, names\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -198,6 +201,7 @@ def test_port_imports_without_the_host_only_libraries():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert 'ecog2txt_tpu_torch.plotting.plotters' in names, names\n"
+        "assert 'ecog2txt_tpu_torch.examples.migrate_from_reference' in names, names\n"
         "from ecog2txt_tpu_torch.plotting import DecodingResults, ResultsPlotter\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{blocked!r} and sys.modules[m] is not None]\n"
