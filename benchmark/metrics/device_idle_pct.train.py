@@ -1,0 +1,8 @@
+"""Share of the traced training window in which no kernel, copy or set ran
+on the card: 100 × (1 − union of device intervals ÷ window)."""
+
+
+def read(ctx):
+    if ctx.kind != "train" or ctx.trace is None:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
